@@ -1,11 +1,13 @@
-"""The CUDA flash kernels against their plain PyTorch versions, on the
-card. Every test here needs a CUDA card and skips without one; the file
-imports no jax, so it also runs on a machine with only PyTorch:
+"""The CUDA kernels against their plain PyTorch versions, and the
+manual-parallel step on the card against the CPU. Every test here needs
+a CUDA card and skips without one; the file imports no jax, so it also
+runs on a machine with only PyTorch:
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance, element by element: |kernel - plain| <= rtol * (|plain| +
 rms(plain)), rtol 2^-7 for bf16 outputs (the two may round one bf16 ulp
-apart) and 1e-4 for fp32 outputs (summation order only).
+apart); for fp32 outputs 1e-4 for the flash kernels (summation order
+only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
 """
 
 import pytest
@@ -38,7 +40,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
            *K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)]
     ref = [o_ref, K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal),
            *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)]
-    assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                                 "swiglu_fwd": 0, "swiglu_bwd": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -56,3 +59,64 @@ def test_explicit_flash_on_the_card_raises_for_a_shape_the_kernels_refuse(card):
         K.attention(q, gqa_kv, gqa_kv, use_flash=True)
     # left to the dispatcher, such shapes take the math path
     assert K.attention(ragged, ragged, ragged).shape == ragged.shape
+
+
+def _within(got, ref, rtol):
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() <= rtol * (ref.abs() + ref.square().mean().sqrt())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5), (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("shape", [(2, 64, 1024), (21, 200), (3, 24)])  # f = 512, 100, 12
+def test_swiglu_kernels_match_plain_versions(card, dtype, rtol, shape):
+    gen = torch.Generator(device=card).manual_seed(0)
+    x = (torch.randn(shape, generator=gen, device=card) * 3).to(dtype)
+    dy = torch.randn((*shape[:-1], shape[-1] // 2), generator=gen, device=card).to(dtype)
+    K.reset_launch_counts()
+    out, dx = K.swiglu_fwd(x), K.swiglu_bwd(x, dy)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["swiglu_fwd"] == 1 and K.launch_counts()["swiglu_bwd"] == 1
+    assert out.dtype == dtype and dx.shape == x.shape
+    assert _within(out, K.swiglu_fwd_plain(x), rtol)
+    assert _within(dx, K.swiglu_bwd_plain(x, dy), rtol)
+    # an unaligned base pointer takes the scalar loads of the same kernel
+    xs = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:].view(shape).copy_(x)
+    assert _within(K.swiglu_fwd(xs), K.swiglu_fwd_plain(x), rtol)
+
+
+@pytest.mark.cuda
+def test_swiglu_on_the_card_raises_for_what_the_kernels_refuse(card):
+    x = torch.zeros(8, 64, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.swiglu(x[:, ::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        K.swiglu_bwd(x, torch.zeros(32, 8, device=card).t())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.swiglu(x.half())
+    with pytest.raises(ValueError, match="even last dim"):
+        K.swiglu(torch.zeros(8, 63, device=card))
+
+
+@pytest.mark.cuda
+def test_parallel_step_on_the_card_matches_the_cpu(card):
+    from simumax_tpu_torch.torchref import parallel as T
+
+    cfg = T.PPConfig(vocab_size=512, hidden_size=128, head_num=2, head_size=64,
+                     intermediate_size=256, moe_ffn=128, expert_num=4, dtype=torch.float32)
+    ids = torch.randint(0, 512, (2, 128), generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        with T.process_group(device):
+            mesh = T.make_pp_mesh(1, pp=1, tp=1, ep=1, device=device)
+            params, specs = T.init_pp_params(cfg, mesh, torch.Generator().manual_seed(0))
+            K.reset_launch_counts()
+            new, loss = T.make_pp_train_step(cfg, mesh, lr=1.0)(specs)(params, ids, ids)
+            runs[device] = (float(loss), {k: v.cpu() for k, v in new.items()},
+                            K.launch_counts())
+    (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
+    assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                      "swiglu_fwd": 2, "swiglu_bwd": 2}
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for name in new_cpu:
+        assert _within(new_gpu[name], new_cpu[name], 1e-4), name

@@ -143,4 +143,4 @@ def test_wrappers_check_their_inputs_and_count_no_cpu_launch():
     with pytest.raises(ValueError, match="lse"):
         K.flash_bwd_dq(q, k, v, q, lse.double(), delta)
     K.flash_bwd_dkv(q, k, v, q, lse, delta)
-    assert K.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert set(K.launch_counts().values()) == {0}
