@@ -6,13 +6,19 @@ one CUDA card and exits non-zero without one (or outside the repository).
 Phases, each fatal on failure:
 
 1. build the CUDA kernels from ``simumax_tpu_torch/csrc/`` with nvcc,
-   one process per source, all started together;
+   one process per source, all started together; log each flash kernel's
+   registers and spills (ptxas), failing on a spill in a wgmma kernel, and,
+   where ``cuobjdump`` sits beside nvcc, the count of HGMMA (wgmma)
+   instructions in each;
 2. hold each flash kernel against its plain PyTorch version on the card,
    at the slice shapes (b=1, s=2048, h=16, d=128, bf16, causal) and at
-   two extra cases (non-causal; fp32 with several kv blocks), and time
-   the kernel, its plain version and the PyTorch library call that
-   computes the same function (``scaled_dot_product_attention``: a
-   yardstick the port never calls);
+   four extra cases (non-causal; bf16 at d=64; bf16 at s = 320, which is
+   64 mod 128; fp32 with several kv blocks), and time the kernel (its own
+   device time under ``torch.profiler``), its plain version and the
+   PyTorch library call that computes the same function
+   (``scaled_dot_product_attention``: a yardstick the port never calls) in
+   three alternating turns, logging the library's spread and the SDPA
+   backend its kernel names show;
 3. hold the SwiGLU forward and backward kernels against their plain
    versions at the three shapes the manual-parallel step gives them
    (dense MLP, psum MoE, a2a MoE; bf16), in fp32 at one of them and at a
@@ -29,7 +35,9 @@ Phases, each fatal on failure:
    before and read just after:
    a. ``simumax_tpu_torch.bench.main()``: both rows of the
       self-calibration loop at full width and depth. In the flash row
-      each flash kernel must run once per layer per step;
+      each flash kernel must run once per layer per step. Then one step
+      of each row's model under ``torch.profiler`` (kernel ms by family,
+      the device's idle share), outside the counted run;
    b. the manual-parallel training step (``torchref/parallel.py``) at
       the widths of the MoE model of ``tools/accuracy_table.py``
       (``bench_moe_0p4b``: hidden 1024, 8 heads of 128, ffn 1792, 8
@@ -46,6 +54,7 @@ kernel table; the last line is ``{"ok": true, "device": {...}}``.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -58,10 +67,16 @@ SLICE = dict(b=1, s=2048, h=16, d=128, dtype="bfloat16", causal=True)
 CASES = [
     ("slice", SLICE),
     ("non-causal", dict(b=2, s=512, h=4, d=128, dtype="bfloat16", causal=False)),
+    ("bf16 d=64", dict(b=1, s=1024, h=4, d=64, dtype="bfloat16", causal=True)),
+    ("bf16 s=320 (64 mod 128)", dict(b=2, s=320, h=3, d=128, dtype="bfloat16", causal=True)),
     ("fp32, 16 kv blocks", dict(b=1, s=1024, h=2, d=64, dtype="float32", causal=True)),
 ]
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SWIGLU = ("swiglu_fwd", "swiglu_bwd")
+#: the CUDA function each flash wrapper launches for bf16 inputs
+BF16_FUNCTIONS = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
+TURNS = 3  # alternating timing turns at the slice shapes
 SOURCES = {**{k: "simumax_tpu_torch/csrc/flash_attn.cu" for k in FLASH},
            **{k: "simumax_tpu_torch/csrc/swiglu.cu" for k in SWIGLU}}
 TPU_KERNELS = {
@@ -163,7 +178,6 @@ def check_kernels(K, time_fn):
     """Phase 2: each kernel against its plain version, and timings at
     the slice shapes. Returns {kernel: row of the kernel table}."""
     import torch
-    import torch.nn.functional as F
 
     table = {}
     for name, c in CASES:
@@ -206,38 +220,209 @@ def check_kernels(K, time_fn):
             continue
 
         # timings at the slice shapes
-        def ms(fn, *args):
-            with torch.no_grad():
-                return time_fn(fn, *args, warmup=2, iters=5, amortize=3,
-                               min_sample_s=0.05) * 1e3
-
-        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        times = {
-            "flash_fwd": (ms(K.flash_fwd, q, k, v, causal),
-                          ms(K.flash_fwd_plain, q, k, v, causal)),
-            "flash_bwd_dq": (ms(K.flash_bwd_dq, q, k, v, do, lse_ref, delta, causal),
-                             ms(K.flash_bwd_dq_plain, q, k, v, do, lse_ref, delta, causal)),
-            "flash_bwd_dkv": (ms(K.flash_bwd_dkv, q, k, v, do, lse_ref, delta, causal),
-                              ms(K.flash_bwd_dkv_plain, q, k, v, do, lse_ref, delta, causal)),
-        }
-        lib_fwd = ms(F.scaled_dot_product_attention, qh, kh, vh, None, 0.0, causal)
-        qg, kg, vg = (x.clone().requires_grad_(True) for x in (qh, kh, vh))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-        go = do.transpose(1, 2).contiguous()
-        lib_bwd = time_fn(lambda: torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True),
-                          warmup=2, iters=5, amortize=3, min_sample_s=0.05) * 1e3
-        for kernel, (t_kernel, t_plain) in times.items():
-            b_s, b_by, flops, nbytes = bound(kernel, c)
-            table[kernel].update(
-                ms=t_kernel, plain_ms=t_plain, bound_ms=b_s * 1e3, bound_by=b_by,
-                library_ms=lib_fwd if kernel == "flash_fwd" else lib_bwd,
-            )
-            log(f"time {kernel} [slice]: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
-                f"library {table[kernel]['library_ms']:.4f} ms, bound {b_s * 1e3:.4f} ms "
-                f"({b_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB)")
-        log("library_ms: scaled_dot_product_attention forward for flash_fwd, its "
-            "backward (dq, dk and dv in one call) for both backward kernels")
+        for kernel, rec in time_slice(K, time_fn, c, q, k, v, do, lse_ref, delta).items():
+            table[kernel].update(rec)
     return table
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
+
+
+def prime_profiler(torch):
+    """A first launch for a fresh profiler window, which may miss the first
+    launches it sees: a one-element fill (~2 µs), then wait for it."""
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+
+
+def device_ms(torch, calls, functions, reps=10):
+    """Device ms per launch of each CUDA function of ``functions`` ({name:
+    function symbol}) under ``torch.profiler``, over ``reps`` rounds of
+    ``calls``, each of which launches each function once. The profiler
+    may miss the first launches of its window, so the mean is over the
+    launches it recorded (at least one, at most ``reps``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prime_profiler(torch)
+        for _ in range(reps):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    out = {}
+    for name, symbol in functions.items():
+        hits = [e for e in events if f"::{symbol}<" in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in hits)
+        if not 0 < count <= reps:
+            raise AssertionError(f"{symbol}: {count} launches under the profiler in {reps} "
+                                 f"rounds")
+        out[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
+    return out
+
+
+def sdpa_backend(names):
+    """The SDPA backend its kernel names show."""
+    low = " ".join(names).lower()
+    for key, backend in (("cudnn", "cuDNN"), ("flash", "flash (FlashAttention-2)"),
+                         ("fmha", "memory-efficient (CUTLASS fmha)")):
+        if key in low:
+            return backend
+    return "math (no fused attention kernel)"
+
+
+def time_slice(K, time_fn, c, q, k, v, do, lse, delta):
+    """Timings at the slice shapes, in ``TURNS`` alternating turns of the
+    kernels and the library call: each kernel's own device ms (profiler),
+    its wrapper's ms per call (CUDA events around back-to-back calls:
+    the kernel plus the [b, s, h, d] -> [b*h, s, d] copies), its plain
+    version's ms, and ``scaled_dot_product_attention``'s forward and
+    backward (``library_ms``), each the median of the turns. Logs the
+    library's spread and the SDPA backend its kernel names show."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    causal = c["causal"]
+    calls = {
+        "flash_fwd": (lambda: K.flash_fwd(q, k, v, causal),
+                      lambda: K.flash_fwd_plain(q, k, v, causal)),
+        "flash_bwd_dq": (lambda: K.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                         lambda: K.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": (lambda: K.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+                          lambda: K.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)),
+    }
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (qh, kh, vh))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+    go = do.transpose(1, 2).contiguous()
+    library = {
+        "flash_fwd": lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+        "backward": lambda: torch.autograd.grad(out, (qg, kg, vg), go, retain_graph=True),
+    }
+
+    def ms(fn, grad=False):
+        with torch.set_grad_enabled(grad):
+            return time_fn(fn, warmup=1, iters=1, amortize=3, min_sample_s=0.05) * 1e3
+
+    samples = {name: {"ms": [], "call_ms": [], "plain_ms": []} for name in calls}
+    lib = {name: [] for name in library}
+    for _turn in range(TURNS):
+        dev = device_ms(torch, [fn for fn, _ in calls.values()],
+                        {name: BF16_FUNCTIONS[name] for name in calls})
+        for name, (fn, plain) in calls.items():
+            samples[name]["ms"].append(dev[name])
+            samples[name]["call_ms"].append(ms(fn))
+            samples[name]["plain_ms"].append(ms(plain))
+        for name, fn in library.items():
+            lib[name].append(ms(fn, grad=name == "backward"))
+
+    names, lib_device = set(), {}
+    for name, fn in library.items():
+        with torch.set_grad_enabled(name == "backward"), \
+                profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prime_profiler(torch)
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        names.update(e.key for e in events)
+        lib_device[name] = sum(e.self_device_time_total for e in events) / 10 / 1e3
+    backend = sdpa_backend(sorted(names))
+    log(f"scaled_dot_product_attention backend: {backend}; kernels: "
+        + "; ".join(n[:100] for n in sorted(names)))
+    for name, xs in lib.items():
+        log(f"library {name} [slice] over {TURNS} turns: {', '.join(f'{x:.4f}' for x in xs)} ms "
+            f"a call (median {median(xs):.4f}, spread {max(xs) - min(xs):.4f} ms); its kernels' "
+            f"device time {lib_device[name]:.4f} ms a call")
+
+    table = {}
+    for name, s in samples.items():
+        b_s, b_by, flops, nbytes = bound(name, c)
+        rec = {key: median(xs) for key, xs in s.items()}
+        lib_key = "flash_fwd" if name == "flash_fwd" else "backward"
+        rec.update(bound_ms=b_s * 1e3, bound_by=b_by, samples=s, sdpa_backend=backend,
+                   library_device_ms=lib_device[lib_key],
+                   library_ms=median(lib["flash_fwd" if name == "flash_fwd" else "backward"]),
+                   library_samples=lib["flash_fwd" if name == "flash_fwd" else "backward"])
+        table[name] = rec
+        log(f"time {name} [slice, {BF16_FUNCTIONS[name]}]: kernel {rec['ms']:.4f} ms "
+            f"({', '.join(f'{x:.4f}' for x in s['ms'])}), {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{b_s * 1e3 / rec['ms']:.1%} of its bound {b_s * 1e3:.4f} ms ({b_by}: "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); wrapper call {rec['call_ms']:.4f} "
+            f"ms; plain {rec['plain_ms']:.4f} ms; library {rec['library_ms']:.4f} ms")
+    log("library_ms: scaled_dot_product_attention forward for flash_fwd, its backward (dq, dk "
+        "and dv in one call) for both backward kernels; ms: the kernel's own device time")
+    return table
+
+
+def kernel_label(mangled):
+    """``flash_fwd_wgmma_kernel<128>`` from a mangled flash kernel name, or
+    None for another function."""
+    m = re.search(r"\d(flash_\w*?_kernel)I", mangled)
+    if not m:
+        return None
+    tmpl = mangled[m.end():]
+    tmpl = tmpl[:tmpl.find("EE") + 1] if "EE" in tmpl else tmpl
+    dtype = ["bf16"] if tmpl.startswith("13__nv_bfloat16") else ["f32"] if tmpl.startswith("f") else []
+    return f"{m.group(1)}<{', '.join(dtype + re.findall(r'Li(\d+)E', tmpl))}>"
+
+
+def check_build(K, reports):
+    """Phase 1 checks: each flash kernel's registers and spills from the
+    ptxas report (fails on a spill in a wgmma kernel) and, where cuobjdump
+    sits beside nvcc, its count of HGMMA (wgmma) instructions (fails on a
+    wgmma kernel with none). Returns {kernel: record}."""
+    info, label = {}, None
+    for line in reports.get("flash_attn", "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            label = kernel_label(m.group(1))
+            if label:
+                info[label] = {}
+            continue
+        if not label:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            info[label].update(spill_store_bytes=int(m.group(1)), spill_load_bytes=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            info[label]["registers"] = int(m.group(1))
+    for label, rec in info.items():
+        log(f"ptxas {label}: {rec.get('registers')} registers, {rec.get('spill_store_bytes')} bytes "
+            f"spill stores, {rec.get('spill_load_bytes')} bytes spill loads")
+    wgmma = [label for label in info if "wgmma" in label]
+    if len(wgmma) != 4:
+        raise AssertionError(f"expected 4 wgmma kernels in the ptxas report, found {wgmma}")
+    spilled = [label for label in wgmma if info[label].get("spill_store_bytes") != 0
+               or info[label].get("spill_load_bytes") != 0]
+    if spilled:
+        raise AssertionError(f"ptxas reports spills (or no spill line) for {spilled}")
+
+    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log(f"HGMMA counts not measured: no cuobjdump at {cuobjdump}")
+        return info
+    sass = subprocess.run([cuobjdump, "-sass", K._target("flash_attn")[1]], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    label = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m.group(1))
+            if label:
+                info.setdefault(label, {})["hgmma"] = 0
+        elif label and "HGMMA" in line:
+            info[label]["hgmma"] += 1
+    log("HGMMA instructions per kernel (cuobjdump -sass): "
+        + ", ".join(f"{label} {rec.get('hgmma')}" for label, rec in sorted(info.items())))
+    missing = [label for label in wgmma if not info[label].get("hgmma")]
+    if missing:
+        raise AssertionError(f"no HGMMA instruction in {missing}")
+    return info
 
 
 def check_small_model(torch):
@@ -395,7 +580,8 @@ def kernel_family(name):
 
 def profile_step(torch, step):
     """One call of ``step()`` under ``torch.profiler``: (its result, wall
-    ms between CUDA events, device ms summed over the kernels, {family:
+    ms between CUDA events, device ms summed over the kernels, the number
+    of kernels (and copies and memsets) it ran, {family:
     device ms}, [(kernel, device ms)] of the eight longest kernels,
     [(op, device ms)] of the eight aten ops whose kernels took longest).
     The wall time includes the profiler's own cost; the device ms is the
@@ -412,6 +598,7 @@ def profile_step(torch, step):
     events = prof.key_averages()
     kernels = [(e.key, e.self_device_time_total / 1e3) for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA)
     families = {}
     for name, ms in kernels:
         families[kernel_family(name)] = families.get(kernel_family(name), 0.0) + ms
@@ -420,8 +607,59 @@ def profile_step(torch, step):
            if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
            and e.device_time_total > 0]
     longest = lambda pairs: sorted(pairs, key=lambda kv: -kv[1])[:8]  # noqa: E731
-    return (out, start.elapsed_time(end), sum(ms for _, ms in kernels), families,
+    return (out, start.elapsed_time(end), sum(ms for _, ms in kernels), n_kernels, families,
             longest(kernels), longest(ops))
+
+
+def profile_bench_row(torch, bench, row):
+    """One step of a bench row's model (as ``bench.measure_step`` builds
+    it) under ``torch.profiler``, after two unprofiled steps: its wall ms,
+    kernel ms, device idle share and kernel split, beside the row's
+    measured and predicted step. Returns its record."""
+    from simumax_tpu_torch.torchref import model as M
+
+    flash = "flash" in row["label"]
+    mc = bench.build_bench_model()
+    cfg = M.LlamaConfig.from_model_config(mc, use_flash_attn=flash)
+    state = [M.init_params(cfg, seed=0, device="cuda")]
+    init_opt, train_step = M.make_train_step(cfg)
+    state.append(init_opt(state[0]))
+    ids = torch.randint(0, cfg.vocab_size, (1, bench.SEQ_LEN), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+
+    def step():
+        state[0], state[1], loss = train_step(state[0], state[1], (ids, ids))
+        return loss
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    # the host's time to issue a step (no synchronisation inside the
+    # three steps), against the wall time of the same steps
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    host = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    issued = (time.perf_counter() - t0) / 3 * 1e3
+    _loss, wall, busy, n_kernels, families, top, top_ops = profile_step(torch, step)
+    del state
+    torch.cuda.empty_cache()
+    idle = 1 - busy / wall if busy > 0 else None
+    log(f"{row['label']} under torch.profiler (one step): {wall:.3f} ms wall, {busy:.3f} ms of "
+        f"kernels (device idle {f'{idle:.1%}' if idle is not None else 'not measured'}); "
+        f"measured step {row['measured_ms']:.3f} ms, calibrated prediction "
+        f"{row['predicted_ms']:.3f} ms; {n_kernels} kernels a step, so the measured step "
+        f"exceeds their sum by {(row['measured_ms'] - busy) / n_kernels * 1e3:.2f} µs a kernel; "
+        f"without the profiler the host issued a step in {host:.3f} ms of a {issued:.3f} ms "
+        f"step; by family "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
+        + "; longest kernels: " + "; ".join(f"{k[:110]} {v:.3f} ms" for k, v in top)
+        + "; aten ops by the device time of their kernels: "
+        + "; ".join(f"{k} {v:.3f} ms" for k, v in top_ops))
+    return {"host_issue_ms": host, "unprofiled_step_ms": issued, "wall_ms": wall,
+            "device_ms": busy, "kernels": n_kernels, "idle_share": idle, "families_ms": families,
+            "top_kernels_ms": top, "top_aten_ops_ms": top_ops}
 
 
 def run_step(P, K, torch, dispatch):
@@ -451,7 +689,7 @@ def run_step(P, K, torch, dispatch):
             times.append(start.elapsed_time(end))
             losses.append(float(loss))
         peak = torch.cuda.max_memory_allocated()
-        (params, loss), wall, busy, families, top, top_ops = profile_step(
+        (params, loss), wall, busy, n_kernels, families, top, top_ops = profile_step(
             torch, lambda: step(params, ids, ids))
         losses.append(float(loss))
         steps += 1
@@ -461,7 +699,8 @@ def run_step(P, K, torch, dispatch):
     step_ms = sorted(times[STEP_WARMUP:])[STEP_ITERS // 2]
     rec = {"dispatch": dispatch, "params": n_params, "steps": steps, "losses": losses,
            "step_ms": times, "median_step_ms": step_ms, "peak_bytes": peak, "launches": counts,
-           "profiled_step": {"wall_ms": wall, "device_ms": busy, "families_ms": families,
+           "profiled_step": {"wall_ms": wall, "device_ms": busy, "kernels": n_kernels,
+                             "families_ms": families,
                              "top_kernels_ms": top, "top_aten_ops_ms": top_ops}}
     log(f"parallel step [{dispatch}, {n_params / 1e9:.4f} B params, 4 layers, seq {STEP_SEQ}, "
         f"bf16]: loss {losses[0]:.5f} -> {losses[-1]:.5f}, median step {step_ms:.3f} ms over "
@@ -469,7 +708,7 @@ def run_step(P, K, torch, dispatch):
         f"peak {peak / 2 ** 30:.3f} GiB, launches {counts}")
     idle = f"{1 - busy / wall:.1%}" if busy > 0 else "not measured: no device time recorded"
     log(f"parallel step [{dispatch}] under torch.profiler: {wall:.3f} ms wall, {busy:.3f} ms "
-        f"of kernels (device idle {idle} of the wall time); by family "
+        f"of kernels ({n_kernels} of them; device idle {idle} of the wall time); by family "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(families.items(), key=lambda kv: -kv[1]))
         + "; longest kernels: " + "; ".join(f"{k[:110]} {v:.3f} ms" for k, v in top)
         + "; aten ops by the device time of their kernels: "
@@ -537,10 +776,10 @@ def main():
     t0 = time.perf_counter()
     reports = K.build()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, into {K.build_dir()})")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  ptxas {name}: {line.strip()}")
+    for line in reports.get("swiglu", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line.lower():
+            log(f"  ptxas swiglu: {line.strip()}")
+    build_info = check_build(K, reports)
 
     table = check_kernels(K, time_fn)
     swiglu_table, swiglu_cases = check_swiglu(K)
@@ -574,6 +813,8 @@ def main():
         log(f"{row['label']}: each flash kernel launched {expect} times in {row['steps']} "
             f"steps ({row['layers']} layers); loss {row['loss_first']:.4f} -> "
             f"{row['loss_last']:.4f}")
+    for row in rows:
+        row["profiled_step"] = profile_bench_row(torch, bench, row)
 
     # main path b: the manual-parallel step, psum then a2a dispatch
     steps = [run_step(P, K, torch, dispatch) for dispatch in ("psum", "a2a")]
@@ -594,8 +835,9 @@ def main():
     ]
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "swiglu_cases": swiglu_cases,
-                   "rows": rows, "steps": steps}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels, "flash_timing": {
+            k: table[k] for k in FLASH}, "build": build_info, "swiglu_cases": swiglu_cases,
+            "rows": rows, "steps": steps}, f, indent=1)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,11 @@ TPU kernels becomes a CUDA C++ kernel for Hopper:
   all three in ``csrc/flash_attn.cu``, bound by operations on this card
   (17-34 GFLOP over ~34 MB at the slice shapes); the source says how they
   stream K/V (or Q/dO) tiles through shared memory where the TPU kernels
-  held a whole (b, h) slice in VMEM;
+  held a whole (b, h) slice in VMEM. bf16 inputs take wgmma kernels on
+  the tensor cores for the forward and dk/dv (``flash_fwd_wgmma_kernel``,
+  ``flash_bwd_dkv_wgmma_kernel``), which round P (and dS) to bf16 before
+  the second product; fp32 inputs, and dq in both dtypes, take fp32 FMA
+  kernels on the CUDA cores;
 * ``_swiglu_kernel`` (kernels.py:29, through ``pallas_swiglu`` :39) ->
   ``swiglu_fwd_kernel``, wrapped by :func:`swiglu_fwd`, with a backward
   kernel the TPU one lacks, ``swiglu_bwd_kernel``, wrapped by
@@ -118,8 +122,8 @@ def _target(name: str) -> Tuple[str, str]:
 def build() -> Dict[str, str]:
     """Compile every kernel source that has no library yet, one ``nvcc``
     per source, all started together. Returns ``{name: ptxas report}``
-    for the sources built now (registers, shared memory, spills).
-    Raises when a build fails."""
+    for every source (registers, shared memory, spills), kept beside each
+    library when it is built. Raises when a build fails."""
     os.makedirs(build_dir(), exist_ok=True)
     procs = {}
     for name in _SOURCES:
@@ -131,17 +135,23 @@ def build() -> Dict[str, str]:
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, lib)
-    reports = {}
     failed = []
     for name, (proc, tmp, lib) in procs.items():
         out, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
+        with open(f"{lib}.ptxas.txt", "w") as f:
+            f.write(out)
         os.replace(tmp, lib)
-        reports[name] = out
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    reports = {}
+    for name in _SOURCES:
+        path = f"{_target(name)[1]}.ptxas.txt"
+        if os.path.exists(path):
+            with open(path) as f:
+                reports[name] = f.read()
     return reports
 
 
@@ -165,9 +175,11 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _to_bh(x: torch.Tensor) -> torch.Tensor:
-    """[b, s, h, d] -> [b*h, s, d] contiguous."""
+    """[b, s, h, d] -> [b*h, s, d] contiguous, 16-byte aligned (the bf16
+    kernels copy 16 bytes at a time)."""
     b, s, h, d = x.shape
-    return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    y = x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    return y if y.data_ptr() % 16 == 0 else y.clone()
 
 
 def _from_bh(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
@@ -234,9 +246,20 @@ def _sm_scale(d: int) -> float:
 # -- plain versions (the kernels' arithmetic, in PyTorch) ---------------------
 
 
-def _scores(q, k, causal, sm_scale):
-    """fp32 (q * sm_scale) @ k^T with the top-left causal mask -> -inf."""
-    s = (q.float() * sm_scale) @ k.float().transpose(-1, -2)
+def _on_tensor_cores(q) -> bool:
+    """Whether the forward and dk/dv kernels for q's dtype are the wgmma
+    ones (bf16) rather than the CUDA-core ones (fp32, and dq always)."""
+    return q.dtype == torch.bfloat16
+
+
+def _scores(q, k, causal, sm_scale, scale_q=True):
+    """fp32 scores with the top-left causal mask -> -inf: (q * sm_scale)
+    @ k^T as the CUDA-core kernels compute them, or (q @ k^T) * sm_scale
+    (``scale_q=False``) as the wgmma kernels do."""
+    if scale_q:
+        s = (q.float() * sm_scale) @ k.float().transpose(-1, -2)
+    else:
+        s = (q.float() @ k.float().transpose(-1, -2)) * sm_scale
     if causal:
         sq, skv = s.shape[-2], s.shape[-1]
         q_pos = torch.arange(sq, device=s.device)[:, None]
@@ -245,26 +268,67 @@ def _scores(q, k, causal, sm_scale):
     return s
 
 
+def _operand(x, tensor_cores):
+    """An fp32 value as the next product takes it: rounded to bf16 on the
+    tensor cores, unchanged on the CUDA cores."""
+    return x.to(torch.bfloat16).float() if tensor_cores else x
+
+
+#: keys per tile of the wgmma forward kernel (BK in csrc/flash_attn.cu)
+_KV_TILE = 64
+
+
+def _safe_max(m):
+    return torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+
+
 def _fwd_plain_bh(q, k, v, causal):
+    if _on_tensor_cores(q):
+        return _fwd_online_plain_bh(q, k, v, causal)
     s = _scores(q, k, causal, _sm_scale(q.shape[-1]))
-    m = s.amax(-1)
-    safe_m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    safe_m = _safe_max(s.amax(-1))
     p = torch.exp(s - safe_m[..., None])
     l = p.sum(-1).clamp_min(1e-30)
     o = (p @ v.float()) / l[..., None]
     return o.to(q.dtype), safe_m + torch.log(l)
 
 
-def _bwd_common_plain_bh(q, k, v, do, lse, delta, causal):
-    p = torch.exp(_scores(q, k, causal, _sm_scale(q.shape[-1])) - lse[..., None])
+def _fwd_online_plain_bh(q, k, v, causal):
+    """The wgmma forward's arithmetic: fp32 scores (q @ k^T) * sm_scale,
+    an online softmax over 64-key tiles, each tile's P = exp(S - m) (m the
+    running max) rounded to bf16 for P @ V, O and l rescaled in fp32, l
+    summed from the fp32 P. Tiles the causal skip leaves out are all -inf
+    here and change nothing."""
+    s = _scores(q, k, causal, _sm_scale(q.shape[-1]), scale_q=False)
+    m = torch.full(s.shape[:-1], float("-inf"), device=s.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], v.shape[-1]), device=s.device)
+    for k0 in range(0, s.shape[-1], _KV_TILE):
+        s_t = s[..., k0:k0 + _KV_TILE]
+        m_new = torch.maximum(m, s_t.amax(-1))
+        safe = _safe_max(m_new)
+        corr = torch.where(torch.isneginf(m), torch.zeros_like(m), torch.exp(m - safe))
+        p = torch.exp(s_t - safe[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.bfloat16().float() @ v[..., k0:k0 + _KV_TILE, :].float()
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return (acc / l[..., None]).to(q.dtype), _safe_max(m) + torch.log(l)
+
+
+def _bwd_common_plain_bh(q, k, v, do, lse, delta, causal, scale_q=True):
+    s = _scores(q, k, causal, _sm_scale(q.shape[-1]), scale_q)
+    p = torch.exp(s - lse[..., None])
     ds = p * (do.float() @ v.float().transpose(-1, -2) - delta[..., None])
     return p, ds
 
 
 def flash_fwd_plain(q, k, v, causal: bool = True):
-    """Plain PyTorch version of :func:`flash_fwd`: the same fp32
-    arithmetic in whole-row form (the online softmax over kv blocks
-    gives the same values up to summation order)."""
+    """Plain PyTorch version of :func:`flash_fwd`. fp32: the CUDA-core
+    kernel's arithmetic, all in fp32, in whole-row form (its online
+    softmax over kv tiles gives the same values up to summation order).
+    bf16: the wgmma kernel's tile by tile (:func:`_fwd_online_plain_bh`),
+    since where P is rounded to bf16 depends on the running max."""
     _check("flash_fwd_plain", q, k, v)
     b, _s, h, _d = q.shape
     o, lse = _fwd_plain_bh(_to_bh(q), _to_bh(k), _to_bh(v), causal)
@@ -272,7 +336,8 @@ def flash_fwd_plain(q, k, v, causal: bool = True):
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain PyTorch version of :func:`flash_bwd_dq`."""
+    """Plain PyTorch version of :func:`flash_bwd_dq`: fp32 throughout,
+    in either input dtype (the CUDA-core kernel's arithmetic)."""
     _check_bwd("flash_bwd_dq_plain", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     kb = _to_bh(k)
@@ -283,14 +348,18 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain PyTorch version of :func:`flash_bwd_dkv`."""
+    """Plain PyTorch version of :func:`flash_bwd_dkv`. fp32: all in fp32.
+    bf16: the wgmma kernel's rounding, P^T and dS^T = P^T (dP^T - delta)
+    computed in fp32 and rounded to bf16 for P^T @ dO and dS^T @ Q, dk
+    scaled by sm_scale in fp32."""
     _check_bwd("flash_bwd_dkv_plain", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     qb, dob = _to_bh(q), _to_bh(do)
-    p, ds = _bwd_common_plain_bh(qb, _to_bh(k), _to_bh(v), dob,
-                                 lse.reshape(b * h, sq), delta.reshape(b * h, sq), causal)
-    dv = p.transpose(-1, -2) @ dob.float()
-    dk = (ds.transpose(-1, -2) @ qb.float()) * _sm_scale(d)
+    tc = _on_tensor_cores(q)
+    p, ds = _bwd_common_plain_bh(qb, _to_bh(k), _to_bh(v), dob, lse.reshape(b * h, sq),
+                                 delta.reshape(b * h, sq), causal, scale_q=not tc)
+    dv = _operand(p, tc).transpose(-1, -2) @ dob.float()
+    dk = (_operand(ds, tc).transpose(-1, -2) @ qb.float()) * _sm_scale(d)
     return _from_bh(dk.to(k.dtype), b, h), _from_bh(dv.to(v.dtype), b, h)
 
 

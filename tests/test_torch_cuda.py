@@ -6,7 +6,8 @@ runs on a machine with only PyTorch:
 
 Tolerance, element by element: |kernel - plain| <= rtol * (|plain| +
 rms(plain)), rtol 2^-7 for bf16 outputs (the two may round one bf16 ulp
-apart); for fp32 outputs 1e-4 for the flash kernels (summation order
+apart; the plain versions round P and dS to bf16 where the wgmma kernels
+do); for fp32 outputs 1e-4 for the flash kernels (summation order
 only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
 """
 
@@ -15,6 +16,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from simumax_tpu_torch.torchref import kernels as K  # noqa: E402
+
+
+def _within(got, ref, rtol):
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() <= rtol * (ref.abs() + ref.square().mean().sqrt())).all())
 
 
 @pytest.fixture
@@ -49,6 +55,45 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,causal", [
+    (1, 1024, 1024, 2, 64, True),   # d = 64, 16 kv tiles
+    (2, 320, 320, 3, 128, True),    # s = 64 mod 128
+    (1, 512, 512, 2, 128, False),   # several kv tiles, non-causal
+    (1, 320, 320, 2, 64, False),
+    (1, 128, 320, 2, 64, True),     # more keys than queries: kv tiles past every query
+    (2, 320, 128, 2, 128, True),    # more queries than keys
+])
+def test_bf16_wgmma_kernels_match_plain_versions(card, b, sq, skv, h, d, causal):
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=card).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, generator=gen, device=card).bfloat16() for _ in range(2))
+    K.reset_launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal)
+    delta = K.flash_delta(o_ref, do)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_fwd"] == 1 and K.launch_counts()["flash_bwd_dkv"] == 1
+    assert _within(lse, lse_ref, 1e-4)
+    for got, ref in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _within(got, ref, 2 ** -7)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_take_a_tensor_that_is_not_16_byte_aligned(card):
+    # one head: the [b*h, s, d] operand is a view of the input, which here
+    # starts 2 bytes into its storage; the wrapper copies it to an aligned one
+    gen = torch.Generator(device=card).manual_seed(2)
+    base = torch.randn(1 * 128 * 1 * 64 + 1, generator=gen, device=card).bfloat16()
+    q = base[1:].view(1, 128, 1, 64)
+    o, lse = K.flash_fwd(q, q, q)
+    o_ref, lse_ref = K.flash_fwd_plain(q, q, q)
+    assert _within(o, o_ref, 2 ** -7) and _within(lse, lse_ref, 1e-4)
+
+
+@pytest.mark.cuda
 def test_explicit_flash_on_the_card_raises_for_a_shape_the_kernels_refuse(card):
     ragged = torch.zeros(1, 96, 2, 64, device=card)
     with pytest.raises(ValueError, match="do not take"):
@@ -59,11 +104,6 @@ def test_explicit_flash_on_the_card_raises_for_a_shape_the_kernels_refuse(card):
         K.attention(q, gqa_kv, gqa_kv, use_flash=True)
     # left to the dispatcher, such shapes take the math path
     assert K.attention(ragged, ragged, ragged).shape == ragged.shape
-
-
-def _within(got, ref, rtol):
-    got, ref = got.float(), ref.float()
-    return bool(((got - ref).abs() <= rtol * (ref.abs() + ref.square().mean().sqrt())).all())
 
 
 @pytest.mark.cuda
