@@ -7,9 +7,11 @@ Phases, each fatal on failure:
 
 1. build the CUDA kernels from ``simumax_tpu_torch/csrc/`` with nvcc,
    one process per source, all started together; log each flash kernel's
-   registers and spills (ptxas), failing on a spill in a wgmma kernel, and,
-   where ``cuobjdump`` sits beside nvcc, the count of HGMMA (wgmma)
-   instructions in each;
+   registers and spills (ptxas), failing unless there are six wgmma
+   kernels (bf16 forward, dq and dk/dv at d = 64 and 128) with no spill,
+   and, where ``cuobjdump`` sits beside nvcc, the count of HGMMA (wgmma)
+   instructions in each; bf16 flash runs on the tensor cores, fp32 on
+   the CUDA cores;
 2. hold each flash kernel against its plain PyTorch version on the card,
    at the slice shapes (b=1, s=2048, h=16, d=128, bf16, causal) and at
    four extra cases (non-causal; bf16 at d=64; bf16 at s = 320, which is
@@ -74,7 +76,8 @@ CASES = [
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SWIGLU = ("swiglu_fwd", "swiglu_bwd")
 #: the CUDA function each flash wrapper launches for bf16 inputs
-BF16_FUNCTIONS = {"flash_fwd": "flash_fwd_wgmma_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+BF16_FUNCTIONS = {"flash_fwd": "flash_fwd_wgmma_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
 TURNS = 3  # alternating timing turns at the slice shapes
 SOURCES = {**{k: "simumax_tpu_torch/csrc/flash_attn.cu" for k in FLASH},
@@ -366,8 +369,7 @@ def kernel_label(mangled):
         return None
     tmpl = mangled[m.end():]
     tmpl = tmpl[:tmpl.find("EE") + 1] if "EE" in tmpl else tmpl
-    dtype = ["bf16"] if tmpl.startswith("13__nv_bfloat16") else ["f32"] if tmpl.startswith("f") else []
-    return f"{m.group(1)}<{', '.join(dtype + re.findall(r'Li(\d+)E', tmpl))}>"
+    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', tmpl))}>"
 
 
 def check_build(K, reports):
@@ -395,8 +397,8 @@ def check_build(K, reports):
         log(f"ptxas {label}: {rec.get('registers')} registers, {rec.get('spill_store_bytes')} bytes "
             f"spill stores, {rec.get('spill_load_bytes')} bytes spill loads")
     wgmma = [label for label in info if "wgmma" in label]
-    if len(wgmma) != 4:
-        raise AssertionError(f"expected 4 wgmma kernels in the ptxas report, found {wgmma}")
+    if len(wgmma) != 6:
+        raise AssertionError(f"expected 6 wgmma kernels in the ptxas report, found {wgmma}")
     spilled = [label for label in wgmma if info[label].get("spill_store_bytes") != 0
                or info[label].get("spill_load_bytes") != 0]
     if spilled:

@@ -23,23 +23,23 @@
 // blocks run heaviest-first to even out the tail of the grid.
 //
 // Two designs, chosen by dtype:
-//   * bf16 forward and dk/dv (flash_fwd_wgmma_kernel,
+//   * bf16 (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel,
 //     flash_bwd_dkv_wgmma_kernel): every product is a wgmma on the tensor
 //     cores, bf16 operands and fp32 accumulators; tiles stay bf16 in
 //     128-byte-swizzled shared memory, copied by cp.async through a
 //     two-stage ring so the next tile's copy overlaps this tile's products.
 //     They round where the tensor cores need bf16 operands: the forward
 //     rounds P = exp(S - m) to bf16 for O += P.V (l is summed from the fp32
-//     P); dk/dv round P^T and dS^T to bf16 for dV += P^T.dO and
-//     dK += dS^T.Q. Scores are Q.K^T (or K.Q^T) in fp32, times sm_scale;
-//     dK is scaled by sm_scale at the end.
-//   * fp32 (all three) and bf16 dq (flash_*_kernel): inputs upcast to fp32
-//     in shared memory, every product an fp32 FMA on the CUDA cores (each
-//     thread a 4x4 register tile of the score block), the TPU kernels'
-//     arithmetic: q scaled by sm_scale before Q.K^T in fwd and dq,
-//     (q * sm_scale).K^T and dk += (dS^T.Q) * sm_scale in dkv. The fp32
-//     rate (67 TFLOP/s) caps them; the tensor cores have no fp32 path
-//     without TF32 rounding, which the fp32 tolerances do not allow.
+//     P); dq rounds dS to bf16 for dQ += dS.K; dk/dv round P^T and dS^T to
+//     bf16 for dV += P^T.dO and dK += dS^T.Q. Scores are Q.K^T (or K.Q^T)
+//     in fp32, times sm_scale; dQ and dK are scaled by sm_scale at the end.
+//   * fp32 (flash_*_kernel): tiles in padded fp32 shared memory, every
+//     product an fp32 FMA on the CUDA cores (each thread a 4x4 register
+//     tile of the score block), the TPU kernels' arithmetic: q scaled by
+//     sm_scale before Q.K^T in fwd and dq, (q * sm_scale).K^T and
+//     dk += (dS^T.Q) * sm_scale in dkv. The fp32 rate (67 TFLOP/s) caps
+//     them; the tensor cores have no fp32 path without TF32 rounding,
+//     which the fp32 tolerances do not allow.
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -59,23 +59,14 @@ constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // key rows per tile
 constexpr int NT = 256;  // threads: a 16 x 16 grid, ty = tid / 16, tx = tid % 16
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// rows [row0, row0 + 64) of a [s, D] matrix -> fp32 shared tile with row
-// stride ld, each value multiplied by scale (1.0f leaves it exact)
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, int row0,
+// rows [row0, row0 + 64) of a [s, D] matrix -> shared tile with row stride
+// ld, each value multiplied by scale (1.0f leaves it exact)
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int row0,
                                           float scale) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
     const int r = idx / D, c = idx % D;
-    dst[r * ld + c] = to_f(src[(size_t)(row0 + r) * D + c]) * scale;
+    dst[r * ld + c] = src[(size_t)(row0 + r) * D + c] * scale;
   }
 }
 
@@ -96,11 +87,11 @@ __device__ __forceinline__ float row_sum(float x) {
 // ty + 16 i (i < 4), key columns tx + 16 j of each score tile, and output
 // columns tx + 16 c (c < D / 16)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int sq, int skv, float sm_scale,
-                 int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int sq, int skv, float sm_scale, int causal) {
   constexpr int LD = D + 1;  // padded rows: column reads hit 16 banks
   constexpr int PLD = BK + 1;
   constexpr int CJ = D / 16;
@@ -113,12 +104,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int nqb = sq / BQ;
   const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* kb = k + bh * skv * D;
-  const T* vb = v + bh * skv * D;
+  const float* qb = q + bh * sq * D;
+  const float* kb = k + bh * skv * D;
+  const float* vb = v + bh * skv * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(Qs, LD, qb, qi * BQ, sm_scale);
+  load_tile<D>(Qs, LD, qb, qi * BQ, sm_scale);
   int nkb = skv / BK;
   if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
 
@@ -133,8 +124,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int kt = 0; kt < nkb; ++kt) {
     __syncthreads();  // the previous tile is no longer read
-    load_tile<T, D>(Ks, LD, kb, kt * BK, 1.f);
-    load_tile<T, D>(Vs, D, vb, kt * BK, 1.f);
+    load_tile<D>(Ks, LD, kb, kt * BK, 1.f);
+    load_tile<D>(Vs, D, vb, kt * BK, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -200,9 +191,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int i = 0; i < 4; ++i) {
     const int row = qi * BQ + ty + 16 * i;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = o + (bh * sq + row) * D;
+    float* orow = o + (bh * sq + row) * D;
 #pragma unroll
-    for (int c = 0; c < CJ; ++c) orow[tx + 16 * c] = from_f<T>(acc[i][c] / denom);
+    for (int c = 0; c < CJ; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
     if (tx == 0) {
       const float safe = (m[i] == -INFINITY) ? 0.f : m[i];
       lse[bh * sq + row] = safe + logf(denom);
@@ -214,12 +205,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // dq: one CTA per (q tile, b*h), streaming K/V tiles; the same thread map
 // as the forward
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int sq, int skv,
-                    float sm_scale, int causal) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int sq, int skv, float sm_scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int PLD = BK + 1;
   constexpr int CJ = D / 16;
@@ -233,12 +224,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int nqb = sq / BQ;
   const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const size_t bh = blockIdx.y;
-  const T* kb = k + bh * skv * D;
-  const T* vb = v + bh * skv * D;
+  const float* kb = k + bh * skv * D;
+  const float* vb = v + bh * skv * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(Qs, LD, q + bh * sq * D, qi * BQ, sm_scale);
-  load_tile<T, D>(Gs, LD, dout + bh * sq * D, qi * BQ, 1.f);
+  load_tile<D>(Qs, LD, q + bh * sq * D, qi * BQ, sm_scale);
+  load_tile<D>(Gs, LD, dout + bh * sq * D, qi * BQ, 1.f);
   float lse_r[4], dl_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -257,8 +248,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   for (int kt = 0; kt < nkb; ++kt) {
     __syncthreads();
-    load_tile<T, D>(Ks, LD, kb, kt * BK, 1.f);
-    load_tile<T, D>(Vs, LD, vb, kt * BK, 1.f);
+    load_tile<D>(Ks, LD, kb, kt * BK, 1.f);
+    load_tile<D>(Vs, LD, vb, kt * BK, 1.f);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -315,9 +306,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    T* row = dq + (bh * sq + qi * BQ + ty + 16 * i) * D;
+    float* row = dq + (bh * sq + qi * BQ + ty + 16 * i) * D;
 #pragma unroll
-    for (int c = 0; c < CJ; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c] * sm_scale);
+    for (int c = 0; c < CJ; ++c) row[tx + 16 * c] = acc[i][c] * sm_scale;
   }
 }
 
@@ -326,12 +317,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 // start block; thread (ty, tx) owns key rows ty + 16 i, query columns
 // tx + 16 j of each (transposed) score tile, and output columns tx + 16 c
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int sq, int skv, float sm_scale, int causal) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
+                     float sm_scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int PLD = BQ + 1;
   constexpr int CJ = D / 16;
@@ -347,12 +339,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int ki = blockIdx.x;  // causal: low ki walks the most q tiles
   const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* gb = dout + bh * sq * D;
+  const float* qb = q + bh * sq * D;
+  const float* gb = dout + bh * sq * D;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  load_tile<T, D>(Ks, LD, k + bh * skv * D, ki * BK, 1.f);
-  load_tile<T, D>(Vs, LD, v + bh * skv * D, ki * BK, 1.f);
+  load_tile<D>(Ks, LD, k + bh * skv * D, ki * BK, 1.f);
+  load_tile<D>(Vs, LD, v + bh * skv * D, ki * BK, 1.f);
   const int nqb = sq / BQ;
   const int start = causal ? (ki * BK) / BQ : 0;
 
@@ -364,8 +356,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   for (int qt = start; qt < nqb; ++qt) {
     __syncthreads();
-    load_tile<T, D>(Qs, LD, qb, qt * BQ, 1.f);
-    load_tile<T, D>(Gs, LD, gb, qt * BQ, 1.f);
+    load_tile<D>(Qs, LD, qb, qt * BQ, 1.f);
+    load_tile<D>(Gs, LD, gb, qt * BQ, 1.f);
     if (threadIdx.x < BQ) {
       const size_t row = bh * sq + qt * BQ + threadIdx.x;
       Ls[threadIdx.x] = lse[row];
@@ -448,14 +440,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const size_t row = bh * skv + ki * BK + ty + 16 * i;
 #pragma unroll
     for (int c = 0; c < CJ; ++c) {
-      dk[row * D + tx + 16 * c] = from_f<T>(gk[i][c]);
-      dv[row * D + tx + 16 * c] = from_f<T>(gv[i][c]);
+      dk[row * D + tx + 16 * c] = gk[i][c];
+      dv[row * D + tx + 16 * c] = gv[i][c];
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 forward and dk/dv on the tensor cores: wgmma products fed by cp.async
+// bf16 kernels on the tensor cores: wgmma products fed by cp.async
 //
 // Shared-memory tiles. A [rows, D] bf16 tile is stored as D / 64 panels of
 // [rows, 64]; a panel row is 128 bytes, and the 16-byte chunk c of row r sits
@@ -753,6 +745,117 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dq: one CTA (one warpgroup) per (64-row q tile, b*h), heaviest first
+// when causal. Q and dO are copied once; 64-key K/V tiles stream through the
+// forward's two-stage ring. S = Q.K^T and dP = dO.V^T (SS wgmma, fp32), both
+// issued before one wait; P = exp(S sm_scale - lse), set to 0 above the
+// diagonal only on tiles that cross it; dS = P (dP - delta) in fp32, rounded
+// to bf16 into the A fragments of dQ += dS.K (RS wgmma, the same K tile read
+// MN-major: its rows are the reduction); dq = dQ sm_scale at the end.
+// Shared memory: Q, dO, then K and V of stage 0 and of stage 1 (6 tiles).
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(WG)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int sq, int skv, float sm_scale,
+                          int causal) {
+  constexpr int TB = BQ * D * 2;  // bytes of a 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t Qs = base, Gs = base + TB;
+  auto Ks = [&](int st) { return base + TB * (2 + 2 * st); };
+  auto Vs = [&](int st) { return base + TB * (3 + 2 * st); };
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int nqb = sq / BQ;
+  const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const size_t bh = blockIdx.y;
+  const __nv_bfloat16* kb = k + bh * skv * D;
+  const __nv_bfloat16* vb = v + bh * skv * D;
+  int nkb = skv / BK;
+  if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
+
+  cp_tile<BQ, D>(Qs, q + (bh * sq + qi * BQ) * D, tid);
+  cp_tile<BQ, D>(Gs, dout + (bh * sq + qi * BQ) * D, tid);
+  cp_tile<BK, D>(Ks(0), kb, tid);
+  cp_tile<BK, D>(Vs(0), vb, tid);
+  cp_async_commit();
+
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t row = bh * sq + qi * BQ + r0 + 8 * i;
+    lse_r[i] = lse[row];
+    dl_r[i] = delta[row];
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  for (int kt = 0; kt < nkb; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nkb) {
+      cp_tile<BK, D>(Ks(st ^ 1), kb + (size_t)(kt + 1) * BK * D, tid);
+      cp_tile<BK, D>(Vs(st ^ 1), vb + (size_t)(kt + 1) * BK * D, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // Q, dO and tile kt have landed
+    __syncthreads();
+
+    float s[BK / 2], dp[BK / 2];
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, kmajor_desc<BQ>(Qs, kk), kmajor_desc<BK>(Ks(st), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<BQ>(Gs, kk), kmajor_desc<BK>(Vs(st), kk), kk > 0);
+    wgmma_commit_and_wait();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool diag = causal && kt * BK + BK - 1 > qi * BQ;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      const int i = (e / 2) % 2;
+      const int kpos = kt * BK + (e / 4) * 8 + (lane % 4) * 2 + e % 2;
+      const float p = (diag && kpos > qi * BQ + r0 + 8 * i)
+                          ? 0.f
+                          : exp_fast(s[e] * sm_scale - lse_r[i]);
+      dp[e] = p * (dp[e] - dl_r[i]);
+    }
+
+    uint32_t da[BK / 16][4];  // written before the fence: wgmma reads them
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_frag(da[kk], dp, kk);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, da[kk], mnmajor_desc<BK>(Ks(st), kk));
+    wgmma_commit_and_wait();
+    fence_regs(acc);
+    __syncthreads();  // stage st is refilled in the next iteration
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    __nv_bfloat16* row = dq + (bh * sq + qi * BQ + r0 + 8 * i) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(row + nb * 8) = __floats2bfloat162_rn(
+          acc[nb * 4 + i * 2] * sm_scale, acc[nb * 4 + i * 2 + 1] * sm_scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16 dk/dv: one CTA (one warpgroup) per (64-row kv tile, b*h). K and V are
 // copied once; QT-row Q and dO tiles, with their slices of lse and delta,
 // stream through a two-stage ring from the causal start block. S^T = K.Q^T
@@ -908,10 +1011,11 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, scale, causal);
   } else {
     const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-    cudaError_t e = prepare(flash_fwd_kernel<T, D>, smem);
+    cudaError_t e = prepare(flash_fwd_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    flash_fwd_kernel<T, D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, scale, causal);
+    flash_fwd_kernel<D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq, skv, scale,
+        causal);
   }
   return cudaGetLastError();
 }
@@ -920,12 +1024,22 @@ template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int skv,
                    float scale, int causal, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
-  cudaError_t e = prepare(flash_bwd_dq_kernel<T, D>, smem);
-  if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dq, sq, skv, scale,
-      causal);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (!aligned16({q, k, v, g, dq})) return cudaErrorMisalignedAddress;
+    const size_t smem = 1024 + 6 * BQ * D * sizeof(T);
+    cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D>, smem);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_wgmma_kernel<D><<<dim3(sq / BQ, bh), WG, smem, st>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dq, sq, skv, scale,
+        causal);
+  } else {
+    const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+    cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
+    if (e != cudaSuccess) return e;
+    flash_bwd_dq_kernel<D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
+        (float*)dq, sq, skv, scale, causal);
+  }
   return cudaGetLastError();
 }
 
@@ -945,11 +1059,11 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
   } else {
     const size_t smem = sizeof(float) *
                         (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-    cudaError_t e = prepare(flash_bwd_dkv_kernel<T, D>, smem);
+    cudaError_t e = prepare(flash_bwd_dkv_kernel<D>, smem);
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_kernel<T, D><<<dim3(skv / BK, bh), NT, smem, st>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dk, (T*)dv, sq,
-        skv, scale, causal);
+    flash_bwd_dkv_kernel<D><<<dim3(skv / BK, bh), NT, smem, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
+        (float*)dk, (float*)dv, sq, skv, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -958,9 +1072,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 
 // dtype: 0 = float32, 1 = bfloat16; d: 64 or 128. Anything else returns
 // cudaErrorInvalidValue without launching. fp32 takes the CUDA-core kernels;
-// bf16 takes the wgmma kernels for the forward and dk/dv (and returns
-// cudaErrorMisalignedAddress for a tensor that is not 16-byte aligned) and the
-// CUDA-core kernel for dq.
+// bf16 takes the wgmma kernels (and returns cudaErrorMisalignedAddress for a
+// tensor that is not 16-byte aligned).
 #define FLASH_DISPATCH(CALL)                                              \
   if (dtype == 0 && d == 64) return (int)CALL(float, 64);                 \
   if (dtype == 0 && d == 128) return (int)CALL(float, 128);               \

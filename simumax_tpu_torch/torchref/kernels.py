@@ -14,10 +14,10 @@ TPU kernels becomes a CUDA C++ kernel for Hopper:
   (17-34 GFLOP over ~34 MB at the slice shapes); the source says how they
   stream K/V (or Q/dO) tiles through shared memory where the TPU kernels
   held a whole (b, h) slice in VMEM. bf16 inputs take wgmma kernels on
-  the tensor cores for the forward and dk/dv (``flash_fwd_wgmma_kernel``,
-  ``flash_bwd_dkv_wgmma_kernel``), which round P (and dS) to bf16 before
-  the second product; fp32 inputs, and dq in both dtypes, take fp32 FMA
-  kernels on the CUDA cores;
+  the tensor cores (``flash_fwd_wgmma_kernel``,
+  ``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``), which
+  round P (forward, dk/dv) and dS (dq, dk/dv) to bf16 before the second
+  product; fp32 inputs take fp32 FMA kernels on the CUDA cores;
 * ``_swiglu_kernel`` (kernels.py:29, through ``pallas_swiglu`` :39) ->
   ``swiglu_fwd_kernel``, wrapped by :func:`swiglu_fwd`, with a backward
   kernel the TPU one lacks, ``swiglu_bwd_kernel``, wrapped by
@@ -247,8 +247,8 @@ def _sm_scale(d: int) -> float:
 
 
 def _on_tensor_cores(q) -> bool:
-    """Whether the forward and dk/dv kernels for q's dtype are the wgmma
-    ones (bf16) rather than the CUDA-core ones (fp32, and dq always)."""
+    """Whether the flash kernels for q's dtype are the wgmma ones (bf16)
+    rather than the CUDA-core ones (fp32)."""
     return q.dtype == torch.bfloat16
 
 
@@ -336,14 +336,18 @@ def flash_fwd_plain(q, k, v, causal: bool = True):
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain PyTorch version of :func:`flash_bwd_dq`: fp32 throughout,
-    in either input dtype (the CUDA-core kernel's arithmetic)."""
+    """Plain PyTorch version of :func:`flash_bwd_dq`. fp32: all in fp32
+    (the CUDA-core kernel's arithmetic). bf16: the wgmma kernel's rounding,
+    dS = P (dP - delta) computed in fp32 and rounded to bf16 for dS @ K,
+    dq scaled by sm_scale in fp32."""
     _check_bwd("flash_bwd_dq_plain", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     kb = _to_bh(k)
+    tc = _on_tensor_cores(q)
     _p, ds = _bwd_common_plain_bh(_to_bh(q), kb, _to_bh(v), _to_bh(do),
-                                  lse.reshape(b * h, sq), delta.reshape(b * h, sq), causal)
-    dq = (ds @ kb.float()) * _sm_scale(d)
+                                  lse.reshape(b * h, sq), delta.reshape(b * h, sq), causal,
+                                  scale_q=not tc)
+    dq = (_operand(ds, tc) @ kb.float()) * _sm_scale(d)
     return _from_bh(dq.to(q.dtype), b, h)
 
 

@@ -531,7 +531,7 @@ def _steps_on_rank(world_size, device, jobs):
     return results if dist.get_rank() == 0 else None
 
 
-def run_pp_steps(world_size: int, jobs: Sequence[Mapping[str, Any]], device="cpu") -> list:
+def run_pp_steps(world_size: int, jobs: Sequence[Mapping[str, Any]], device="cuda") -> list:
     """One training step per job on ``world_size`` spawned ranks, all in
     one process group. A job holds ``cfg``, ``pp``, ``tp``, ``ep``, the
     global ``params`` (float32 numpy, as :func:`pp_params_from_jax` takes

@@ -71,12 +71,15 @@ def test_bf16_wgmma_kernels_match_plain_versions(card, b, sq, skv, h, d, causal)
     o, lse = K.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal)
     delta = K.flash_delta(o_ref, do)
+    dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dq_ref = K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
     dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
     dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
     torch.cuda.synchronize()
-    assert K.launch_counts()["flash_fwd"] == 1 and K.launch_counts()["flash_bwd_dkv"] == 1
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 1
     assert _within(lse, lse_ref, 1e-4)
-    for got, ref in ((o, o_ref), (dk, dk_ref), (dv, dv_ref)):
+    for got, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == torch.bfloat16 and got.shape == ref.shape
         assert _within(got, ref, 2 ** -7)
 

@@ -97,3 +97,36 @@ def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):
     for proc in runs:
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_every_public_device_parameter_defaults_to_the_card():
+    """Entry points run on the card unless the caller asks for the CPU: a
+    public function or method of the port with a ``device`` parameter
+    gives it no default or the default ``"cuda"``."""
+    import importlib
+    import inspect
+
+    def public_functions(mod):
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield name, obj
+            elif inspect.isclass(obj):
+                for attr, fn in vars(obj).items():
+                    fn = getattr(fn, "__func__", fn)  # staticmethod, classmethod
+                    if not attr.startswith("_") and inspect.isfunction(fn):
+                        yield f"{name}.{attr}", fn
+
+    seen, wrong = [], []
+    for modname in sorted(_modules()):
+        mod = importlib.import_module(modname)
+        for name, fn in public_functions(mod):
+            param = inspect.signature(fn).parameters.get("device")
+            if param is None:
+                continue
+            seen.append(f"{modname}.{name}")
+            if param.default is not inspect.Parameter.empty and param.default != "cuda":
+                wrong.append(f"{modname}.{name}: device={param.default!r}")
+    assert "simumax_tpu_torch.torchref.parallel.run_pp_steps" in seen and len(seen) >= 10
+    assert not wrong, "\n".join(wrong)

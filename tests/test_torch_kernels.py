@@ -11,8 +11,8 @@ a card, and by ``chip_smoke.py`` on the card.
 Tolerances: fp32 1e-5 on the forward (the reference tests' bar), 1e-4
 on gradients; bf16 forward 0.05 (a few bf16 ulps at these magnitudes).
 bf16 gradients, element by element, 2^-5 * (|jax| + rms(jax)): for bf16
-inputs the port's plain versions round P (forward and dk/dv) and dS (dk)
-to bf16 before the second product, where the tensor cores need bf16
+inputs the port's plain versions round P (forward and dk/dv) and dS (dq
+and dk) to bf16 before the second product, where the tensor cores need bf16
 operands, while the Pallas kernels keep them fp32. That is a deliberate
 difference: it moves each term of those sums by up to 2^-8 of itself, and
 with the final rounding of both sides to bf16 (one ulp, 2^-7) it reaches
@@ -124,19 +124,36 @@ def test_autograd_grads_match_jax_grad(causal):
         assert _max_diff(ref, got) < 1e-4
 
 
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_bwd_matches_pallas_bf16(causal):
-    q, k, v, do = _inputs(4, seed=1)
+def _check_bwd_bf16_against_pallas(causal, sq=SHAPE[1], skv=SHAPE[1]):
+    b, _s, h, d = SHAPE
+    rs = np.random.RandomState(1)
+    q, k, v, do = (rs.randn(b, s, h, d).astype(np.float32) for s in (sq, skv, skv, sq))
     jq, jk, jv, jdo = (jnp.array(x, jnp.bfloat16) for x in (q, k, v, do))
     o, lse = pallas_flash_attention(jq, jk, jv, causal=causal, block_k=64,
                                     interpret=True, return_lse=True)
-    _dq, dk_ref, dv_ref = _flash_bwd(jq, jk, jv, o, lse, jdo, causal, 128, 64, True)
+    dq_ref, dk_ref, dv_ref = _flash_bwd(jq, jk, jv, o, lse, jdo, causal, 128, 64, True)
     tq, tk, tv, tdo, to = (torch.tensor(_np32(x)).to(torch.bfloat16) for x in (jq, jk, jv, jdo, o))
     delta = K.flash_delta(to, tdo)
-    dk, dv = K.flash_bwd_dkv(tq, tk, tv, tdo, torch.tensor(np.asarray(lse)), delta, causal)
-    assert dk.dtype == dv.dtype == torch.bfloat16
-    assert _share(_np32(dk_ref), dk.float(), BF16_VS_JAX) <= 1.0
-    assert _share(_np32(dv_ref), dv.float(), BF16_VS_JAX) <= 1.0
+    tlse = torch.tensor(np.asarray(lse))
+    dq = K.flash_bwd_dq(tq, tk, tv, tdo, tlse, delta, causal)
+    dk, dv = K.flash_bwd_dkv(tq, tk, tv, tdo, tlse, delta, causal)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert dq.shape == tq.shape and dk.shape == dv.shape == tk.shape
+    for ref, got in ((dq_ref, dq), (dk_ref, dk), (dv_ref, dv)):
+        assert _share(_np32(ref), got.float(), BF16_VS_JAX) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_bwd_matches_pallas_bf16(causal):
+    _check_bwd_bf16_against_pallas(causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(128, 256), (256, 128)])
+def test_plain_bwd_matches_pallas_bf16_when_sq_differs_from_skv(sq, skv, causal):
+    # the top-left causal mask: with more keys than queries, the last kv
+    # blocks see no query; with more queries, the last q blocks see all keys
+    _check_bwd_bf16_against_pallas(causal, sq, skv)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -159,12 +176,12 @@ def test_autograd_grads_match_jax_grad_bf16(causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_bf16_plain_versions_round_where_the_kernels_do(causal):
-    """The bf16 plain forward and dk/dv against an explicit float64
+    """The bf16 plain forward, dq and dk/dv against an explicit float64
     formula that rounds where the wgmma kernels do: P of each 64-key tile
-    (against the running max) in the forward, P^T and dS^T in dk/dv. Only
-    a few elements may land one rounding apart (fp32 against float64 sums
-    on a bf16 boundary); the same formula without those roundings misses
-    most of them, so the check tells the two apart."""
+    (against the running max) in the forward, dS in dq, P^T and dS^T in
+    dk/dv. Only a few elements may land one rounding apart (fp32 against
+    float64 sums on a bf16 boundary); the same formula without those
+    roundings misses most of them, so the check tells the two apart."""
     b, s, h, d = 1, 192, 2, 64
     q, k, v, do = (_bf16(x) for x in _inputs(4, (b, s, h, d), seed=5))
     bh = lambda x: x.transpose(0, 2, 1, 3).reshape(b * h, s, d).astype(np.float64)  # noqa: E731
@@ -187,10 +204,11 @@ def test_bf16_plain_versions_round_where_the_kernels_do(causal):
             m = m_new
         return _bf16(acc / l[..., None]), np.where(np.isneginf(m), 0.0, m) + np.log(l)
 
-    def dkv(rnd, lse, delta):
+    def backward(rnd, lse, delta):  # dq, dk, dv
         p = np.exp(S - lse[..., None])
         ds = p * (G @ V.transpose(0, 2, 1) - delta[..., None])
-        return (_bf16((rnd(ds).transpose(0, 2, 1) @ Q) * sm_scale),
+        return (_bf16((rnd(ds) @ Kt) * sm_scale),
+                _bf16((rnd(ds).transpose(0, 2, 1) @ Q) * sm_scale),
                 _bf16(rnd(p).transpose(0, 2, 1) @ G))
 
     def layout(x):  # [b, s, h, d] tensor -> [b*h, s, d] float32 array
@@ -209,9 +227,11 @@ def test_bf16_plain_versions_round_where_the_kernels_do(causal):
     check(layout(o), o_ref, forward(lambda x: x)[0])
 
     delta = K.flash_delta(o, tdo)
+    dq = K.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, causal)
     dk, dv = K.flash_bwd_dkv(tq, tk, tv, tdo, lse, delta, causal)
     args = (lse.reshape(b * h, s).double().numpy(), delta.reshape(b * h, s).double().numpy())
-    for got, ref, unrounded in zip((dk, dv), dkv(rounded, *args), dkv(lambda x: x, *args)):
+    for got, ref, unrounded in zip((dq, dk, dv), backward(rounded, *args),
+                                   backward(lambda x: x, *args)):
         check(layout(got), ref, unrounded)
 
 
