@@ -28,18 +28,25 @@ Phases, each fatal on failure:
    rotated through more than the L2 cache holds. No single PyTorch call
    computes SwiGLU (``F.glu`` gates with sigmoid), so ``library_ms`` is
    null; eager ``F.silu(gate) * val`` is logged as a two-call yardstick;
-4. check the port's model on a small input: the flash path (the
-   kernels) and the math path give the same loss;
+4. check the port's reference models on a small input: the flash path
+   (the kernels) and the math path of the Llama give the same loss; the
+   MoE reference (fp32) and the int8 Llama (``use_int8``) on the card
+   give the CPU's loss and one Adam step's updated parameters; and time
+   ``torch._int_mm`` in the four memory orders of its operands, and the
+   int8 path's product in its three layouts, at the int8 row's shape;
 5. hold the manual-parallel step on the card against the same step on
    the CPU: a small fp32 config, psum and a2a dispatch, the loss and
    every updated parameter;
 6. drive the main paths, each with every launch count set to 0 just
    before and read just after:
-   a. ``simumax_tpu_torch.bench.main()``: both rows of the
-      self-calibration loop at full width and depth. In the flash row
-      each flash kernel must run once per layer per step. Then one step
-      of each row's model under ``torch.profiler`` (kernel ms by family,
-      the device's idle share), outside the counted run;
+   a. ``simumax_tpu_torch.bench.main()``: the seven rows of the
+      self-calibration loop at full width and depth (dense 6 layers, MoE
+      4). In the flash row each flash kernel must run once per layer per
+      step, and in no other row; each row's attention keys calibrate on
+      its own backend, the int8 row's ``int8_matmul`` keys and the MoE
+      row's ``group_matmul`` keys are measured. Then one step of each
+      row's model under ``torch.profiler`` (kernel ms by family, the
+      device's idle share), outside the counted run;
    b. the manual-parallel training step (``torchref/parallel.py``) at
       the widths of the MoE model of ``tools/accuracy_table.py``
       (``bench_moe_0p4b``: hidden 1024, 8 heads of 128, ffn 1792, 8
@@ -452,6 +459,106 @@ def check_small_model(torch):
         raise AssertionError("flash and math paths disagree on the small model")
 
 
+def tree_to(tree, device):
+    """A params tree's leaves copied to ``device`` as new leaves."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.detach().to(device).requires_grad_(True)
+
+
+def adam_step_agrees(new, ref, mu_ref, lr, clear):
+    """Largest share of its limit by which a parameter updated by one Adam
+    step on the card (``new``) differs from the CPU's (``ref``). The first
+    step moves each element by lr * g / (|g| + 1e-8), about lr times the
+    sign of its gradient, so where the gradient is lost in rounding noise
+    the two may step apart: there the limit is 2 lr. Elsewhere (|mu| of
+    the CPU's step at least ``clear`` of its leaf's largest |mu|) the
+    limit is 1e-4 (|cpu| + rms(cpu))."""
+    worst = 0.0
+    for got, want, mu in zip(new, ref, mu_ref):
+        got, want = got.float(), want.float()
+        clear_of_noise = mu.abs() >= clear * mu.abs().max()
+        limit = 1e-4 * (want.abs() + want.square().mean().sqrt())
+        limit = limit.where(clear_of_noise, limit.new_tensor(2 * lr))
+        worst = max(worst, float(((got - want).abs() / limit).max()))
+    return worst
+
+
+def check_reference_models_card_vs_cpu(torch):
+    """Phase 4: one Adam step of the MoE reference (fp32, capacity factor
+    1, so tokens are dropped) and of the int8 Llama on the card against
+    the same step on the CPU, from the same params and ids: the loss (rel
+    1e-5 in fp32; 2e-3 for the int8 path, whose bf16 activations round
+    at other points on the two) and every updated parameter
+    (:func:`adam_step_agrees`; gradients clear of the noise: |mu| >= 1e-3
+    of the largest in fp32, 5e-2 in the int8 path, where one step of a
+    quantized value moves a product by 1/127 of its scale)."""
+    from simumax_tpu_torch.torchref import model as M
+    from simumax_tpu_torch.torchref import moe_model as MoE
+
+    lr = 1e-2
+    cases = [
+        ("MoE reference, fp32, cf 1.0", MoE, MoE.MoeConfig(
+            vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4, head_size=64,
+            layer_num=2, expert_num=4, topk=2, moe_ffn=512, capacity_factor=1.0,
+            dtype=torch.float32), 1e-5, 1e-3),
+        ("int8 Llama, bf16", M, M.LlamaConfig(
+            vocab_size=512, hidden_size=256, head_num=2, kv_head_num=1, head_size=128,
+            intermediate_size=512, layer_num=2, dtype=torch.bfloat16, use_int8=True),
+         2e-3, 5e-2),
+    ]
+    ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0))
+    for name, mod, cfg, loss_rtol, clear in cases:
+        params = mod.init_params(cfg, seed=0, device="cpu")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            init_opt, step = mod.make_train_step(cfg, lr=lr)
+            p = tree_to(params, device)
+            new, opt, loss = step(p, init_opt(p), (ids.to(device), ids.to(device)))
+            runs[device] = (float(loss), [x.detach().cpu() for x in M.param_leaves(new)],
+                            [x.cpu() for x in M.param_leaves(opt["mu"])])
+        (loss_gpu, new_gpu, _), (loss_cpu, new_cpu, mu_cpu) = runs["cuda"], runs["cpu"]
+        rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        share = adam_step_agrees(new_gpu, new_cpu, mu_cpu, lr, clear)
+        log(f"{name} card vs cpu (2 layers, seq 64, batch 2): loss {loss_gpu:.7f} vs "
+            f"{loss_cpu:.7f} (rel {rel:.3g}, tolerance {loss_rtol:g}); updated params at most "
+            f"{share:.4g} of their limit")
+        if not (math.isfinite(loss_gpu) and rel <= loss_rtol and share <= 1.0):
+            raise AssertionError(f"{name}: the card and the CPU disagree")
+
+
+def time_int8_layouts(torch, time_fn):
+    """Phase 4: ``torch._int_mm`` at the int8 row's qkv shape ([2048,
+    2048] x [2048, 4096]) with its operands in each of the four memory
+    orders, and the int8 path's product (``quantized._mm``, its copies
+    included) in the forward, dgrad and wgrad layouts. Returns {case: ms}."""
+    from simumax_tpu_torch.torchref import quantized as Q
+
+    m, k, n = 2048, 2048, 4096
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    col = lambda t: t.t().contiguous().t()  # noqa: E731
+    calls = {f"_int_mm, first {oa}-major, second {ob}-major": (lambda x=x, y=y: torch._int_mm(x, y))
+             for oa, x in (("row", a), ("column", col(a)))
+             for ob, y in (("row", b), ("column", col(b)))}
+    g = torch.randint(-127, 128, (m, n), generator=gen, device="cuda", dtype=torch.int8)
+    calls.update({
+        "int8 path NN (x @ w)": lambda: Q._mm(a, b),
+        "int8 path NT (g @ w^T)": lambda: Q._mm(g, b, tb=True),
+        "int8 path TN (x^T @ g)": lambda: Q._mm(a, g, ta=True),
+    })
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            out[name] = time_fn(fn, warmup=2, iters=5, amortize=3, min_sample_s=0.02) * 1e3
+            log(f"time {name} [{m} x {k} x {n} int8]: {out[name]:.4f} ms, "
+                f"{2 * m * k * n / out[name] / 1e9:.1f} TOP/s")
+    return out
+
+
 def rotating(make, nbytes):
     """A call that cycles through enough copies of its inputs to exceed
     twice the L2 cache, so each launch reads its inputs from HBM as the
@@ -618,21 +725,8 @@ def profile_bench_row(torch, bench, row):
     it) under ``torch.profiler``, after two unprofiled steps: its wall ms,
     kernel ms, device idle share and kernel split, beside the row's
     measured and predicted step. Returns its record."""
-    from simumax_tpu_torch.torchref import model as M
-
-    flash = "flash" in row["label"]
-    mc = bench.build_bench_model()
-    cfg = M.LlamaConfig.from_model_config(mc, use_flash_attn=flash)
-    state = [M.init_params(cfg, seed=0, device="cuda")]
-    init_opt, train_step = M.make_train_step(cfg)
-    state.append(init_opt(state[0]))
-    ids = torch.randint(0, cfg.vocab_size, (1, bench.SEQ_LEN), device="cuda",
-                        generator=torch.Generator(device="cuda").manual_seed(0))
-
-    def step():
-        state[0], state[1], loss = train_step(state[0], state[1], (ids, ids))
-        return loss
-
+    step = bench.make_row_step(row["kind"], bench.build_model(row["kind"]), row["seq"],
+                               row["mbs"], row["layers"], row["remat"])
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -645,7 +739,7 @@ def profile_bench_row(torch, bench, row):
     torch.cuda.synchronize()
     issued = (time.perf_counter() - t0) / 3 * 1e3
     _loss, wall, busy, n_kernels, families, top, top_ops = profile_step(torch, step)
-    del state
+    del step
     torch.cuda.empty_cache()
     idle = 1 - busy / wall if busy > 0 else None
     log(f"{row['label']} under torch.profiler (one step): {wall:.3f} ms wall, {busy:.3f} ms of "
@@ -787,9 +881,11 @@ def main():
     swiglu_table, swiglu_cases = check_swiglu(K)
     table.update(swiglu_table)
     check_small_model(torch)
+    check_reference_models_card_vs_cpu(torch)
+    int8_ms = time_int8_layouts(torch, time_fn)
     check_step_card_vs_cpu(P, torch)
 
-    # main path a: both rows of the self-calibration loop
+    # main path a: the seven rows of the self-calibration loop
     K.reset_launch_counts()
     rows = bench.main()
     counts = K.launch_counts()
@@ -799,13 +895,18 @@ def main():
                     "loss_first", "loss_last", "measured_peak_gib"):
             if not (math.isfinite(row[key]) and (row[key] > 0 or key.startswith("loss"))):
                 raise AssertionError(f"{row['label']}: {key} = {row[key]}")
-        flash = "flash" in row["label"]
+        flash = row["kind"] == "flash"
         # the attention keys the estimate missed were measured on this row's
         # own backend: a failed kernel would have stopped the calibration
         for op in ("sdp_fwd", "sdp_bwd"):
             keys = list(row["calibrated"].get(op, {}))
             if len(keys) != 1 or keys[0].startswith("backend=cuda, ") is not flash:
                 raise AssertionError(f"{row['label']}: calibrated {op} keys {keys}")
+        # the int8 row's int8 GEMMs and the MoE row's expert GEMMs were measured
+        own = {"int8": "int8_matmul", "moe": "group_matmul"}.get(row["kind"])
+        if own and not row["calibrated"].get(own):
+            raise AssertionError(f"{row['label']}: no {own} key calibrated: "
+                                 f"{ {op: len(v) for op, v in row['calibrated'].items()} }")
         expect = row["layers"] * row["steps"] if flash else 0
         for kernel in FLASH:
             if row["launches"][kernel] != expect:
@@ -839,7 +940,7 @@ def main():
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "flash_timing": {
             k: table[k] for k in FLASH}, "build": build_info, "swiglu_cases": swiglu_cases,
-            "rows": rows, "steps": steps}, f, indent=1)
+            "rows": rows, "steps": steps, "int8_ms": int8_ms}, f, indent=1)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,24 @@
 """Self-calibration loop on one CUDA card: prediction accuracy of the
-analytical simulator against a measured PyTorch Llama training step.
+analytical simulator against measured PyTorch training steps.
 
 Port of the JAX package's ``bench.py`` (the loop at its lines 67-219),
-widened to two rows of ``tools/accuracy_table.py``. For each row:
+widened to the seven rows of ``tools/accuracy_table.py``. For each row:
 
-1. measure a real fwd+bwd+Adam step of the reference Llama
-   (``torchref/model.py``) on the card, by CUDA events;
+1. measure a real fwd+bwd+Adam step of the row's reference model on the
+   card, by CUDA events: the Llama of ``torchref/model.py`` (eager math
+   attention, the CUDA flash kernels, int8 linear layers, or full-block
+   recompute) or the MoE model of ``torchref/moe_model.py``;
 2. predict the same step with ``PerfLLM`` on the card's system config;
-3. calibrate exactly the GEMM, attention and Adam-update keys the
-   estimate missed, on the same card;
+3. calibrate exactly the GEMM, int8-GEMM, grouped-GEMM, attention and
+   Adam-update keys the estimate missed, on the same card;
 4. predict again and report the error against the measured step.
 
-Rows: "llama-0.5B bf16" (eager math attention, ``sdp_backend="torch"``)
-and "llama-0.5B flash" (the CUDA flash kernels, ``sdp_backend="cuda"``),
-both at the full width and depth of ``configs/models/bench-llama-0p5b``
-(6 layers, seq 2048, micro-batch 1).
+Rows (:data:`ROWS`): the dense rows run ``configs/models/bench-llama-0p5b``
+at its full width and depth (6 layers), the MoE row ``bench_moe_0p4b``
+(:func:`build_moe_model`, 4 layers). "llama-0.5B flash" is the JAX
+table's "flash(pallas)" row: the CUDA flash kernels
+(``sdp_backend="cuda"``); every other row takes eager math attention
+(``sdp_backend="torch"``).
 
 The measured peak memory is ``torch.cuda.max_memory_allocated``: the
 bytes of live tensors at their peak, as the caching allocator counts
@@ -27,7 +31,7 @@ raises without one.
 from __future__ import annotations
 
 import json
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -35,28 +39,30 @@ import torch
 from simumax_tpu_torch.calibration import calibrate_for_perf
 from simumax_tpu_torch.calibration.timing import time_stateful
 from simumax_tpu_torch.core.config import (
+    ModelConfig,
     StrategyConfig,
     get_model_config,
     list_configs,
 )
 from simumax_tpu_torch.core.errors import ConfigError
 from simumax_tpu_torch.perf import PerfLLM
+from simumax_tpu_torch.torchref import model as dense_model
+from simumax_tpu_torch.torchref import moe_model
 from simumax_tpu_torch.torchref.kernels import launch_counts
-from simumax_tpu_torch.torchref.model import (
-    LlamaConfig,
-    init_params,
-    make_train_step,
-    resolve_device,
-)
+from simumax_tpu_torch.torchref.model import resolve_device
 
-#: (row label, flash attention through the CUDA kernels)
-ROWS: List[Tuple[str, bool]] = [
-    ("llama-0.5B bf16", False),
-    ("llama-0.5B flash", True),
+#: (label, kind, seq, mbs, layers, remat), as ``tools/accuracy_table.py``;
+#: kind is "dense" (math attention), "flash" (the CUDA flash kernels),
+#: "int8" (int8 linear layers) or "moe" (the MoE reference model)
+ROWS: List[Tuple[str, str, int, int, int, bool]] = [
+    ("llama-0.5B bf16", "dense", 2048, 1, 6, False),
+    ("llama-0.5B seq4096", "dense", 4096, 1, 6, False),
+    ("llama-0.5B remat", "dense", 2048, 1, 6, True),
+    ("llama-0.5B mbs2", "dense", 1024, 2, 6, False),
+    ("llama-0.5B flash", "flash", 2048, 1, 6, False),
+    ("llama-0.5B int8", "int8", 2048, 1, 6, False),
+    ("moe-8e-top2 bf16", "moe", 2048, 1, 4, False),
 ]
-
-#: the bench's sequence length, as in the JAX package's bench
-SEQ_LEN = 2048
 
 #: card-name fragment -> system config; the first match wins
 _SYSTEMS = [("H100 PCIe", "h100_pcie"), ("H100 NVL", "h100_nvl"), ("H100", "h100_sxm")]
@@ -80,34 +86,80 @@ def detect_system(device="cuda") -> Tuple[str, str]:
     raise ConfigError(f"no system config for card {kind!r} (known: {_SYSTEMS})")
 
 
-def build_bench_model():
+def build_bench_model() -> ModelConfig:
     mc = get_model_config("bench-llama-0p5b")
     mc.maybe_pad_vocab_size(1)
     return mc
 
 
-def measure_step(mc, batch_size: int = 1, seq_len: int = SEQ_LEN, iters: int = 8,
-                 warmup: int = 2, use_flash: bool = False, seed: int = 0,
-                 device="cuda") -> Tuple[float, Dict]:
-    """Seconds per training step on the card, and stats: the peak of
-    ``torch.cuda.max_memory_allocated``, the steps run, the launches of
-    each CUDA kernel during them, and the first and last loss."""
+def build_moe_model() -> ModelConfig:
+    """``bench_moe_0p4b``, as ``tools/accuracy_table.py:36-55`` builds it."""
+    mc = ModelConfig(
+        model_name="bench_moe_0p4b",
+        model_type="moe",
+        hidden_size=1024,
+        head_num=8,
+        kv_head_num=8,
+        head_size=128,
+        intermediate_size=1792,
+        moe_ffn_hidden_size=1792,
+        expert_num=8,
+        topk=2,
+        dense_layers=0,
+        layer_num=4,
+        vocab_size=32000,
+        use_swiglu=True,
+    )
+    mc.maybe_pad_vocab_size(1)
+    return mc
+
+
+def build_model(kind: str) -> ModelConfig:
+    return build_moe_model() if kind == "moe" else build_bench_model()
+
+
+def make_row_step(kind: str, mc, seq_len: int, batch_size: int, layers: int,
+                  remat: bool = False, seed: int = 0, device="cuda") -> Callable:
+    """A row's training step on ``device``: a call that takes one
+    fwd+bwd+Adam step of the row's reference model (random weights and
+    token ids from ``seed``) and returns its loss."""
     dev = resolve_device(device)
-    cfg = LlamaConfig.from_model_config(mc, use_flash_attn=use_flash)
-    params = init_params(cfg, seed=seed, device=dev)
-    init_opt, train_step = make_train_step(cfg)
+    if kind == "moe":
+        cfg = moe_model.MoeConfig.from_model_config(mc, layer_num=layers)
+        params = moe_model.init_params(cfg, seed=seed, device=dev)
+        init_opt, train_step = moe_model.make_train_step(cfg)
+    else:
+        cfg = dense_model.LlamaConfig.from_model_config(
+            mc, layer_num=layers, use_flash_attn=kind == "flash", use_int8=kind == "int8")
+        params = dense_model.init_params(cfg, seed=seed, device=dev)
+        init_opt, train_step = dense_model.make_train_step(cfg, remat=remat)
     state = [params, init_opt(params)]
     rs = np.random.RandomState(seed)
     ids = torch.tensor(rs.randint(0, cfg.vocab_size, (batch_size, seq_len)),
                        dtype=torch.long, device=dev)
-    batch = (ids, ids)
+
+    def step():
+        state[0], state[1], loss = train_step(state[0], state[1], (ids, ids))
+        return loss
+
+    return step
+
+
+def measure_step(mc, kind: str = "dense", seq_len: int = 2048, batch_size: int = 1,
+                 layers: int = 0, remat: bool = False, iters: int = 8, warmup: int = 2,
+                 seed: int = 0, device="cuda") -> Tuple[float, Dict]:
+    """Seconds per training step of a row on the card, and stats: the
+    peak of ``torch.cuda.max_memory_allocated``, the steps run, the
+    launches of each CUDA kernel during them, and the first and last
+    loss. ``layers`` 0 takes the model's own depth."""
+    dev = resolve_device(device)
+    step = make_row_step(kind, mc, seq_len, batch_size, layers or mc.layer_num, remat,
+                         seed, dev)
     losses = []
 
     def run():
-        p, o, loss = train_step(state[0], state[1], batch)
-        state[0], state[1] = p, o
-        losses.append(loss)
-        return loss
+        losses.append(step())
+        return losses[-1]
 
     torch.cuda.reset_peak_memory_stats(dev)
     before = launch_counts()
@@ -120,13 +172,21 @@ def measure_step(mc, batch_size: int = 1, seq_len: int = SEQ_LEN, iters: int = 8
         "loss_first": float(losses[0]),
         "loss_last": float(losses[-1]),
     }
-    del state, params
+    del step
     torch.cuda.empty_cache()
     return t, stats
 
 
-def predict_step(mc, system_name: str, batch_size: int = 1,
-                 seq_len: int = SEQ_LEN, flash: bool = False) -> PerfLLM:
+def predict_step(mc, system_name: str, kind: str = "dense", seq_len: int = 2048,
+                 batch_size: int = 1, layers: int = 0, remat: bool = False) -> PerfLLM:
+    """The row's step as ``PerfLLM`` predicts it, set as
+    ``tools/accuracy_table.py``'s ``predict`` sets it, with the attention
+    backend mapped xla -> torch and pallas -> cuda. ``layers`` 0 keeps
+    the model's own depth; otherwise it is written into ``mc``, as the
+    JAX table does."""
+    if layers:
+        mc.layer_num = layers
+    flash = kind == "flash"
     st = StrategyConfig(
         world_size=1, tp_size=1, pp_size=1, seq_len=seq_len,
         micro_batch_size=batch_size, micro_batch_num=1, zero_state=0,
@@ -134,10 +194,13 @@ def predict_step(mc, system_name: str, batch_size: int = 1,
         # CUDA flash kernels keep them on chip
         use_flash_sdp=flash, use_math_sdp=not flash,
         sdp_backend="cuda" if flash else "torch",
+        fp8=kind == "int8", quant_dtype="int8",
         # autograd of bf16 params yields bf16 grads (cast to fp32 only
         # inside the Adam update): no fp32 main grads
         use_fp32_accum_grad=False,
         optimizer_style="functional",
+        enable_recompute=remat, recompute_granularity="full_block",
+        moe_capacity_factor=2.0,
     )
     st.__post_init__()
     perf = PerfLLM().configure(st, mc, system_name)
@@ -145,11 +208,12 @@ def predict_step(mc, system_name: str, batch_size: int = 1,
     return perf
 
 
-def run_row(label: str, flash: bool, max_keys: int = 24, device="cuda") -> Dict:
-    system_name, kind = detect_system(device)
-    mc = build_bench_model()
-    measured_s, stats = measure_step(mc, use_flash=flash, device=device)
-    perf = predict_step(mc, system_name, flash=flash)
+def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
+            max_keys: int = 24, device="cuda") -> Dict:
+    system_name, card = detect_system(device)
+    mc = build_model(kind)
+    measured_s, stats = measure_step(mc, kind, seq, mbs, layers, remat, device=device)
+    perf = predict_step(mc, system_name, kind, seq, mbs, layers, remat)
     pred_uncal = perf.analysis_cost()["iter_time"]
     calibrated = calibrate_for_perf(perf, max_keys=max_keys, device=device)
     perf.run_estimate()  # resets the cached cost/mem results
@@ -158,10 +222,13 @@ def run_row(label: str, flash: bool, max_keys: int = 24, device="cuda") -> Dict:
     mem = perf.analysis_mem()
     return {
         "label": label,
-        "device_kind": kind,
+        "kind": kind,
+        "device_kind": card,
         "system_config": system_name,
         "layers": mc.layer_num,
-        "seq": SEQ_LEN,
+        "seq": seq,
+        "mbs": mbs,
+        "remat": remat,
         "measured_ms": measured_s * 1e3,
         "predicted_uncalibrated_ms": pred_uncal * 1e3,
         "predicted_ms": pred_cal * 1e3,
@@ -183,8 +250,9 @@ def run_row(label: str, flash: bool, max_keys: int = 24, device="cuda") -> Dict:
 
 def main(device="cuda") -> List[Dict]:
     results = []
-    for label, flash in ROWS:
-        row = run_row(label, flash, device=device)
+    for spec in ROWS:
+        label = spec[0]
+        row = run_row(*spec, device=device)
         results.append(row)
         print(
             f"{label}: measured {row['measured_ms']:.3f} ms, uncalibrated "

@@ -3,8 +3,8 @@
 Port of the JAX package's ``calibration/autocal.py``, the part that
 :func:`calibrate_for_perf` reaches: it reads the exact shape keys a
 ``PerfLLM`` estimate *missed* in the efficiency tables, measures
-precisely those GEMM / grouped-GEMM / attention shapes with PyTorch on
-the local card, measures the Adam update the reference step runs, and
+precisely those GEMM / grouped-GEMM / int8-GEMM / attention shapes with
+PyTorch on the local card, measures the Adam update the reference step runs, and
 writes the efficiencies back into the live system config.
 
 The reference's XLA anti-folding machinery (``_chain_scan``,
@@ -34,6 +34,7 @@ from simumax_tpu_torch.core.utils import cuda_flash_supported
 from simumax_tpu_torch.observe.report import get_reporter
 from simumax_tpu_torch.torchref.kernels import flash_attention, math_attention
 from simumax_tpu_torch.torchref.model import adam_update, resolve_device
+from simumax_tpu_torch.torchref.quantized import _mm as int8_mm
 
 _DTYPES = {
     "bf16": torch.bfloat16,
@@ -138,10 +139,23 @@ def measure_gemm_efficiency(
     the given operand layout (NN fwd, NT dgrad, TN wgrad — the operand
     transposition each backprop stage hands the GEMM), per group when
     ``groups > 1`` (balanced grouped GEMM, as ``bmm``). The product's
-    type is its operands' (``out_dtype`` is part of the key only)."""
+    type is its operands' (``out_dtype`` is part of the key only).
+    ``dtype="int8"`` times the int8 path's own product
+    (``torchref.quantized._mm``: ``torch._int_mm`` with int32 results,
+    the copies into its full-rate operand order included)."""
     dev = _card(device)
     dt = _DTYPES.get(dtype, torch.bfloat16)
-    if groups > 1:
+    if dtype == "int8":
+        if batch != 1 or groups != 1:
+            raise ValueError("the int8 path multiplies 2-D operands")
+        shapes = {"NN": ((m, k), (k, n)), "NT": ((m, k), (n, k)), "TN": ((k, m), (k, n))}
+        a, b = (_test_array(shape, torch.int8, dev) for shape in shapes[layout])
+
+        def op():
+            return int8_mm(a, b, ta=layout == "TN", tb=layout == "NT")
+
+        flops = 2.0 * m * k * n
+    elif groups > 1:
         mg = max(m // groups, 1)
         a = _test_array((groups, mg, k), dt, dev)
         b = _test_array((groups, k, n), dt, dev)
@@ -269,8 +283,11 @@ def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
 def calibrate_key(op_key: str, shape_key: str, system,
                   sparse_ratio: float = 0.5, attempts: int = 3,
                   device="cuda") -> Optional[float]:
-    """Measure one (op table, shape key) pair; None if unsupported
-    (int8 tables wait for a later slice, a malformed key is skipped).
+    """Measure one (op table, shape key) pair; None if unsupported (a
+    malformed key, or an ``int8_matmul`` key with ``b > 1``, which the
+    int8 path never multiplies, is skipped). ``int8_group_matmul`` keys
+    take the grouped path with the key's dtype (default bf16), as in the
+    JAX package.
 
     Each microbenchmark runs under :func:`with_retries`; a key that keeps
     running out of memory raises :class:`CalibrationError` so the caller
@@ -278,8 +295,6 @@ def calibrate_key(op_key: str, shape_key: str, system,
     kv = _parse_key(shape_key)
     peak = _peak_tflops(system, op_key)
     label = f"{op_key}[{shape_key}]"
-    if op_key.startswith("int8"):
-        return None
     try:
         if op_key.endswith("group_matmul"):
             fn, kwargs = measure_gemm_efficiency, dict(
@@ -289,9 +304,12 @@ def calibrate_key(op_key: str, shape_key: str, system,
                 peak_tflops=peak, groups=int(kv["ng"]),
             )
         elif op_key.endswith("matmul"):
+            int8 = op_key.startswith("int8")
+            if int8 and int(kv.get("b", 1)) != 1:
+                return None
             fn, kwargs = measure_gemm_efficiency, dict(
                 m=int(kv["m"]), k=int(kv["k"]), n=int(kv["n"]),
-                dtype="bf16", out_dtype=kv.get("out_dtype", "bf16"),
+                dtype="int8" if int8 else "bf16", out_dtype=kv.get("out_dtype", "bf16"),
                 peak_tflops=peak, batch=int(kv.get("b", 1)),
                 layout=kv.get("layout", "NN"),
             )

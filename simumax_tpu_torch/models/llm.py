@@ -4,10 +4,8 @@ Reference: ``simumax/core/transformer/language_model.py`` (``LLMBlock:98``,
 ``LLMModel:210``, activation replay ``compute_activations:355-467``,
 ``PeakPoint:12``).
 
-Copy of the JAX package's ``models/llm.py``. The MoE and MLA layers
-(``models/moe.py``, ``models/mla.py``) are not ported yet: building a
-moe or mla model raises :class:`ConfigError` naming the ROADMAP item
-that adds them.
+Copy of the JAX package's ``models/llm.py``; only its import paths
+changed.
 """
 
 from __future__ import annotations
@@ -15,7 +13,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
-from simumax_tpu_torch.core.errors import ConfigError
 from simumax_tpu_torch.core.module import BuildContext, MetaModule
 from simumax_tpu_torch.core.tensor import TensorSpec
 from simumax_tpu_torch.models.dense import (
@@ -50,11 +47,14 @@ class LLMBlock(MetaModule):
         quantized = st.fp8
         self.input_norm = LayerNorm(ctx, name="input_norm")
         if m.attention_type == "mla":
-            raise ConfigError(
-                f"model {m.model_name!r} uses MLA attention, which the "
-                f"port does not model yet (ROADMAP.md queue A item 1: "
-                f"the MoE/MLA analytical copies)"
-            )
+            try:
+                from simumax_tpu_torch.models.mla import MLAAttention
+            except ImportError as e:  # pragma: no cover
+                raise NotImplementedError(
+                    "MLA attention is not available in this build"
+                ) from e
+
+            self.attention = MLAAttention(ctx, quantized=quantized)
         else:
             self.attention = Attention(ctx, quantized=quantized)
         if ctx.strategy.enable_dropout:
@@ -65,11 +65,9 @@ class LLMBlock(MetaModule):
             m.model_type == "moe" and layer_idx >= m.dense_layers
         )
         if self.is_moe_layer:
-            raise ConfigError(
-                f"model {m.model_name!r} has MoE layers, which the port "
-                f"does not model yet (ROADMAP.md queue A item 1: the "
-                f"MoE/MLA analytical copies)"
-            )
+            from simumax_tpu_torch.models.moe import ExpertMLP
+
+            self.mlp = ExpertMLP(ctx, quantized=quantized)
         else:
             self.mlp = MLP(ctx, quantized=quantized)
         if ctx.strategy.enable_dropout:

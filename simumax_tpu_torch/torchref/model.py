@@ -13,7 +13,9 @@ split-half RoPE with cos/sin cast to the input dtype; GQA kv heads
 repeated consecutively (``repeat_interleave``, as ``jnp.repeat``) before
 the flash kernels; eager math attention otherwise, mirroring
 ``jax.nn.dot_product_attention``; bf16 params with no master copy and
-fp32 Adam moments, the update computed in fp32 and cast back.
+fp32 Adam moments, the update computed in fp32 and cast back. With
+``use_int8`` every block linear layer and the LM head run
+``torchref/quantized.py``'s int8 matmul, as the reference's ``_linear``.
 
 Parameters are a plain nested dict of tensors with the reference's
 structure, so :func:`params_from_jax` can carry the JAX package's
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from simumax_tpu_torch.torchref.kernels import attention, math_attention
+from simumax_tpu_torch.torchref.quantized import int8_matmul
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -62,10 +65,15 @@ class LlamaConfig:
     #: repeated upstream — the layout the ``sdp_backend="cuda"``
     #: analytical keys cost); on CPU tensors the kernels' plain versions
     use_flash_attn: bool = False
+    #: run the block and head linear layers as real int8 GEMMs (forward
+    #: NN, dgrad NT, wgrad TN: ``torchref/quantized.py``), the measured
+    #: counterpart of the analytical ``fp8=True, quant_dtype="int8"`` path
+    use_int8: bool = False
 
     @classmethod
     def from_model_config(cls, m, layer_num: Optional[int] = None,
-                          use_flash_attn: bool = False, dtype=torch.bfloat16):
+                          use_flash_attn: bool = False, use_int8: bool = False,
+                          dtype=torch.bfloat16):
         """Build from a ModelConfig (analytical <-> measured parity)."""
         return cls(
             vocab_size=m.padded_vocab_size or m.vocab_size,
@@ -77,6 +85,7 @@ class LlamaConfig:
             layer_num=layer_num or m.layer_num,
             dtype=dtype,
             use_flash_attn=use_flash_attn,
+            use_int8=use_int8,
         )
 
 
@@ -178,13 +187,20 @@ def _rope(x, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
+def _linear(cfg: LlamaConfig) -> Callable:
+    if cfg.use_int8:
+        return int8_matmul
+    return lambda x, w: x @ w
+
+
 def _block(x, p, cfg: LlamaConfig):
     d = cfg.head_size
     q_out = cfg.head_num * d
     kv_out = cfg.kv_head_num * d
+    mm = _linear(cfg)
     res = x
     y = _rms_norm(x, p["input_norm"])
-    qkv = y @ p["qkv"]
+    qkv = mm(y, p["qkv"])
     q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
     q = _rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
@@ -199,17 +215,18 @@ def _block(x, p, cfg: LlamaConfig):
         o = attention(q, kk, vv, causal=True, use_flash=True)
     else:
         o = math_attention(q, k, v, causal=True)
-    x = res + o.reshape(b, s, q_out) @ p["out"]
+    x = res + mm(o.reshape(b, s, q_out), p["out"])
     res = x
     y = _rms_norm(x, p["pre_mlp_norm"])
-    up = y @ p["up"]
+    up = mm(y, p["up"])
     gate, val = up.chunk(2, dim=-1)
-    y = (F.silu(gate) * val) @ p["down"]
+    y = mm(F.silu(gate) * val, p["down"])
     return res + y
 
 
 def forward(params, ids, cfg: LlamaConfig, remat: bool = False):
-    """ids [b, s] int64 -> logits [b, s, vocab] in ``cfg.dtype``.
+    """ids [b, s] int64 -> logits [b, s, vocab] in ``cfg.dtype`` (bf16
+    with ``use_int8``).
     ``remat=True`` checkpoints each block (full-block activation
     recompute — the analytical ``full_block`` recompute config)."""
     x = params["embedding"][ids]
@@ -219,7 +236,7 @@ def forward(params, ids, cfg: LlamaConfig, remat: bool = False):
         else:
             x = _block(x, p, cfg)
     x = _rms_norm(x, params["final_norm"])
-    return x @ params["lm_head"]
+    return _linear(cfg)(x, params["lm_head"])
 
 
 def loss_fn(params, batch, cfg: LlamaConfig, remat: bool = False):

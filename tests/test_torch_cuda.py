@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, and the
-manual-parallel step on the card against the CPU. Every test here needs
-a CUDA card and skips without one; the file imports no jax, so it also
-runs on a machine with only PyTorch:
+manual-parallel step, the MoE reference and the int8 path on the card
+against the CPU. Every test here needs a CUDA card and skips without
+one; the file imports no jax, so it also runs on a machine with only
+PyTorch:
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
 Tolerance, element by element: |kernel - plain| <= rtol * (|plain| +
@@ -163,3 +164,92 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
+
+
+
+def _tree_to(tree, device):
+    """A params tree's leaves copied to ``device`` as new leaves."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.detach().to(device).requires_grad_(True)
+
+
+@pytest.mark.cuda
+def test_moe_reference_step_on_the_card_matches_the_cpu(card):
+    """One fp32 Adam step of the MoE reference on the card against the
+    same step on the CPU, with tokens dropped at capacity factor 1: the
+    loss to rel 1e-5, every updated parameter to 1e-4 (|cpu| + rms(cpu))
+    element by element (fp32 sums in other orders). The first Adam step
+    moves an element by about lr times the sign of its gradient, so
+    where the CPU's first moment is below 1e-3 of its leaf's largest (a
+    gradient that rounding could flip) the two may step apart by 2 lr."""
+    from simumax_tpu_torch.torchref import moe_model as M
+
+    cfg = M.MoeConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4, head_size=64,
+                      layer_num=2, expert_num=4, topk=2, moe_ffn=512, capacity_factor=1.0,
+                      dtype=torch.float32)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0))
+    lr, results = 1e-2, {}
+    for device in ("cuda", "cpu"):
+        init_opt, step = M.make_train_step(cfg, lr=lr)
+        p = _tree_to(params, device)
+        new, opt, loss = step(p, init_opt(p), (ids.to(device), ids.to(device)))
+        results[device] = (float(loss), [x.detach().cpu() for x in M.param_leaves(new)],
+                           [x.cpu() for x in M.param_leaves(opt["mu"])])
+    (loss_gpu, new_gpu, _), (loss_cpu, new_cpu, mu_cpu) = results["cuda"], results["cpu"]
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for got, ref, mu in zip(new_gpu, new_cpu, mu_cpu):
+        limit = 1e-4 * (ref.abs() + ref.square().mean().sqrt())
+        limit = limit.where(mu.abs() >= 1e-3 * mu.abs().max(), limit.new_tensor(2 * lr))
+        assert bool(((got - ref).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_on_the_card_matches_the_cpu(card, dtype):
+    """The int8 products (NN forward, NT dgrad, TN wgrad) are integer
+    arithmetic: equal on the card and the CPU. So are the quantized
+    operands and the bf16 output and gradients of ``int8_matmul``, which
+    round the same fp32 values."""
+    from simumax_tpu_torch.torchref import quantized as Q
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 40, 64, generator=gen).to(dtype)
+    w = (torch.randn(64, 48, generator=gen) * 0.1).to(dtype)
+    g = torch.randn(2, 40, 48, generator=gen).bfloat16()
+    q = {name: Q._q8(t.reshape(-1, t.shape[-1]))[0] for name, t in (("x", x), ("w", w), ("g", g))}
+    for a, b, ta, tb in (("x", "w", False, False), ("g", "w", False, True),
+                         ("x", "g", True, False)):
+        ref = Q._mm(q[a], q[b], ta=ta, tb=tb)
+        got = Q._mm(q[a].to(card), q[b].to(card), ta=ta, tb=tb)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        xd, wd = (t.to(device).requires_grad_(True) for t in (x, w))
+        y = Q.int8_matmul(xd, wd)
+        outs[device] = [t.cpu() for t in (y, *torch.autograd.grad(y, (xd, wd), g.to(device)))]
+    for got, ref in zip(outs["cuda"], outs["cpu"]):
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_int_mm_shape_rules_raise_on_the_card(card):
+    """The int8 path refuses, before the card does, the shapes
+    ``torch._int_mm`` refuses there (it pads nothing), and takes 17 rows."""
+    from simumax_tpu_torch.torchref import quantized as Q
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.int8, device=card)
+
+    assert torch.equal(Q._mm(ones(17, 8), ones(8, 8)).cpu(), torch.full((17, 8), 8))
+    for a, b in ((ones(16, 8), ones(8, 8)), (ones(32, 12), ones(12, 8)),
+                 (ones(32, 8), ones(8, 12))):
+        with pytest.raises(ValueError, match="more than 16 rows"):
+            Q._mm(a, b)
+        with pytest.raises(RuntimeError, match="greater than"):
+            torch._int_mm(a, b)
+    with pytest.raises(RuntimeError, match="dimension 2"):
+        torch._int_mm(ones(2, 32, 8), ones(8, 8))

@@ -43,6 +43,8 @@ LAYOUTS = [
 IDS = {f"pp{pp}-tp{tp}-ep{ep}-{d}{'-probs' if probs else ''}": layout
        for layout in LAYOUTS for pp, tp, ep, d, probs, _ in [layout]}
 P2P = dict(pp=2, tp=2, batch=2, seq=64)  # dense stages, bf16, on 4 ranks (dp 1)
+#: one MoE layer, a2a dispatch, bf16, on 8 ranks: ep 4, dp 2, 2 x 64 tokens a rank
+EP_A2A = dict(ep=4, ranks=8, batch=2, seq=64)
 
 
 def _jax_step(pp, tp, ep, dispatch, probs, ranks):
@@ -70,20 +72,31 @@ def _p2p_job():
     return dict(cfg=cfg, pp=P2P["pp"], tp=P2P["tp"], ep=1, params=params, ids=ids, lr=1e-3)
 
 
+def _ep_a2a_job():
+    cfg = T.PPConfig(ep_dispatch="a2a", moe_every=1, layers_per_stage=1)  # bf16
+    rs = np.random.RandomState(2)
+    params = {k: rs.randn(*s).astype(np.float32) * 0.02
+              for k, s in T._global_shapes(cfg, 1).items()}
+    dp = EP_A2A["ranks"] // EP_A2A["ep"]
+    ids = rs.randint(0, cfg.vocab_size, (EP_A2A["batch"] * dp, EP_A2A["seq"]))
+    return dict(cfg=cfg, pp=1, tp=1, ep=EP_A2A["ep"], params=params, ids=ids, lr=1e-3)
+
+
 @pytest.fixture(scope="module")
 def runs():
     """{layout: (jax (loss, params, new params), port (loss, new params,
-    ledger))} and the port's run of the p2p job."""
+    ledger))}, and the port's runs of the p2p and the ep a2a jobs."""
     jobs, refs = {4: [], 8: []}, {}
     for name, layout in IDS.items():
         job, refs[name] = _jax_step(*layout)
         jobs[layout[-1]].append((name, job))
     jobs[4].append(("p2p", _p2p_job()))
+    jobs[EP_A2A["ranks"]].append(("ep_a2a", _ep_a2a_job()))
     out = {}
     for ranks, named in jobs.items():
         results = T.run_pp_steps(ranks, [job for _, job in named], device="cpu")
         out.update({name: res for (name, _), res in zip(named, results)})
-    return {name: (refs[name], out[name]) for name in IDS}, out["p2p"]
+    return {name: (refs[name], out[name]) for name in IDS}, out["p2p"], out["ep_a2a"]
 
 
 @pytest.mark.parametrize("layout", list(IDS))
@@ -126,6 +139,49 @@ def test_pp_p2p_hops_match_boundary_bytes(runs):
     perf = PerfLLM().configure(st, mc, "tpu_v5e_256")
     perf.run_estimate()
     assert perf.chunks[(0, 0)].boundary_bytes() == pytest.approx(hops[0], rel=1e-2)
+
+
+def test_ep_a2a_volume_matches_the_analytical_dispatch(runs):
+    """Counterpart of the JAX package's HLO anchor for the EP all-to-all
+    (``tests/test_hlo_crosscheck.py``): the ledger's ``all_to_all`` bytes
+    on the ``ep`` axis against the dispatch + combine volume the port's
+    ``models/moe.py`` declares for the equivalent config.
+
+    The factor between the two is 1 for the tokens. The analytical calls
+    declare the full logical assignment volume, per-rank bytes times ep
+    (T * k * h * 2 * ep for T tokens a rank, top-k, bf16). The step's
+    dropless send buffer has ep rows of T * k slots, one per destination,
+    so it moves T * k * h * 2 * ep bytes too. Four a2a run: dispatch and
+    combine, each in the forward and the backward. The gloo ranks move
+    bf16 as bf16 (no upcast). Only the expert index is extra: one int32
+    all_to_all of ep * T * k entries in the forward, with no backward."""
+    loss, _new, ledger = runs[2]
+    assert np.isfinite(loss)
+    a2a = [nbytes for op, axis, nbytes in ledger if op == "all_to_all"]
+    assert all(axis == "ep" for op, axis, _ in ledger if op == "all_to_all")
+
+    cfg = _ep_a2a_job()["cfg"]
+    ep, dp = EP_A2A["ep"], EP_A2A["ranks"] // EP_A2A["ep"]
+    mc = ModelConfig(
+        model_name="probe_moe", model_type="moe", hidden_size=cfg.hidden_size,
+        head_num=cfg.head_num, kv_head_num=cfg.head_num, head_size=cfg.head_size,
+        intermediate_size=cfg.intermediate_size, moe_ffn_hidden_size=cfg.moe_ffn,
+        expert_num=cfg.expert_num, topk=cfg.topk, dense_layers=0, layer_num=1,
+        vocab_size=cfg.vocab_size, make_vocab_size_divisible_by=1,
+    )
+    st = StrategyConfig(
+        world_size=EP_A2A["ranks"], tp_size=1, pp_size=1, ep_size=ep, seq_len=EP_A2A["seq"],
+        micro_batch_size=EP_A2A["batch"], micro_batch_num=1, moe_capacity_factor=1.0,
+        optimizer_style="functional",
+    )
+    perf = PerfLLM().configure(st, mc, "tpu_v5e_256")
+    perf.run_estimate()
+    declared = sum(c.size_bytes for c in perf.chunks[(0, 0)].collective_calls
+                   if c.op == "all2all" and c.dim == "ep")
+    assignments = EP_A2A["batch"] * EP_A2A["seq"] * cfg.topk  # T * k of one rank
+    assert dp == 2 and len(a2a) == 5, ledger
+    assert declared == 4 * assignments * cfg.hidden_size * 2 * ep
+    assert sum(a2a) == declared + ep * assignments * 4
 
 
 class _Coords:

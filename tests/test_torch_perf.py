@@ -40,11 +40,17 @@ CASES = [
     ("tp8_pp1_dp1_mbs1", "llama3-70b", None),
     ("bench", "bench-llama-0p5b", "xla"),
     ("bench", "bench-llama-0p5b", "pallas"),
+    ("tp1_pp1_dp8_mbs1", "mixtral-8x1b", None),
+    ("ep4_pp2_dp4_mbs1", "mixtral-8x7b", None),
+    ("ep4_pp2_dp4_mbs1_full_recompute", "mixtral-8x7b", None),
+    ("ep8_pp1_dp8_mbs1", "deepseekv2-lite", None),  # MLA + MoE
 ]
 
 
 @pytest.mark.parametrize("strategy,model,backend", CASES,
-                         ids=["llama3-8b", "llama3-70b", "bench-math", "bench-flash"])
+                         ids=["llama3-8b", "llama3-70b", "bench-math", "bench-flash",
+                              "mixtral-8x1b", "mixtral-8x7b-ep4", "mixtral-8x7b-ep4-recompute",
+                              "deepseekv2-lite-mla"])
 def test_analytical_copy_matches_jax_package(strategy, model, backend):
     if strategy == "bench":
         flash = backend == "pallas"
@@ -71,7 +77,7 @@ def test_analytical_copy_matches_jax_package(strategy, model, backend):
 @pytest.mark.parametrize("flash", [False, True])
 def test_bench_row_misses_the_reference_key_set_on_h100(flash):
     mc = bench.build_bench_model()
-    perf = bench.predict_step(mc, "h100_sxm", flash=flash)
+    perf = bench.predict_step(mc, "h100_sxm", kind="flash" if flash else "dense")
     misses = {op: len(keys) for op, keys in perf.system.miss_efficiency.items()}
     assert misses == {"matmul": 15, "sdp_fwd": 1, "sdp_bwd": 1}
     assert "fused_adam" not in perf.system.accelerator.bandwidth  # calibrated too
@@ -111,11 +117,53 @@ def test_strategy_backends_and_shape_gate():
                             mc, "h100_sxm")
 
 
-@pytest.mark.parametrize("model", ["mixtral-8x1b", "deepseekv2-lite"])
-def test_moe_and_mla_models_raise_config_error(model):
-    perf = PerfLLM().configure("tp1_pp1_dp8_mbs1", model, "tpu_v5e_256")
-    with pytest.raises(ConfigError, match="ROADMAP.md queue A item 1"):
-        perf.run_estimate()
+#: the efficiency-table keys each row's estimate misses on h100_sxm (the
+#: JAX package's ``accuracy_table.predict`` misses as many on tpu_v5e_256)
+ROW_MISSES = {
+    "llama-0.5B int8": {"int8_matmul": 12, "matmul": 3, "sdp_fwd": 1, "sdp_bwd": 1},
+    "moe-8e-top2 bf16": {"group_matmul": 6, "matmul": 9, "sdp_fwd": 1, "sdp_bwd": 1},
+}
+
+
+@pytest.mark.parametrize("label", list(ROW_MISSES))
+def test_int8_and_moe_rows_miss_their_own_keys_on_h100(label):
+    """The int8 row misses the int8 GEMMs of its linear layers (the LM
+    head stays a bf16 ``matmul``, three keys), the MoE row its expert
+    GEMMs as ``group_matmul`` keys: these are what calibrate measures."""
+    _label, kind, seq, mbs, layers, remat = next(r for r in bench.ROWS if r[0] == label)
+    perf = bench.predict_step(bench.build_model(kind), "h100_sxm", kind, seq, mbs, layers, remat)
+    misses = perf.system.miss_efficiency
+    assert {op: len(keys) for op, keys in misses.items()} == ROW_MISSES[label]
+    if kind == "int8":
+        assert {autocal._parse_key(k)["layout"] for k in misses["int8_matmul"]} == {
+            "NN", "NT", "TN"}
+    else:
+        assert {autocal._parse_key(k)["ng"] for k in misses["group_matmul"]} == {"8"}
+    cost = perf.analysis_cost()
+    assert 0 < cost["iter_time"] < 1 and 0 < cost["mfu"] < 1
+
+
+@pytest.mark.parametrize("row", bench.ROWS, ids=[r[0] for r in bench.ROWS])
+def test_bench_rows_predict_what_the_accuracy_table_predicts(row):
+    """Each row of the loop, set as ``tools/accuracy_table.py``'s
+    ``predict`` sets it (int8 -> fp8 + quant_dtype int8, remat ->
+    full-block recompute, capacity factor 2), predicts the same step on
+    a TPU system config, with the backend mapped."""
+    from tools import accuracy_table
+
+    label, kind, seq, mbs, layers, remat = row
+    ref_mc = accuracy_table.moe_model() if kind == "moe" else accuracy_table.dense_model()
+    ref = accuracy_table.predict(ref_mc, seq, mbs, layers, remat, "tpu_v5e_256", kind)
+    got = bench.predict_step(bench.build_model(kind), "tpu_v5e_256", kind, seq, mbs, layers,
+                             remat)
+    for key in ("iter_time", "mfu"):
+        assert got.analysis_cost()[key] == pytest.approx(ref.analysis_cost()[key], rel=1e-12)
+    assert got.analysis_mem()["max_peak_gib"] == pytest.approx(
+        ref.analysis_mem()["max_peak_gib"], rel=1e-12)
+    assert got.strategy.sdp_backend == BACKENDS[ref.strategy.sdp_backend]
+    mapped = {op: sorted(k.replace("backend=pallas", "backend=cuda") for k in keys)
+              for op, keys in ref.system.miss_efficiency.items()}
+    assert mapped == {op: sorted(keys) for op, keys in got.system.miss_efficiency.items()}
 
 
 @pytest.mark.parametrize("method,args", [
@@ -129,7 +177,7 @@ def test_unported_methods_name_their_roadmap_item(method, args):
         getattr(perf, method)(*args)
 
 
-def test_calibration_helpers():
+def test_calibration_helpers(monkeypatch):
     key = ("backend=cuda, b=1, sq=2048, skv=2048, hn=16, kv_hn=8, hd=128, hd_v=128, "
            "causal=True, flash=True, dtype=bf16")
     kv = autocal._parse_key(key)
@@ -137,8 +185,13 @@ def test_calibration_helpers():
     assert autocal.validate_efficiency(0.5) == 0.5
     with pytest.raises(autocal.CalibrationError):
         autocal.validate_efficiency(1.5, "matmul", "x")
-    assert autocal.calibrate_key("int8_matmul", "m=1, k=1, n=1", get_system_config(
-        "h100_sxm")) is None
+    # int8 keys are measured on the card like the others (b > 1: skipped)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    h100 = get_system_config("h100_sxm")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autocal.calibrate_key("int8_matmul", "b=1, m=2048, k=2048, n=4096, layout=NT", h100)
+    assert autocal.calibrate_key("int8_matmul", "b=2, m=64, k=64, n=64, layout=NN",
+                                 h100) is None
 
 
 def test_with_retries_retries_only_a_device_oom():
