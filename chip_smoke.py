@@ -25,7 +25,8 @@ Phases, each fatal on failure:
    versions at the three shapes the manual-parallel step gives them
    (dense MLP, psum MoE, a2a MoE; bf16), in fp32 at one of them and at a
    ragged shape (21 rows, f = 100), and time them with the inputs
-   rotated through more than the L2 cache holds. No single PyTorch call
+   rotated through more than the L2 cache holds, replayed from CUDA
+   graphs (``calibration.timing.time_graph``). No single PyTorch call
    computes SwiGLU (``F.glu`` gates with sigmoid), so ``library_ms`` is
    null; eager ``F.silu(gate) * val`` is logged as a two-call yardstick;
 4. check the port's reference models on a small input: the flash path
@@ -37,29 +38,48 @@ Phases, each fatal on failure:
 5. hold the manual-parallel step on the card against the same step on
    the CPU: a small fp32 config, psum and a2a dispatch, the loss and
    every updated parameter;
-6. drive the main paths, each with every launch count set to 0 just
-   before and read just after:
-   a. ``simumax_tpu_torch.bench.main()``: the seven rows of the
-      self-calibration loop at full width and depth (dense 6 layers, MoE
-      4). In the flash row each flash kernel must run once per layer per
-      step, and in no other row; each row's attention keys calibrate on
-      its own backend, the int8 row's ``int8_matmul`` keys and the MoE
-      row's ``group_matmul`` keys are measured. Then one step of each
-      row's model under ``torch.profiler`` (kernel ms by family, the
-      device's idle share), outside the counted run;
-   b. the manual-parallel training step (``torchref/parallel.py``) at
-      the widths of the MoE model of ``tools/accuracy_table.py``
-      (``bench_moe_0p4b``: hidden 1024, 8 heads of 128, ffn 1792, 8
-      experts, top-2, vocab 32000), 4 layers with every second one MoE,
-      seq 2048, batch 1, bf16, world size 1, once with psum and once
-      with a2a dispatch: each of the five kernels must run 4 times per
-      step; the median step time (CUDA events) and the peak memory are
-      reported.
+6. calibrate the HBM bandwidth classes (``calibrate_bandwidth_classes``,
+   each in (0, 1.05]) and ``calibrate_system`` the bf16 row's estimate on
+   the datasheet config ``h100_sxm`` into ``build/``: the JSON loads back
+   with the same tables and a provenance stamp naming this card;
+7. time the flash row's ``sdp_bwd`` key and the ``permute_fwd`` class
+   from CUDA graphs, plain and with a thread that spins in Python and
+   holds the interpreter lock: the two readings must agree within 5%;
+   the eager readings (back-to-back Python calls) are logged beside them;
+8. run one full-width step of the MoE row's model under
+   ``torch.cuda.set_sync_debug_mode("error")``: its dispatch has static
+   shapes, so nothing in the step waits for the card;
+9. the peak-memory table (``tools/validate_memory_table``: eight
+   configs of the 0.5B Llama, one measured step each) into ``build/``;
+10. drive the main paths, each with every launch count set to 0 just
+    before and read just after:
+    a. ``simumax_tpu_torch.bench.main()``: the seven rows of the
+       self-calibration loop at full width and depth (dense 6 layers, MoE
+       4), predicted on the calibrated config ``h100_sxm_calibrated`` and
+       on the datasheet config ``h100_sxm``, each with the miss-driven
+       loop. In the flash row each flash kernel must run once per layer
+       per step, and in no other row; on ``h100_sxm`` each row's
+       attention keys calibrate on its own backend, the int8 row's
+       ``int8_matmul`` keys and the MoE row's ``group_matmul`` keys are
+       measured. Then one step of each row's model under
+       ``torch.profiler`` (kernel ms by family, the device's idle share),
+       outside the counted run, and a line per row with both errors and
+       its idle share. The calibration's graph replays count each
+       launch they replay;
+    b. the manual-parallel training step (``torchref/parallel.py``) at
+       the widths of the MoE model of ``tools/accuracy_table.py``
+       (``bench_moe_0p4b``: hidden 1024, 8 heads of 128, ffn 1792, 8
+       experts, top-2, vocab 32000), 4 layers with every second one MoE,
+       seq 2048, batch 1, bf16, world size 1, once with psum and once
+       with a2a dispatch: each of the five kernels must run 4 times per
+       step; the median step time (CUDA events) and the peak memory are
+       reported.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -123,14 +143,6 @@ STEP_SEQ, STEP_WARMUP, STEP_ITERS = 2048, 2, 10
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    return out[0] if out else ""
 
 
 def causal_pairs(sq, skv, causal):
@@ -401,8 +413,9 @@ def check_build(K, reports):
         if m:
             info[label]["registers"] = int(m.group(1))
     for label, rec in info.items():
-        log(f"ptxas {label}: {rec.get('registers')} registers, {rec.get('spill_store_bytes')} bytes "
-            f"spill stores, {rec.get('spill_load_bytes')} bytes spill loads")
+        log(f"ptxas {label}: {rec.get('registers')} registers, "
+            f"{rec.get('spill_store_bytes')} bytes spill stores, "
+            f"{rec.get('spill_load_bytes')} bytes spill loads")
     wgmma = [label for label in info if "wgmma" in label]
     if len(wgmma) != 6:
         raise AssertionError(f"expected 6 wgmma kernels in the ptxas report, found {wgmma}")
@@ -573,44 +586,15 @@ def rotating(make, nbytes):
     return pick
 
 
-def graph_ms(fn, calls=20, reps=5):
-    """Device ms per call of fn(): ``calls`` calls captured in one CUDA
-    graph, the graph replayed between two CUDA events, the median of
-    ``reps`` replays. A graph replays without the host, so a kernel of a
-    few microseconds is timed, not the Python call that launches it."""
-    import torch
-
-    fn()  # warm-up: builds the kernel and fills the allocator's pool
-    stream = torch.cuda.Stream()
-    stream.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(stream):
-        fn()
-    torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.no_grad(), torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    del graph
-    return sorted(times)[reps // 2]
-
-
 def check_swiglu(K):
     """Phase 3: the SwiGLU kernels against their plain versions, and
-    timings at the step's shapes (:func:`graph_ms`). Returns ({kernel:
-    row of the kernel table}, [per-case records])."""
+    timings at the step's shapes (device ms per call, replayed from a CUDA
+    graph: ``calibration.timing.time_graph``). Returns ({kernel: row of the
+    kernel table}, [per-case records])."""
     import torch
     import torch.nn.functional as F
+
+    from simumax_tpu_torch.calibration.timing import time_graph
 
     table, records = {}, []
     worst = {k: 0.0 for k in SWIGLU}
@@ -643,7 +627,10 @@ def check_swiglu(K):
             pick = rotating(lambda: (torch.randn(rows, 2 * f, generator=gen, device="cuda")
                                      .to(dt), dy.clone()), rows * 3 * f * el)
 
-            ms = graph_ms
+            def ms(fn):
+                with torch.no_grad():
+                    return time_graph(fn) * 1e3
+
             times = {
                 "swiglu_fwd": (ms(lambda: K.swiglu_fwd(pick()[0])),
                                ms(lambda: K.swiglu_fwd_plain(pick()[0]))),
@@ -759,7 +746,7 @@ def profile_bench_row(torch, bench, row):
 
 
 def run_step(P, K, torch, dispatch):
-    """Phase 6b, one dispatch mode: the full-width step on the card,
+    """Phase 10b, one dispatch mode: the full-width step on the card,
     world size 1, with the launch counts set to 0 just before the steps
     and read just after. Returns its record."""
     cfg = step_config(P, torch, dispatch)
@@ -846,6 +833,127 @@ def check_step_card_vs_cpu(P, torch):
             raise AssertionError(f"parallel step [{dispatch}]: the card and the CPU disagree")
 
 
+@contextlib.contextmanager
+def eager_timing(autocal, time_fn):
+    """The calibration timed as before the graph timer, for contrast:
+    back-to-back Python calls of each op between CUDA events."""
+    saved = autocal.time_graph
+    autocal.time_graph = lambda fn, *args: time_fn(fn, *args, warmup=2, iters=5, amortize=2,
+                                                   min_sample_s=0.02)
+    try:
+        yield
+    finally:
+        autocal.time_graph = saved
+
+
+def check_bandwidth_classes(torch, bench, autocal):
+    """Phase 6: ``calibrate_bandwidth_classes`` and ``calibrate_system`` on
+    the datasheet config, for the bf16 row's estimate, into ``build/``:
+    each class in (0, 1.05], the JSON loads back with the same tables and
+    a provenance stamp that names this card. Returns its record."""
+    from simumax_tpu_torch.core.config import SystemConfig, get_system_config
+
+    perf = bench.predict_step(bench.build_bench_model(), "h100_sxm")
+    classes = autocal.calibrate_bandwidth_classes(perf.system)
+    committed = {}
+    if "h100_sxm_calibrated" in bench.list_configs()["system"]:
+        committed = {k: v.efficient_factor for k, v in get_system_config(
+            "h100_sxm_calibrated").accelerator.bandwidth.items()}
+    log("bandwidth classes (efficiency of 3350 GB/s; the committed h100_sxm_calibrated's "
+        "beside): " + ", ".join(f"{k} {v:.4f} ({committed.get(k, float('nan')):.4f})"
+                                 for k, v in classes.items()))
+    bad = {k: v for k, v in classes.items() if not 0 < v <= autocal.EFF_MAX}
+    if bad or set(classes) != {"default", "permute_fwd", "permute_bwd", "ce", "fused_adam"}:
+        raise AssertionError(f"bandwidth classes {classes}")
+    path = os.path.join(ROOT, "build", "h100_sxm_smoke_calibrated.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    measured = autocal.calibrate_system(perf, save_path=path)
+    loaded = SystemConfig.init_from_config_file(path)
+    same = all(loaded.accelerator.op[k].accurate_efficient_factor
+               == v.accurate_efficient_factor for k, v in perf.system.accelerator.op.items())
+    same &= {k: v.efficient_factor for k, v in loaded.accelerator.bandwidth.items()} == {
+        k: v.efficient_factor for k, v in perf.system.accelerator.bandwidth.items()}
+    stamp = loaded.provenance or {}
+    log(f"calibrate_system: {sum(len(v) for v in measured.values())} keys measured, "
+        f"prediction {perf.analysis_cost()['iter_time'] * 1e3:.3f} ms, written to {path}; "
+        f"provenance {stamp}")
+    if not same or stamp.get("card") != autocal.card_identity() \
+            or stamp.get("system_hash") != loaded.fingerprint():
+        raise AssertionError(f"{path} does not load back as written")
+    return {"classes": classes, "committed_classes": committed, "measured": measured,
+            "provenance": stamp}
+
+
+def check_host_slowed(torch, bench, autocal, time_fn):
+    """Phase 7: the flash row's ``sdp_bwd`` key and the ``permute_fwd``
+    class, each timed from CUDA graphs and then eagerly, each once plain
+    and once with ``timing.host_slowed``. The graph readings must agree
+    within 5%; the eager ones are logged beside them. Returns {name:
+    {reading: efficiency}}."""
+    from simumax_tpu_torch.calibration.timing import host_slowed
+    from simumax_tpu_torch.core.config import get_system_config
+
+    system = get_system_config("h100_sxm")
+    perf = bench.predict_step(bench.build_bench_model(), "h100_sxm", "flash")
+    key = next(iter(perf.system.miss_efficiency["sdp_bwd"]))
+    gbps = system.accelerator.bandwidth["permute_fwd"].gbps
+    reads = {"sdp_bwd": lambda: autocal.calibrate_key("sdp_bwd", key, system),
+             "permute_fwd": lambda: autocal.measure_bandwidth_efficiency("permute_fwd", gbps)}
+    out = {}
+    for name, read in reads.items():
+        rec = {}
+        for timer in ("graph", "eager"):
+            for slowed in (False, True):
+                timing_ctx = eager_timing(autocal, time_fn) if timer == "eager" \
+                    else contextlib.nullcontext()
+                with timing_ctx, host_slowed() if slowed else contextlib.nullcontext():
+                    rec[timer + (" slowed" if slowed else "")] = read()
+        gap = abs(rec["graph slowed"] - rec["graph"]) / rec["graph"]
+        log(f"host-slowed check {name}{' [' + key + ']' if name == 'sdp_bwd' else ''}: "
+            f"graph {rec['graph']:.4f}, with the host slowed {rec['graph slowed']:.4f} "
+            f"({gap:.2%} apart, limit 5%); eager {rec['eager']:.4f}, with the host slowed "
+            f"{rec['eager slowed']:.4f}")
+        if not gap <= 0.05:
+            raise AssertionError(f"{name}: the graph timer read {gap:.2%} apart with the host "
+                                 f"slowed")
+        out[name] = rec
+    return out
+
+
+def check_moe_sync(torch, bench):
+    """Phase 8: one step of the MoE row's model (full width, 4 layers) under
+    ``torch.cuda.set_sync_debug_mode("error")``, after a warm-up step:
+    nothing in it waits for the card."""
+    step = bench.make_row_step("moe", bench.build_moe_model(), 2048, 1, 4)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    loss = float(loss)
+    del step
+    torch.cuda.empty_cache()
+    log(f"MoE step under set_sync_debug_mode('error'): no synchronising call, loss {loss:.5f}")
+    if not math.isfinite(loss):
+        raise AssertionError(f"MoE step: non-finite loss {loss}")
+
+
+def memory_table():
+    """Phase 9: the peak-memory table (``tools/validate_memory_table``)."""
+    from simumax_tpu_torch.tools import validate_memory_table as V
+
+    rows = V.run()
+    path = V.write_table(rows)
+    log(f"memory table written to {path}; worst |error| "
+        f"{max(abs(r['error_pct']) for r in rows):.1f}%")
+    for r in rows:
+        if not (math.isfinite(r["measured_gib"]) and r["measured_gib"] > 0):
+            raise AssertionError(f"memory table: {r}")
+    return rows
+
+
 def main():
     import torch
 
@@ -855,6 +963,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         from simumax_tpu_torch import bench
+        from simumax_tpu_torch.calibration import autocal
         from simumax_tpu_torch.calibration.timing import time_fn
         from simumax_tpu_torch.torchref import kernels as K
         from simumax_tpu_torch.torchref import parallel as P
@@ -864,7 +973,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    card = card_line()
+    card = autocal.card_identity()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -884,29 +993,41 @@ def main():
     check_reference_models_card_vs_cpu(torch)
     int8_ms = time_int8_layouts(torch, time_fn)
     check_step_card_vs_cpu(P, torch)
+    bandwidth = check_bandwidth_classes(torch, bench, autocal)
+    host_slowed_reads = check_host_slowed(torch, bench, autocal, time_fn)
+    check_moe_sync(torch, bench)
+    memory = memory_table()
 
-    # main path a: the seven rows of the self-calibration loop
+    # main path 10a: the seven rows of the self-calibration loop
     K.reset_launch_counts()
     rows = bench.main()
     counts = K.launch_counts()
     log(f"launches on the self-calibration loop: {counts}")
     for row in rows:
-        for key in ("measured_ms", "predicted_ms", "predicted_uncalibrated_ms",
-                    "loss_first", "loss_last", "measured_peak_gib"):
-            if not (math.isfinite(row[key]) and (row[key] > 0 or key.startswith("loss"))):
-                raise AssertionError(f"{row['label']}: {key} = {row[key]}")
+        base = row.get("base", {})
+        if row["system_config"] != "h100_sxm_calibrated" or \
+                base.get("system_config") != "h100_sxm":
+            raise AssertionError(f"{row['label']}: ran on {row['system_config']} and "
+                                 f"{base.get('system_config')}")
+        for pred in (row, base):
+            for key in ("measured_ms", "predicted_ms", "predicted_uncalibrated_ms",
+                        "loss_first", "loss_last", "measured_peak_gib"):
+                value = pred.get(key, row[key])
+                if not (math.isfinite(value) and (value > 0 or key.startswith("loss"))):
+                    raise AssertionError(f"{row['label']}: {key} = {value}")
         flash = row["kind"] == "flash"
-        # the attention keys the estimate missed were measured on this row's
-        # own backend: a failed kernel would have stopped the calibration
+        # on the datasheet config the loop measured the attention keys the
+        # estimate missed on this row's own backend: a failed kernel would
+        # have stopped the calibration
         for op in ("sdp_fwd", "sdp_bwd"):
-            keys = list(row["calibrated"].get(op, {}))
+            keys = list(base["calibrated"].get(op, {}))
             if len(keys) != 1 or keys[0].startswith("backend=cuda, ") is not flash:
                 raise AssertionError(f"{row['label']}: calibrated {op} keys {keys}")
         # the int8 row's int8 GEMMs and the MoE row's expert GEMMs were measured
         own = {"int8": "int8_matmul", "moe": "group_matmul"}.get(row["kind"])
-        if own and not row["calibrated"].get(own):
+        if own and not base["calibrated"].get(own):
             raise AssertionError(f"{row['label']}: no {own} key calibrated: "
-                                 f"{ {op: len(v) for op, v in row['calibrated'].items()} }")
+                                 f"{ {op: len(v) for op, v in base['calibrated'].items()} }")
         expect = row["layers"] * row["steps"] if flash else 0
         for kernel in FLASH:
             if row["launches"][kernel] != expect:
@@ -918,8 +1039,15 @@ def main():
             f"{row['loss_last']:.4f}")
     for row in rows:
         row["profiled_step"] = profile_bench_row(torch, bench, row)
+    for row in rows:
+        idle = row["profiled_step"]["idle_share"]
+        log(f"row {row['label']}: measured {row['measured_ms']:.3f} ms; error after the loop "
+            f"{row['error_pct']:.2f}% on {row['system_config']} ({row['calibrated_keys']} keys "
+            f"measured by the loop), {row['base']['error_pct']:.2f}% on "
+            f"{row['base']['system_config']} ({row['base']['calibrated_keys']} keys); device "
+            f"idle {f'{idle:.1%}' if idle is not None else 'not measured'}")
 
-    # main path b: the manual-parallel step, psum then a2a dispatch
+    # main path 10b: the manual-parallel step, psum then a2a dispatch
     steps = [run_step(P, K, torch, dispatch) for dispatch in ("psum", "a2a")]
     for rec in steps:
         counts = {k: counts[k] + rec["launches"][k] for k in counts}
@@ -940,7 +1068,8 @@ def main():
     with open(os.path.join(ROOT, "build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels, "flash_timing": {
             k: table[k] for k in FLASH}, "build": build_info, "swiglu_cases": swiglu_cases,
-            "rows": rows, "steps": steps, "int8_ms": int8_ms}, f, indent=1)
+            "rows": rows, "steps": steps, "int8_ms": int8_ms, "bandwidth": bandwidth,
+            "host_slowed": host_slowed_reads, "memory_table": memory}, f, indent=1)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

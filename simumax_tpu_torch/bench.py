@@ -8,10 +8,14 @@ widened to the seven rows of ``tools/accuracy_table.py``. For each row:
    card, by CUDA events: the Llama of ``torchref/model.py`` (eager math
    attention, the CUDA flash kernels, int8 linear layers, or full-block
    recompute) or the MoE model of ``torchref/moe_model.py``;
-2. predict the same step with ``PerfLLM`` on the card's system config;
+2. predict the same step with ``PerfLLM`` on the card's system config
+   (:func:`detect_system`: ``h100_sxm_calibrated``, the tables measured
+   on the card, where it exists);
 3. calibrate exactly the GEMM, int8-GEMM, grouped-GEMM, attention and
    Adam-update keys the estimate missed, on the same card;
-4. predict again and report the error against the measured step.
+4. predict again and report the error against the measured step; where
+   the detected config is the calibrated one, do 2-4 on the datasheet
+   config (``h100_sxm``, efficiency priors) too.
 
 Rows (:data:`ROWS`): the dense rows run ``configs/models/bench-llama-0p5b``
 at its full width and depth (6 layers), the MoE row ``bench_moe_0p4b``
@@ -31,25 +35,23 @@ raises without one.
 from __future__ import annotations
 
 import json
-from typing import Callable, Dict, List, Tuple
+from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from simumax_tpu_torch.calibration import calibrate_for_perf
 from simumax_tpu_torch.calibration.timing import time_stateful
-from simumax_tpu_torch.core.config import (
-    ModelConfig,
-    StrategyConfig,
-    get_model_config,
-    list_configs,
-)
+from simumax_tpu_torch.core.config import StrategyConfig, list_configs
 from simumax_tpu_torch.core.errors import ConfigError
 from simumax_tpu_torch.perf import PerfLLM
-from simumax_tpu_torch.torchref import model as dense_model
-from simumax_tpu_torch.torchref import moe_model
 from simumax_tpu_torch.torchref.kernels import launch_counts
 from simumax_tpu_torch.torchref.model import resolve_device
+from simumax_tpu_torch.torchref.rows import (  # noqa: F401  (build_*: public)
+    build_bench_model,
+    build_model,
+    build_moe_model,
+    make_row_step,
+)
 
 #: (label, kind, seq, mbs, layers, remat), as ``tools/accuracy_table.py``;
 #: kind is "dense" (math attention), "flash" (the CUDA flash kernels),
@@ -68,9 +70,9 @@ ROWS: List[Tuple[str, str, int, int, int, bool]] = [
 _SYSTEMS = [("H100 PCIe", "h100_pcie"), ("H100 NVL", "h100_nvl"), ("H100", "h100_sxm")]
 
 
-def detect_system(device="cuda") -> Tuple[str, str]:
-    """(system config name, card name) of the card. Raises on a card
-    with no system config: there is no silent default."""
+def base_system(device="cuda") -> Tuple[str, str]:
+    """(datasheet system config name, card name) of the card. Raises on
+    a card with no system config: there is no silent default."""
     dev = resolve_device(device)
     kind = torch.cuda.get_device_name(dev)
     known = list_configs()["system"]
@@ -86,63 +88,15 @@ def detect_system(device="cuda") -> Tuple[str, str]:
     raise ConfigError(f"no system config for card {kind!r} (known: {_SYSTEMS})")
 
 
-def build_bench_model() -> ModelConfig:
-    mc = get_model_config("bench-llama-0p5b")
-    mc.maybe_pad_vocab_size(1)
-    return mc
-
-
-def build_moe_model() -> ModelConfig:
-    """``bench_moe_0p4b``, as ``tools/accuracy_table.py:36-55`` builds it."""
-    mc = ModelConfig(
-        model_name="bench_moe_0p4b",
-        model_type="moe",
-        hidden_size=1024,
-        head_num=8,
-        kv_head_num=8,
-        head_size=128,
-        intermediate_size=1792,
-        moe_ffn_hidden_size=1792,
-        expert_num=8,
-        topk=2,
-        dense_layers=0,
-        layer_num=4,
-        vocab_size=32000,
-        use_swiglu=True,
-    )
-    mc.maybe_pad_vocab_size(1)
-    return mc
-
-
-def build_model(kind: str) -> ModelConfig:
-    return build_moe_model() if kind == "moe" else build_bench_model()
-
-
-def make_row_step(kind: str, mc, seq_len: int, batch_size: int, layers: int,
-                  remat: bool = False, seed: int = 0, device="cuda") -> Callable:
-    """A row's training step on ``device``: a call that takes one
-    fwd+bwd+Adam step of the row's reference model (random weights and
-    token ids from ``seed``) and returns its loss."""
-    dev = resolve_device(device)
-    if kind == "moe":
-        cfg = moe_model.MoeConfig.from_model_config(mc, layer_num=layers)
-        params = moe_model.init_params(cfg, seed=seed, device=dev)
-        init_opt, train_step = moe_model.make_train_step(cfg)
-    else:
-        cfg = dense_model.LlamaConfig.from_model_config(
-            mc, layer_num=layers, use_flash_attn=kind == "flash", use_int8=kind == "int8")
-        params = dense_model.init_params(cfg, seed=seed, device=dev)
-        init_opt, train_step = dense_model.make_train_step(cfg, remat=remat)
-    state = [params, init_opt(params)]
-    rs = np.random.RandomState(seed)
-    ids = torch.tensor(rs.randint(0, cfg.vocab_size, (batch_size, seq_len)),
-                       dtype=torch.long, device=dev)
-
-    def step():
-        state[0], state[1], loss = train_step(state[0], state[1], (ids, ids))
-        return loss
-
-    return step
+def detect_system(device="cuda") -> Tuple[str, str]:
+    """(system config name, card name) of the card: the measured tables
+    ``<base>_calibrated`` (written on the card by
+    ``python -m simumax_tpu_torch.tools.build_system_config``) where they
+    exist, else the datasheet config of :func:`base_system`."""
+    base, kind = base_system(device)
+    if f"{base}_calibrated" in list_configs()["system"]:
+        return f"{base}_calibrated", kind
+    return base, kind
 
 
 def measure_step(mc, kind: str = "dense", seq_len: int = 2048, batch_size: int = 1,
@@ -177,15 +131,11 @@ def measure_step(mc, kind: str = "dense", seq_len: int = 2048, batch_size: int =
     return t, stats
 
 
-def predict_step(mc, system_name: str, kind: str = "dense", seq_len: int = 2048,
-                 batch_size: int = 1, layers: int = 0, remat: bool = False) -> PerfLLM:
-    """The row's step as ``PerfLLM`` predicts it, set as
-    ``tools/accuracy_table.py``'s ``predict`` sets it, with the attention
-    backend mapped xla -> torch and pallas -> cuda. ``layers`` 0 keeps
-    the model's own depth; otherwise it is written into ``mc``, as the
-    JAX table does."""
-    if layers:
-        mc.layer_num = layers
+def row_strategy(kind: str = "dense", seq_len: int = 2048, batch_size: int = 1,
+                 remat: bool = False) -> StrategyConfig:
+    """A row's single-card strategy, set as ``tools/accuracy_table.py``'s
+    ``predict`` sets it, with the attention backend mapped xla -> torch
+    and pallas -> cuda."""
     flash = kind == "flash"
     st = StrategyConfig(
         world_size=1, tp_size=1, pp_size=1, seq_len=seq_len,
@@ -203,42 +153,72 @@ def predict_step(mc, system_name: str, kind: str = "dense", seq_len: int = 2048,
         moe_capacity_factor=2.0,
     )
     st.__post_init__()
-    perf = PerfLLM().configure(st, mc, system_name)
+    return st
+
+
+def predict_step(mc, system_name: str, kind: str = "dense", seq_len: int = 2048,
+                 batch_size: int = 1, layers: int = 0, remat: bool = False) -> PerfLLM:
+    """The row's step as ``PerfLLM`` predicts it (:func:`row_strategy`).
+    ``layers`` 0 keeps the model's own depth; otherwise it is written
+    into ``mc``, as the JAX table does."""
+    if layers:
+        mc.layer_num = layers
+    perf = PerfLLM().configure(row_strategy(kind, seq_len, batch_size, remat), mc,
+                               system_name)
     perf.run_estimate()
     return perf
 
 
-def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
-            max_keys: int = 24, device="cuda") -> Dict:
-    system_name, card = detect_system(device)
-    mc = build_model(kind)
-    measured_s, stats = measure_step(mc, kind, seq, mbs, layers, remat, device=device)
+def predict_with_loop(mc, system_name: str, kind: str, seq: int, mbs: int, layers: int,
+                      remat: bool, measured_s: float, max_keys: int = 24,
+                      device="cuda") -> Dict:
+    """The row's prediction on ``system_name`` before and after the
+    miss-driven loop calibrates the keys its estimate missed, and their
+    errors against ``measured_s``; ``perf`` is the calibrated estimate."""
     perf = predict_step(mc, system_name, kind, seq, mbs, layers, remat)
     pred_uncal = perf.analysis_cost()["iter_time"]
     calibrated = calibrate_for_perf(perf, max_keys=max_keys, device=device)
     perf.run_estimate()  # resets the cached cost/mem results
-    cost = perf.analysis_cost()
-    pred_cal = cost["iter_time"]
-    mem = perf.analysis_mem()
+    pred_cal = perf.analysis_cost()["iter_time"]
     return {
+        "perf": perf,
+        "system_config": system_name,
+        "predicted_uncalibrated_ms": pred_uncal * 1e3,
+        "predicted_ms": pred_cal * 1e3,
+        "error_pct": abs(pred_cal - measured_s) / measured_s * 100.0,
+        "uncalibrated_error_pct": abs(pred_uncal - measured_s) / measured_s * 100.0,
+        "calibrated_keys": sum(len(v) for v in calibrated.values()),
+        "calibrated": calibrated,
+    }
+
+
+def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
+            max_keys: int = 24, device="cuda") -> Dict:
+    """One row: the measured step, and its prediction with the loop on
+    the detected system config (``row`` keys) and, where that is the
+    calibrated config, on the datasheet config too (``base``)."""
+    system_name, card = detect_system(device)
+    base_name, _card = base_system(device)
+    mc = build_model(kind)
+    measured_s, stats = measure_step(mc, kind, seq, mbs, layers, remat, device=device)
+    pred = predict_with_loop(mc, system_name, kind, seq, mbs, layers, remat, measured_s,
+                             max_keys, device)
+    perf = pred.pop("perf")
+    cost = perf.analysis_cost()
+    mem = perf.analysis_mem()
+    row = {
         "label": label,
         "kind": kind,
         "device_kind": card,
-        "system_config": system_name,
         "layers": mc.layer_num,
         "seq": seq,
         "mbs": mbs,
         "remat": remat,
         "measured_ms": measured_s * 1e3,
-        "predicted_uncalibrated_ms": pred_uncal * 1e3,
-        "predicted_ms": pred_cal * 1e3,
-        "error_pct": abs(pred_cal - measured_s) / measured_s * 100.0,
-        "uncalibrated_error_pct": abs(pred_uncal - measured_s) / measured_s * 100.0,
+        **pred,
         "predicted_breakdown_ms": {
             k: v * 1e3 for k, v in cost["time_breakdown"].items()
         },
-        "calibrated_keys": sum(len(v) for v in calibrated.values()),
-        "calibrated": calibrated,
         "measured_peak_gib": stats["measured_peak_bytes"] / 2**30,
         "predicted_peak_gib": mem["max_peak_gib"],
         "steps": stats["steps"],
@@ -246,6 +226,12 @@ def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
         "loss_first": stats["loss_first"],
         "loss_last": stats["loss_last"],
     }
+    if base_name != system_name:
+        base = predict_with_loop(mc, base_name, kind, seq, mbs, layers, remat, measured_s,
+                                 max_keys, device)
+        del base["perf"]
+        row["base"] = base
+    return row
 
 
 def main(device="cuda") -> List[Dict]:
@@ -254,15 +240,18 @@ def main(device="cuda") -> List[Dict]:
         label = spec[0]
         row = run_row(*spec, device=device)
         results.append(row)
+        for pred in [row] + ([row["base"]] if "base" in row else []):
+            print(
+                f"{label} [{pred['system_config']}]: measured {row['measured_ms']:.3f} ms, "
+                f"before the loop {pred['predicted_uncalibrated_ms']:.3f} ms "
+                f"({pred['uncalibrated_error_pct']:.2f}%), after "
+                f"{pred['predicted_ms']:.3f} ms ({pred['error_pct']:.2f}%), "
+                f"{pred['calibrated_keys']} keys calibrated by the loop",
+                flush=True,
+            )
         print(
-            f"{label}: measured {row['measured_ms']:.3f} ms, uncalibrated "
-            f"{row['predicted_uncalibrated_ms']:.3f} ms "
-            f"({row['uncalibrated_error_pct']:.2f}%), calibrated "
-            f"{row['predicted_ms']:.3f} ms ({row['error_pct']:.2f}%), "
-            f"{row['calibrated_keys']} keys calibrated; peak "
-            f"{row['measured_peak_gib']:.3f} GiB measured vs "
-            f"{row['predicted_peak_gib']:.3f} GiB predicted "
-            f"[{row['device_kind']}, {row['system_config']}]",
+            f"{label}: peak {row['measured_peak_gib']:.3f} GiB measured vs "
+            f"{row['predicted_peak_gib']:.3f} GiB predicted [{row['device_kind']}]",
             flush=True,
         )
         print(json.dumps(row), flush=True)

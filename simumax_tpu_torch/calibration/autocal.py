@@ -1,32 +1,47 @@
-"""Miss-driven self-calibration on the CUDA card.
+"""Self-calibration on the CUDA card.
 
-Port of the JAX package's ``calibration/autocal.py``, the part that
-:func:`calibrate_for_perf` reaches: it reads the exact shape keys a
-``PerfLLM`` estimate *missed* in the efficiency tables, measures
-precisely those GEMM / grouped-GEMM / int8-GEMM / attention shapes with
-PyTorch on the local card, measures the Adam update the reference step runs, and
-writes the efficiencies back into the live system config.
+Port of the JAX package's ``calibration/autocal.py``.
+:func:`calibrate_for_perf` reads the exact shape keys a ``PerfLLM``
+estimate *missed* in the efficiency tables, measures precisely those
+GEMM / grouped-GEMM / int8-GEMM / attention shapes with PyTorch on the
+local card, measures the Adam update the reference step runs, and writes
+the efficiencies back into the live system config.
+:func:`calibrate_bandwidth_classes` measures the HBM bandwidth classes
+(``default``, ``permute_fwd``, ``permute_bwd``, ``ce``, ``fused_adam``;
+``ce_fusion`` keeps its prior, as in JAX), and :func:`calibrate_system`
+calibrates, re-estimates and writes the system JSON with a provenance
+stamp that names the card and its power limit.
 
-The reference's XLA anti-folding machinery (``_chain_scan``,
-``_time_op`` and its round-trip rescaling) is gone: eager PyTorch folds
-nothing, so each benchmark is back-to-back launches of the op timed by
-CUDA events (``calibration/timing.py``). :func:`with_retries` retries
-only a device OOM, where the reference retried every error: a failed
-kernel build or launch propagates. ``measure_bandwidth_efficiency``,
-``calibrate_bandwidth_classes`` and ``calibrate_system`` are a later
-slice (ROADMAP.md). Every measurement runs on the card; without one it
-raises.
+Every microbenchmark is timed as the replay of a captured CUDA graph
+(``timing.time_graph``), the counterpart of the reference's
+``_chain_scan`` + ``_time_op``: a replay launches ``n`` calls of the op
+without the host, and ``n`` grows until one replay lasts at least
+``timing.MIN_SAMPLE_S``. The reference's anti-folding devices (the scalar
+carry threaded into each input, the final reductions) are gone: eager
+PyTorch folds nothing. The ``default`` class times one streaming
+reduction that moves exactly its counted bytes, as the reference's fused
+one does: it prices every memory-bound op the model does not price
+otherwise, so it is the card's streaming rate, not one eager op's. Each
+other benchmark runs the eager ops the port's own step runs for its
+function, so where eager PyTorch moves more bytes than the model's
+traffic count (the Adam update, the cross-entropy's fp32 copy), the
+efficiency reads lower. :func:`with_retries` retries only a
+device OOM, where the reference retried every error: a failed kernel
+build, launch or capture propagates. Every measurement runs on the card;
+without one it raises.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import subprocess
 import time as _time
 from typing import Dict, Optional
 
 import torch
 
-from simumax_tpu_torch.calibration.timing import time_fn
+from simumax_tpu_torch.calibration.timing import time_graph
 from simumax_tpu_torch.core.config import BandwidthSpec
 from simumax_tpu_torch.core.errors import CalibrationError
 from simumax_tpu_torch.core.records import Diagnostics
@@ -46,10 +61,6 @@ _DTYPES = {
 #: above 1.0 is plausible clock/peak-spec slack, more means the
 #: benchmark (or its FLOPs/traffic convention) is wrong
 EFF_MAX = 1.05
-
-#: shortest timed sample: back-to-back launches are repeated until one
-#: sample lasts this long, so launch overhead does not pose as op time
-MIN_SAMPLE_S = 0.02
 
 
 def validate_efficiency(eff: float, op_key: str = "",
@@ -187,7 +198,7 @@ def measure_gemm_efficiency(
 
         flops = 2.0 * batch * m * k * n
     with torch.no_grad():
-        t = time_fn(op, warmup=2, iters=5, amortize=4, min_sample_s=MIN_SAMPLE_S)
+        t = time_graph(op)
     return min(flops / t / (peak_tflops * 1e12), 1.0)
 
 
@@ -226,8 +237,7 @@ def measure_sdp_efficiency(
             return math_attention(qq, kk, vv, causal)
 
     with torch.no_grad():
-        t_f = time_fn(attn, q, k, v, warmup=2, iters=5, amortize=2,
-                      min_sample_s=MIN_SAMPLE_S)
+        t_f = time_graph(attn, q, k, v)
     if backward:
         qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
         go = torch.ones((b, sq, hn, hd_v), dtype=dt, device=dev)
@@ -237,8 +247,7 @@ def measure_sdp_efficiency(
             # omit the dK/dV matmuls the bwd-FLOPs convention counts
             return torch.autograd.grad(attn(qg, kg, vg), (qg, kg, vg), go)
 
-        t = time_fn(fwd_bwd, warmup=2, iters=5, amortize=2,
-                    min_sample_s=MIN_SAMPLE_S)
+        t = time_graph(fwd_bwd)
         # grad timing includes the forward pass; subtract it
         t = max(t - t_f, t_f * 0.5)
         # MUST match the model's bwd-FLOPs convention for this path
@@ -253,7 +262,73 @@ def measure_sdp_efficiency(
     return min(flops / t / (peak_tflops * 1e12), 1.0)
 
 
-# -- the Adam update ----------------------------------------------------------
+# -- HBM bandwidth classes ----------------------------------------------------
+
+
+def measure_bandwidth_efficiency(
+    kind: str, peak_gbps: float, nbytes: float = 256 * 2**20,
+    vocab: int = 32000, device="cuda",
+) -> float:
+    """Measured HBM efficiency of a bandwidth class, against the JAX
+    package's traffic count for it: 'default' a streaming reduction of
+    bf16 elements in fp32 (``elems * 2`` bytes; one kernel that reads
+    each element once, as XLA's fused upcast and sum: the class prices
+    every memory-bound op the model prices no other way), 'permute_fwd'
+    a pseudo-random row gather (``rows * 1024 * 2``), 'permute_bwd' the
+    scatter-add that is its backward (3x that), 'ce' a log-softmax
+    cross-entropy over bf16 logits (``tokens * vocab * 4``, two passes
+    over the logits, as ``ParallelCE.op_accessed`` charges), 'fused_adam'
+    the Adam update (:func:`_measure_fused_adam`). The others run the
+    eager ops the port's step runs for that function: the MoE dispatch's
+    row gather, autograd's backward of a gather (``_index_put_impl_``
+    accumulating, its range check off), and the loss of
+    ``torchref/model.py``."""
+    if kind == "ce_fusion":
+        raise CalibrationError(
+            "ce_fusion is not measurable with the unfused CE benchmark "
+            "(a fused kernel avoids its fp32 materialization); keep the "
+            "configured prior or calibrate against a real fused kernel"
+        )
+    if kind == "fused_adam":
+        return _measure_fused_adam(peak_gbps, nbytes, device=device)
+    dev = _card(device)
+    if kind.startswith("permute"):
+        rows = max(int(nbytes // (2 * 1024)), 16)
+        x = _test_array((rows, 1024), torch.bfloat16, dev)
+        stride = 104729  # prime: pseudo-random, deterministic row order
+        idx = (torch.arange(rows, device=dev) * stride) % rows
+        if kind == "permute_bwd":
+            def op():
+                return torch.ops.aten._index_put_impl_(
+                    torch.zeros_like(x), [idx], x, True, True)
+
+            traffic = 3 * rows * 1024 * 2
+        else:
+            def op():
+                return x[idx]
+
+            traffic = rows * 1024 * 2
+    elif kind.startswith("ce"):
+        tokens = max(int(nbytes // (vocab * 2)), 8)
+        logits = _test_array((tokens, vocab), torch.bfloat16, dev)
+        targets = torch.zeros((tokens, 1), dtype=torch.long, device=dev)
+
+        def op():
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            return -torch.gather(logp, -1, targets).mean()
+
+        traffic = tokens * vocab * 4
+    else:
+        elems = max(int(nbytes // 2), 1024)
+        x = _test_array((elems,), torch.bfloat16, dev)
+
+        def op():
+            return x.sum(dtype=torch.float32)
+
+        traffic = elems * 2
+    with torch.no_grad():
+        t = time_graph(op)
+    return min(traffic / t / (peak_gbps * 1e9), 1.0)
 
 
 def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
@@ -273,8 +348,43 @@ def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
     def step():
         adam_update([p], [g], [mu], [nu], step=1)
 
-    t = time_fn(step, warmup=2, iters=5, amortize=2, min_sample_s=MIN_SAMPLE_S)
+    t = time_graph(step)
     return min(numel * 22 / t / (peak_gbps * 1e9), 1.0)
+
+
+def calibrate_bandwidth_classes(system, verbose: bool = False,
+                                nbytes: float = 256 * 2**20,
+                                vocab: int = 32000, device="cuda") -> Dict[str, float]:
+    """Measure the HBM bandwidth classes in the system config and write
+    the efficiencies back; returns {class: efficiency}. A ``fused_adam``
+    class (the same HBM as ``default``) is added when missing.
+    ``ce_fusion`` is skipped: a fused CE kernel avoids exactly the fp32
+    materialization the unfused benchmark performs, so its prior stays.
+    Each class retries a device OOM (:func:`with_retries`) and must pass
+    :func:`validate_efficiency`."""
+    _card(device)
+    out = {}
+    bw = system.accelerator.bandwidth
+    if "fused_adam" not in bw:
+        base = bw["default"]
+        bw["fused_adam"] = BandwidthSpec(
+            gbps=base.gbps, efficient_factor=base.efficient_factor,
+            latency_us=base.latency_us,
+        )
+    for key, spec in bw.items():
+        if key == "ce_fusion":
+            continue
+        eff = validate_efficiency(
+            with_retries(measure_bandwidth_efficiency, key, spec.gbps, nbytes, vocab,
+                         device=device, label=f"bandwidth[{key}]"),
+            "bandwidth", key,
+        )
+        spec.efficient_factor = eff
+        out[key] = eff
+        if verbose:
+            get_reporter().info(f"[cal] bandwidth {key}: eff {eff:.3f}",
+                                event="calibrate_bw", key=key, eff=eff)
+    return out
 
 
 # -- miss-driven loop ---------------------------------------------------------
@@ -422,4 +532,42 @@ def calibrate_for_perf(perf, max_keys: Optional[int] = None,
                     f"[cal] bandwidth fused_adam -> {eff:.3f}",
                     event="calibrate_bw", key="fused_adam", eff=eff,
                 )
+    return measured
+
+
+def card_identity(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (for example ``NVIDIA H100 80GB HBM3, 700.00 W``): a card may be set
+    below its maximum power and then runs slower under load."""
+    dev = _card(device)
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return lines[dev.index or 0].strip()
+
+
+def save_system(system, path: str, device="cuda") -> Dict:
+    """Stamp ``system``'s provenance (its hardware fingerprint, the date,
+    the version, and :func:`card_identity`) and write it as JSON to
+    ``path``; returns the stamp. A config loaded against other hardware
+    then warns instead of silently skewing estimates."""
+    card = card_identity(device)
+    stamp = system.stamp_provenance()
+    stamp["card"] = card
+    with open(path, "w") as f:
+        json.dump(system.to_dict(), f, indent=2, default=lambda o: vars(o))
+    return stamp
+
+
+def calibrate_system(perf, save_path: Optional[str] = None, device="cuda",
+                     **kwargs) -> Dict[str, Dict[str, float]]:
+    """:func:`calibrate_for_perf` + re-estimate + optional write-back of
+    the updated system config JSON (:func:`save_system`). Returns what
+    :func:`calibrate_for_perf` measured."""
+    measured = calibrate_for_perf(perf, device=device, **kwargs)
+    perf.run_estimate()  # re-run with calibrated tables
+    if save_path:
+        save_system(perf.system, save_path, device)
     return measured

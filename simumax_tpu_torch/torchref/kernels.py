@@ -91,6 +91,24 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
+def take_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a :func:`launch_counts`
+    snapshot), taken off the counts again: what a CUDA graph capture
+    recorded, which ran nothing on the card. :func:`count_replays` adds
+    them back once per replay."""
+    taken = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+    LAUNCHES.update(before)
+    return taken
+
+
+def count_replays(captured: Dict[str, int], replays: int) -> None:
+    """Count ``replays`` replays of a CUDA graph whose capture recorded
+    ``captured`` launches (:func:`take_launches`): each replay runs every
+    kernel it captured."""
+    for k, n in captured.items():
+        LAUNCHES[k] += n * replays
+
+
 # -- build ------------------------------------------------------------------
 
 

@@ -13,9 +13,17 @@ Every numeric detail of the reference is kept: the gate softmax in fp32,
 top-k, the weights renormalised with ``+ 1e-9`` and cast to the model's
 dtype; ``cap = int(cf * T * k / e)``; a stable argsort by expert with
 ``searchsorted`` segment starts; the combine gathers ``min(slot, cap -
-1)`` and masks the dropped assignments. JAX drops the overflow slots in
-its dispatch scatter (``mode="drop"``); ``index_put`` has no drop mode,
-so only the kept assignments are indexed.
+1)`` and masks the dropped assignments.
+
+Every shape is static, so a step syncs the host nowhere and can be
+captured in a CUDA graph. JAX drops the overflow slots in its dispatch
+scatter (``mode="drop"``); ``index_put`` has no drop mode, so every
+assignment is written into an ``[e, cap + 1, h]`` buffer at slot
+``min(slot, cap)`` and the scratch slot ``cap`` is sliced off (its
+gradient is discarded, as JAX's drop discards it). The combine puts the
+expert outputs back in token-major order ``[T, k, h]`` and sums over k
+in a fixed order, where a scatter-add with atomics would make the sum of
+k > 2 bf16 terms depend on the order they land in.
 """
 
 from __future__ import annotations
@@ -119,10 +127,11 @@ def _capacity(cfg: MoeConfig, tokens: int) -> int:
 
 def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
     """Top-k routing of y [b, s, h] in the reference's order of
-    assignments: (sorted_e, slot, keep, tok, w), each of length T * k and
-    sorted stably by expert — its expert, its slot in that expert's
-    capacity buffer, whether the slot is below ``cap``, its token and its
-    renormalised routing weight."""
+    assignments: (sorted_e, slot, keep, tok, w, order), each of length
+    T * k and sorted stably by expert — its expert, its slot in that
+    expert's capacity buffer, whether the slot is below ``cap``, its
+    token, its renormalised routing weight, and its index in token-major
+    order (``tok * k + j`` for the token's j-th choice)."""
     b, s, h = y.shape
     T, e, k = b * s, cfg.expert_num, cfg.topk
     logits = y.reshape(T, h) @ gate.to(y.dtype)
@@ -132,35 +141,41 @@ def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
 
     dev = y.device
     flat_e = topi.reshape(T * k)
-    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)
+    flat_tok = torch.arange(T * k, device=dev) // k
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
     seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
     slot = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-    return sorted_e, slot, slot < _capacity(cfg, T), flat_tok[order], topw.reshape(T * k)[order]
+    return (sorted_e, slot, slot < _capacity(cfg, T), flat_tok[order],
+            topw.reshape(T * k)[order], order)
 
 
 def _moe_mlp(y, p, cfg: MoeConfig):
     """Capacity-based top-k MoE MLP on one device: tokens sorted by
     expert into [e, cap, h], experts as one batched matmul per
-    projection, weighted scatter-add combine. Overflow beyond ``cap`` is
-    dropped (capacity_factor)."""
+    projection, weighted combine in token order. Overflow beyond ``cap``
+    is dropped (capacity_factor)."""
     b, s, h = y.shape
-    T, e = b * s, cfg.expert_num
+    T, e, k = b * s, cfg.expert_num, cfg.topk
     cap = _capacity(cfg, T)
-    sorted_e, slot, keep, tok, w = route(y, p["gate"], cfg)
+    sorted_e, slot, keep, _tok, w, order = route(y, p["gate"], cfg)
 
-    # permute (dispatch): the kept assignments into the capacity buffer
-    where = (sorted_e[keep], slot[keep])
-    xin = torch.zeros((e, cap, h), dtype=y.dtype, device=y.device).index_put(
-        where, y.reshape(T, h)[tok[keep]])
+    # permute (dispatch): each token's k copies in token-major order,
+    # permuted by expert (so the backward sums a token's k gradients in a
+    # fixed order), into the capacity buffer, the overflow into the
+    # scratch slot cap, which is sliced off
+    xs = y.reshape(T, 1, h).expand(T, k, h).reshape(T * k, h)[order]
+    where = (sorted_e, slot.clamp(max=cap))
+    xin = torch.zeros((e, cap + 1, h), dtype=y.dtype, device=y.device).index_put(
+        where, xs)[:, :cap]
     # grouped GEMMs (balanced groups = one batched matmul each)
     gate_a, val = torch.bmm(xin, p["moe_up"]).chunk(2, dim=-1)
     act = F.silu(gate_a) * val
     if cfg.dispatch_probs:
         # weighted-SiLU: the routing weights go into the capacity buffer
         # next to their tokens and fold into the activation
-        wbuf = torch.zeros((e, cap), dtype=y.dtype, device=y.device).index_put(where, w[keep])
+        wbuf = torch.zeros((e, cap + 1), dtype=y.dtype, device=y.device).index_put(
+            where, w)[:, :cap]
         act = act * wbuf[..., None]
     down = torch.bmm(act, p["moe_down"])
     # unpermute (combine): gather back in assignment order; a dropped
@@ -168,12 +183,11 @@ def _moe_mlp(y, p, cfg: MoeConfig):
     vals = down[sorted_e, slot.clamp(max=cap - 1)]
     mask = keep.to(y.dtype)
     vals = vals * (mask if cfg.dispatch_probs else w * mask)[:, None]
-    # a token receives k bf16 additions onto zero: for k = 2 their order
-    # cannot change the sum (0 + a = a exactly, and a + b = b + a); for
-    # k > 2 it could, and the card's atomic adds would make the result
-    # depend on their order
-    o = torch.zeros((T, h), dtype=y.dtype, device=y.device).index_add_(0, tok, vals)
-    return o.reshape(b, s, h)
+    # each assignment to its token-major row (order is a permutation, so
+    # each row is written once), then the k terms of a token summed in a
+    # fixed order
+    vals = torch.empty_like(vals).index_put((order,), vals)
+    return vals.reshape(T, k, h).sum(1).reshape(b, s, h)
 
 
 def _block(x, p, cfg: MoeConfig):

@@ -12,6 +12,8 @@ do); for fp32 outputs 1e-4 for the flash kernels (summation order
 only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -253,3 +255,226 @@ def test_int_mm_shape_rules_raise_on_the_card(card):
             torch._int_mm(a, b)
     with pytest.raises(RuntimeError, match="dimension 2"):
         torch._int_mm(ones(2, 32, 8), ones(8, 8))
+
+
+def _events_s(calls, fn, samples=1):
+    """Seconds per call of ``samples`` back-to-back windows of ``calls``
+    eager calls of ``fn`` between CUDA events, queued behind the graph
+    timer's spin kernel; a list, one per window."""
+    from simumax_tpu_torch.calibration import timing
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(samples + 1)]
+    torch.cuda._sleep(timing.LEAD_CYCLES)
+    marks[0].record()
+    for mark in marks[1:]:
+        for _ in range(calls):
+            fn()
+        mark.record()
+    marks[-1].synchronize()
+    return [x.elapsed_time(y) * 1e-3 / calls for x, y in zip(marks, marks[1:])]
+
+
+@pytest.mark.cuda
+def test_graph_timer_agrees_with_event_timing_on_a_long_gemm(card):
+    """On a GEMM of over a millisecond the graph timer agrees within 2%
+    with CUDA events around back-to-back eager calls, in three
+    alternating turns. The eager window repeats the graph timer's: queued
+    behind the same spin kernel (the host may take as long to issue a
+    call as the card to run it, and must not show), as many samples of
+    as many calls. The GEMM is fp32 on the CUDA cores (TF32 off): a bf16
+    tensor-core GEMM of this length runs at the clock the card's power
+    cap allows, which changes from one turn to the next (the test below
+    holds the bf16 GEMM under one load)."""
+    from simumax_tpu_torch.calibration import timing
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    a, b = (torch.randn(4096, 4096, generator=gen, device=card) for _ in range(2))
+    turns = []
+    with torch.no_grad():
+        _events_s(timing.PILOT_CALLS, lambda: a @ b)
+        for _ in range(3):
+            g = timing.time_graph(lambda: a @ b)
+            calls = math.ceil(timing.MIN_SAMPLE_S / g)
+            turns.append((g, timing.robust_median(
+                _events_s(calls, lambda: a @ b, timing.GRAPH_ITERS))))
+    print("fp32 4096^3: graph / eager ms " + ", ".join(
+        f"{g * 1e3:.4f} / {e * 1e3:.4f}" for g, e in turns))
+    assert min(g for g, _ in turns) >= 1e-3
+    assert abs(sorted(g / e for g, e in turns)[1] - 1) <= 0.02
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,size", [(torch.float32, 4096), (torch.bfloat16, 8192)])
+def test_graph_replays_and_eager_calls_agree_under_one_load(card, dtype, size):
+    """A replay of a graph of n GEMMs and a window of n eager GEMMs take
+    the same time when they alternate inside one unbroken load, within
+    2% (medians of five each), after 0.3 s of GEMMs have settled the
+    clock under the power cap. n is what :func:`time_graph` sizes a
+    sample to. This holds the timer apart from the clock: at bf16 8192³
+    separate turns of the graph timer and of an eager window of the same
+    length read up to 13% apart, either way round, as the clock the cap
+    allows moves between turns."""
+    from simumax_tpu_torch.calibration import timing
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    a, b = (torch.randn(size, size, generator=gen, device=card).to(dtype) for _ in range(2))
+    with torch.no_grad():
+        per_call = timing.time_graph(lambda: a @ b)
+        calls = math.ceil(timing.MIN_SAMPLE_S / per_call)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            a @ b
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(calls):
+                a @ b
+        torch.cuda.synchronize()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(11)]
+        for _ in range(math.ceil(0.3 / per_call)):
+            a @ b
+        marks[0].record()
+        for i in range(5):
+            graph.replay()
+            marks[2 * i + 1].record()
+            for _ in range(calls):
+                a @ b
+            marks[2 * i + 2].record()
+        marks[-1].synchronize()
+    spans = [x.elapsed_time(y) * 1e-3 / calls for x, y in zip(marks, marks[1:])]
+    replayed, eager = timing.robust_median(spans[0::2]), timing.robust_median(spans[1::2])
+    print(f"{dtype} {size}^3 under one load, {calls} calls a sample: graph "
+          f"{replayed * 1e3:.4f} ms, eager {eager * 1e3:.4f} ms; time_graph "
+          f"{per_call * 1e3:.4f} ms")
+    assert per_call >= 1e-3
+    assert abs(replayed / eager - 1) <= 0.02
+
+
+@pytest.mark.cuda
+def test_graph_timer_counts_each_replayed_launch(card):
+    """The warm-up calls count as launched, the captures count nothing,
+    and each replay counts every launch it captured: 2 + 4 (the pilot
+    graph's replay) + n x 5 (five samples)."""
+    from simumax_tpu_torch.calibration import timing
+
+    q, k, v = (torch.randn(1, 256, 2, 64, device=card).bfloat16() for _ in range(3))
+    K.reset_launch_counts()
+    with torch.no_grad():
+        timing.time_graph(lambda: K.flash_fwd(q, k, v, True))
+    counts = K.launch_counts()
+    assert counts["flash_fwd"] > 6 and (counts["flash_fwd"] - 6) % 5 == 0
+    assert sum(counts.values()) == counts["flash_fwd"]
+
+
+@pytest.mark.cuda
+def test_graph_timer_holds_no_memory_once_it_returns(card):
+    """Timing again allocates nothing that outlives the timing: the
+    captured graphs and their pools are freed, and every warm-up and
+    capture runs on one side stream, so cuBLAS pins no new workspace."""
+    from simumax_tpu_torch.calibration import timing
+
+    a, b = (torch.randn(1024, 1024, device=card).bfloat16() for _ in range(2))
+    with torch.no_grad():
+        timing.time_graph(lambda: a @ b)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        for _ in range(4):
+            timing.time_graph(lambda: a @ b)
+        torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.cuda
+def test_an_oom_inside_a_capture_ends_it_and_is_retried(card):
+    from simumax_tpu_torch.calibration import autocal, timing
+
+    x = torch.ones(1024, device=card)
+    state = {"raised": False}
+
+    def op():
+        if torch.cuda.is_current_stream_capturing() and not state["raised"]:
+            state["raised"] = True
+            raise torch.cuda.OutOfMemoryError("injected inside the capture")
+        return x * 2
+
+    attempts = []
+
+    def measure():
+        attempts.append(torch.cuda.is_current_stream_capturing())
+        return timing.time_graph(op)
+
+    assert autocal.with_retries(measure, backoff=0.0) > 0
+    assert attempts == [False, False] and state["raised"]
+    assert not torch.cuda.is_current_stream_capturing()
+
+
+@pytest.mark.cuda
+def test_sdp_bwd_key_reads_the_same_with_the_host_slowed(card):
+    """The flash row's ``sdp_bwd`` key, timed from CUDA graphs, reads
+    within 5% of itself while a thread spinning in Python holds the
+    interpreter lock."""
+    from simumax_tpu_torch import bench
+    from simumax_tpu_torch.calibration import autocal
+    from simumax_tpu_torch.calibration.timing import host_slowed
+
+    perf = bench.predict_step(bench.build_bench_model(), "h100_sxm", "flash")
+    key = next(iter(perf.system.miss_efficiency["sdp_bwd"]))
+    plain = autocal.calibrate_key("sdp_bwd", key, perf.system)
+    with host_slowed():
+        slowed = autocal.calibrate_key("sdp_bwd", key, perf.system)
+    assert 0 < plain <= 1 and abs(slowed - plain) <= 0.05 * plain
+
+
+@pytest.mark.cuda
+def test_moe_step_syncs_the_host_nowhere(card):
+    """A MoE training step (tokens dropped, top-2 and top-4) runs under
+    ``set_sync_debug_mode("error")``: its dispatch has static shapes."""
+    from simumax_tpu_torch.torchref import moe_model as M
+
+    for e, k in ((4, 2), (8, 4)):
+        cfg = M.MoeConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4,
+                          head_size=64, layer_num=2, expert_num=e, topk=k, moe_ffn=512,
+                          capacity_factor=0.5)
+        params = M.init_params(cfg, seed=0, device=card)
+        ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0)).to(card)
+        init_opt, step = M.make_train_step(cfg)
+        opt = init_opt(params)
+        params, opt, _ = step(params, opt, (ids, ids))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt, loss = step(params, opt, (ids, ids))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_top4_moe_combine_on_the_card_repeats_bit_for_bit_and_matches_the_cpu(card):
+    """The top-4 MoE layer (tokens dropped): two bf16 runs on the card give
+    equal outputs and gradients, bit for bit; in fp32 the card's model
+    gives the CPU's logits within 1e-5 of their largest (the CPU test's
+    tolerance against JAX)."""
+    from simumax_tpu_torch.torchref import moe_model as M
+
+    sizes = dict(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4, head_size=64,
+                 layer_num=2, expert_num=8, topk=4, moe_ffn=512, capacity_factor=0.5)
+    y0 = torch.randn(1, 64, 256, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for _ in range(2):
+        cfg = M.MoeConfig(dtype=torch.bfloat16, **sizes)
+        p = M.init_params(cfg, seed=3, device=card)["layers"][0]
+        y = y0.to(card, torch.bfloat16).requires_grad_(True)
+        out = M._moe_mlp(y, p, cfg)
+        runs.append([out, *torch.autograd.grad(out.float().square().sum(),
+                                               [y, p["gate"], p["moe_up"], p["moe_down"]])])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cfg = M.MoeConfig(dtype=torch.float32, **sizes)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, 512, (1, 64), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = M.forward(params, ids, cfg)
+        got = M.forward(_tree_to(params, card), ids.to(card), cfg).cpu()
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
