@@ -5,9 +5,14 @@ Port of the JAX package's ``bench.py`` (the loop at its lines 67-219),
 widened to the seven rows of ``tools/accuracy_table.py``. For each row:
 
 1. measure a real fwd+bwd+Adam step of the row's reference model on the
-   card, by CUDA events: the Llama of ``torchref/model.py`` (eager math
-   attention, the CUDA flash kernels, int8 linear layers, or full-block
-   recompute) or the MoE model of ``torchref/moe_model.py``;
+   card: the Llama of ``torchref/model.py`` (eager math attention, the
+   CUDA flash kernels, int8 linear layers, or full-block recompute) or
+   the MoE model of ``torchref/moe_model.py``. The measured step is one
+   step captured in a CUDA graph and replayed once per step
+   (``calibration.timing.time_captured_step``), as the reference times
+   its jitted step (its ``bench.py:127``); the eager step (back-to-back
+   Python calls) is timed beside it from the same seed and reported as
+   ``eager_ms``, which shows the host's share of an eager step;
 2. predict the same step with ``PerfLLM`` on the card's system config
    (:func:`detect_system`: ``h100_sxm_calibrated``, the tables measured
    on the card, where it exists);
@@ -24,9 +29,11 @@ table's "flash(pallas)" row: the CUDA flash kernels
 (``sdp_backend="cuda"``); every other row takes eager math attention
 (``sdp_backend="torch"``).
 
-The measured peak memory is ``torch.cuda.max_memory_allocated``: the
-bytes of live tensors at their peak, as the caching allocator counts
-them (not the allocator's reserved pool).
+The measured peak memory is ``torch.cuda.max_memory_allocated`` over the
+eager steps: the bytes of live tensors at their peak, as the caching
+allocator counts them (not the allocator's reserved pool). The graph's
+steps are left out: a captured graph keeps its own private pool, whose
+size is not the eager allocator's peak.
 
 Run: ``python -m simumax_tpu_torch.bench``. It needs a CUDA card and
 raises without one.
@@ -40,7 +47,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from simumax_tpu_torch.calibration import calibrate_for_perf
-from simumax_tpu_torch.calibration.timing import time_stateful
+from simumax_tpu_torch.calibration.timing import time_captured_step, time_stateful
 from simumax_tpu_torch.core.config import StrategyConfig, list_configs
 from simumax_tpu_torch.core.errors import ConfigError
 from simumax_tpu_torch.perf import PerfLLM
@@ -102,33 +109,44 @@ def detect_system(device="cuda") -> Tuple[str, str]:
 def measure_step(mc, kind: str = "dense", seq_len: int = 2048, batch_size: int = 1,
                  layers: int = 0, remat: bool = False, iters: int = 8, warmup: int = 2,
                  seed: int = 0, device="cuda") -> Tuple[float, Dict]:
-    """Seconds per training step of a row on the card, and stats: the
-    peak of ``torch.cuda.max_memory_allocated``, the steps run, the
-    launches of each CUDA kernel during them, and the first and last
-    loss. ``layers`` 0 takes the model's own depth."""
+    """Seconds per training step of a row on the card, replayed from a
+    CUDA graph (:func:`time_captured_step`), and stats: ``eager_ms``, the
+    same steps of a second copy of the model from the same seed as
+    back-to-back Python calls between CUDA events; the losses of both
+    runs, step by step (``losses`` and ``eager_losses``); the peak of
+    ``torch.cuda.max_memory_allocated`` over the eager steps; the steps
+    run (both runs); and the launches of each CUDA kernel during them.
+    ``layers`` 0 takes the model's own depth."""
     dev = resolve_device(device)
-    step = make_row_step(kind, mc, seq_len, batch_size, layers or mc.layer_num, remat,
-                         seed, dev)
-    losses = []
+    layers = layers or mc.layer_num
+    before = launch_counts()
+    step = make_row_step(kind, mc, seq_len, batch_size, layers, remat, seed, dev)
+    eager_losses = []
 
     def run():
-        losses.append(step())
-        return losses[-1]
+        eager_losses.append(step().clone())
 
     torch.cuda.reset_peak_memory_stats(dev)
-    before = launch_counts()
-    t = time_stateful(run, warmup=warmup, iters=iters)
+    eager_s = time_stateful(run, warmup=warmup, iters=iters)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del step, run
+    torch.cuda.empty_cache()
+    step = make_row_step(kind, mc, seq_len, batch_size, layers, remat, seed, dev)
+    graph_s, losses = time_captured_step(step, warmup=warmup, iters=iters)
     after = launch_counts()
     stats = {
-        "measured_peak_bytes": torch.cuda.max_memory_allocated(dev),
-        "steps": warmup + iters,
+        "eager_ms": eager_s * 1e3,
+        "measured_peak_bytes": peak,
+        "steps": 2 * (warmup + iters),
         "launches": {k: after[k] - before[k] for k in after},
+        "losses": losses.tolist(),
+        "eager_losses": torch.stack(eager_losses).tolist(),
         "loss_first": float(losses[0]),
         "loss_last": float(losses[-1]),
     }
     del step
     torch.cuda.empty_cache()
-    return t, stats
+    return graph_s, stats
 
 
 def row_strategy(kind: str = "dense", seq_len: int = 2048, batch_size: int = 1,
@@ -215,6 +233,7 @@ def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
         "mbs": mbs,
         "remat": remat,
         "measured_ms": measured_s * 1e3,
+        "eager_ms": stats["eager_ms"],
         **pred,
         "predicted_breakdown_ms": {
             k: v * 1e3 for k, v in cost["time_breakdown"].items()
@@ -225,6 +244,8 @@ def run_row(label: str, kind: str, seq: int, mbs: int, layers: int, remat: bool,
         "launches": stats["launches"],
         "loss_first": stats["loss_first"],
         "loss_last": stats["loss_last"],
+        "losses": stats["losses"],
+        "eager_losses": stats["eager_losses"],
     }
     if base_name != system_name:
         base = predict_with_loop(mc, base_name, kind, seq, mbs, layers, remat, measured_s,
@@ -242,7 +263,8 @@ def main(device="cuda") -> List[Dict]:
         results.append(row)
         for pred in [row] + ([row["base"]] if "base" in row else []):
             print(
-                f"{label} [{pred['system_config']}]: measured {row['measured_ms']:.3f} ms, "
+                f"{label} [{pred['system_config']}]: measured {row['measured_ms']:.3f} ms "
+                f"(graph replays; eager {row['eager_ms']:.3f} ms), "
                 f"before the loop {pred['predicted_uncalibrated_ms']:.3f} ms "
                 f"({pred['uncalibrated_error_pct']:.2f}%), after "
                 f"{pred['predicted_ms']:.3f} ms ({pred['error_pct']:.2f}%), "

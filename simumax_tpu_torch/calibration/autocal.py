@@ -33,11 +33,14 @@ without one it raises.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import signal
+import statistics
 import subprocess
 import time as _time
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 import torch
 
@@ -49,6 +52,7 @@ from simumax_tpu_torch.core.utils import cuda_flash_supported
 from simumax_tpu_torch.observe.report import get_reporter
 from simumax_tpu_torch.torchref.kernels import flash_attention, math_attention
 from simumax_tpu_torch.torchref.model import adam_update, resolve_device
+from simumax_tpu_torch.torchref.quantized import OPERAND_ORDERS
 from simumax_tpu_torch.torchref.quantized import _mm as int8_mm
 
 _DTYPES = {
@@ -152,15 +156,18 @@ def measure_gemm_efficiency(
     ``groups > 1`` (balanced grouped GEMM, as ``bmm``). The product's
     type is its operands' (``out_dtype`` is part of the key only).
     ``dtype="int8"`` times the int8 path's own product
-    (``torchref.quantized._mm``: ``torch._int_mm`` with int32 results,
-    the copies into its full-rate operand order included)."""
+    (``torchref.quantized._mm``: ``torch._int_mm`` with int32 results) on
+    operands in the memory order the path's quantizer writes for that
+    layout (``torchref.quantized.OPERAND_ORDERS``)."""
     dev = _card(device)
     dt = _DTYPES.get(dtype, torch.bfloat16)
     if dtype == "int8":
         if batch != 1 or groups != 1:
             raise ValueError("the int8 path multiplies 2-D operands")
         shapes = {"NN": ((m, k), (k, n)), "NT": ((m, k), (n, k)), "TN": ((k, m), (k, n))}
-        a, b = (_test_array(shape, torch.int8, dev) for shape in shapes[layout])
+        a, b = (_test_array(shape[::-1], torch.int8, dev).t() if cols else
+                _test_array(shape, torch.int8, dev)
+                for shape, cols in zip(shapes[layout], OPERAND_ORDERS[layout]))
 
         def op():
             return int8_mm(a, b, ta=layout == "TN", tb=layout == "NT")
@@ -345,8 +352,10 @@ def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
     mu = _test_array((numel,), torch.float32, dev)
     nu = _test_array((numel,), torch.float32, dev)
 
+    count = torch.ones((), dtype=torch.int32, device=dev)
+
     def step():
-        adam_update([p], [g], [mu], [nu], step=1)
+        adam_update([p], [g], [mu], [nu], step=count)
 
     t = time_graph(step)
     return min(numel * 22 / t / (peak_gbps * 1e9), 1.0)
@@ -548,14 +557,59 @@ def card_identity(device="cuda") -> str:
     return lines[dev.index or 0].strip()
 
 
-def save_system(system, path: str, device="cuda") -> Dict:
+@contextlib.contextmanager
+def sm_clock_samples(device="cuda", every_ms: int = 100) -> Iterator[List[int]]:
+    """The card's SM clock in MHz, sampled by ``nvidia-smi`` every
+    ``every_ms`` while the block runs, into the list it yields (filled
+    when the block ends; the sampling process is stopped there). Under a
+    power cap the clock, and with it a GEMM's efficiency, moves with the
+    load."""
+    dev = _card(device)
+    proc = subprocess.Popen(
+        ["nvidia-smi", f"--id={dev.index or 0}", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", f"--loop-ms={every_ms}"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples: List[int] = []
+    try:
+        yield samples
+    finally:
+        proc.send_signal(signal.SIGINT)  # nvidia-smi ends its loop cleanly on ^C
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        samples.extend(int(line) for line in out.split() if line.strip().isdigit())
+
+
+def clock_summary(samples: List[int]) -> Dict[str, float]:
+    """Median, least and most of SM clock samples (MHz), and their count."""
+    if not samples:
+        return {"samples": 0}
+    return {"median_mhz": statistics.median(samples), "min_mhz": min(samples),
+            "max_mhz": max(samples), "samples": len(samples)}
+
+
+def card_max_sm_clock(device="cuda") -> int:
+    """The card's highest SM clock in MHz (``clocks.max.sm``)."""
+    dev = _card(device)
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()
+    return int(lines[dev.index or 0])
+
+
+def save_system(system, path: str, device="cuda", extra: Optional[Dict] = None) -> Dict:
     """Stamp ``system``'s provenance (its hardware fingerprint, the date,
-    the version, and :func:`card_identity`) and write it as JSON to
-    ``path``; returns the stamp. A config loaded against other hardware
-    then warns instead of silently skewing estimates."""
+    the version, :func:`card_identity` and any ``extra`` entries) and
+    write it as JSON to ``path``; returns the stamp. A config loaded
+    against other hardware then warns instead of silently skewing
+    estimates."""
     card = card_identity(device)
     stamp = system.stamp_provenance()
     stamp["card"] = card
+    stamp.update(extra or {})
     with open(path, "w") as f:
         json.dump(system.to_dict(), f, indent=2, default=lambda o: vars(o))
     return stamp

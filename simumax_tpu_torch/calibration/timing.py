@@ -10,10 +10,12 @@ between CUDA events, growing ``n`` from a pilot replay until one replay
 lasts at least :data:`MIN_SAMPLE_S`, as ``_time_op`` rescales its scan
 length. A replay launches every captured kernel without the host, so the
 host's speed does not show in the reading, as dispatch is paid once per
-jitted scan in the reference. ``time_fn`` and ``time_stateful`` time
-back-to-back Python calls between a pair of CUDA events; the bench loop
-times its training steps so, since the host's share of a step is part of
-what the step costs.
+jitted scan in the reference. :func:`time_captured_step` times a
+stateful training step the same way the reference times its jitted step:
+one step captured in a CUDA graph, replayed once per step. ``time_fn``
+and ``time_stateful`` time back-to-back Python calls between a pair of
+CUDA events; the bench loop reports its eager steps so beside the
+replayed ones, which shows the host's share of an eager step.
 
 The reference's scalar-fetch round trip (``fetch_rtt`` and its
 subtraction) existed for a remote TPU tunnel and has no meaning on a
@@ -163,6 +165,13 @@ def _replay_s(graph, captured: Dict[str, int], reps: int) -> List[float]:
     return [a.elapsed_time(b) * 1e-3 for a, b in zip(events, events[1:])]
 
 
+def _side_stream() -> torch.cuda.Stream:
+    device = torch.cuda.current_device()
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
 def time_graph(fn: Callable, *args) -> float:
     """Robust-median seconds per call of ``fn(*args)``, replayed from a
     captured CUDA graph.
@@ -179,10 +188,7 @@ def time_graph(fn: Callable, *args) -> float:
     counts (``torchref.kernels``) count each replay, not the capture.
     Raises without a card and when a capture fails."""
     _require_cuda()
-    device = torch.cuda.current_device()
-    if device not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
-    stream = _SIDE_STREAMS[device]
+    stream = _side_stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(GRAPH_WARMUP):
@@ -199,6 +205,66 @@ def time_graph(fn: Callable, *args) -> float:
     samples = [t / n for t in _replay_s(graph, captured, GRAPH_ITERS)]
     del graph
     return robust_median(samples)
+
+
+def capture_step(step: Callable[[], torch.Tensor], warmup: int = 2):
+    """A stateful step (a training step that updates its parameters,
+    moments and step count in place and returns the same output tensor
+    at every call) captured in one CUDA graph: ``step`` runs ``warmup``
+    times on the device's side stream (kernel builds, cuBLAS workspaces,
+    autograd's state), then one call is captured on that stream; the
+    capture runs nothing, so replays continue from the warm-up's state
+    (``warmup`` is at least 1: the first call builds what a capture
+    cannot).
+    Returns (graph, the step's output tensor, the warm-up calls' outputs
+    stacked, the kernel launches the capture recorded). The launch counts
+    keep the warm-up calls and drop the capture (:func:`kernels.take_launches`).
+    Raises when the capture fails: nothing runs eagerly instead."""
+    _require_cuda()
+    stream = _side_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        warm = [step().clone() for _ in range(warmup)]
+    torch.cuda.current_stream().wait_stream(stream)
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, stream=stream):
+            out = step()
+    finally:
+        captured = kernels.take_launches(before)
+    return graph, out, torch.stack(warm), captured
+
+
+def time_captured_step(step: Callable[[], torch.Tensor], warmup: int = 2,
+                       iters: int = 8) -> Tuple[float, torch.Tensor]:
+    """Seconds per call of a stateful step, replayed from a CUDA graph
+    (:func:`capture_step`), and the step's outputs, one per call (the
+    warm-up calls' first), as a device tensor.
+
+    ``iters`` replays are queued behind a spin kernel of
+    :data:`LEAD_CYCLES` (as :func:`time_graph`'s), each between its own
+    pair of CUDA events, and each replay's output is copied into the
+    result after its closing event, so the copies are not timed. The
+    reading is the mean over the replays. Nothing is read back until the
+    last replay has ended. The kernel launch counts count the warm-up
+    calls and each replay, not the capture. Raises without a card and
+    when the capture fails: nothing is timed eagerly instead."""
+    graph, out, warm, captured = capture_step(step, warmup)
+    outs = torch.empty((iters, *out.shape), dtype=out.dtype, device=out.device)
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    torch.cuda._sleep(LEAD_CYCLES)
+    for i in range(iters):
+        starts[i].record()
+        graph.replay()
+        ends[i].record()
+        outs[i].copy_(out)
+    ends[-1].synchronize()
+    kernels.count_replays(captured, iters)
+    seconds = sum(a.elapsed_time(b) for a, b in zip(starts, ends)) * 1e-3 / iters
+    del graph
+    return seconds, torch.cat([warm, outs])
 
 
 def time_stateful(step: Callable, warmup: int = 1, iters: int = 8) -> float:

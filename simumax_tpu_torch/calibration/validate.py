@@ -7,7 +7,10 @@ analytical peak with XLA's compiled buffer assignment
 the matching reference model (``torchref.rows.make_row_step``: the Llama with
 math or flash attention, int8 linear layers or full-block recompute, or
 the MoE model) on the card and reads the caching allocator's peak,
-``torch.cuda.max_memory_allocated``, over that step. The HLO helpers of
+``torch.cuda.max_memory_allocated``, over that step. The step is run
+eagerly, where the bench loop times replays of a captured CUDA graph: a
+graph keeps its intermediates in a private memory pool sized at capture,
+which is not the eager allocator's peak. The HLO helpers of
 the reference (collective bytes, replica groups) wait for a multi-card
 path (ROADMAP.md).
 """

@@ -12,11 +12,12 @@ TPU redesign: ``analysis_net`` places every parallel dim on the ICI torus
 choosing NVLink/PCIe link classes.
 
 Copy of the JAX package's ``perf.py``. ``configure``, ``run_estimate``,
-``analysis_cost``, ``analysis_mem`` and their helpers are whole; the
+``analysis_cost``, ``analysis_mem``, ``ledger``, ``memory_ledger``,
+``memory_crosscheck``, ``simulate`` and their helpers are whole; the
 flash-backend sanity check uses the CUDA kernels' shape gate
 (``cuda_flash_supported``); the methods that reach modules not ported
-yet (ledgers, simulator, faults, DualPipe) raise ``NotImplementedError``
-naming their ROADMAP item.
+yet (critical path, faults, search pruning, DualPipe) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -1219,10 +1220,59 @@ class PerfLLM(PerfBase):
     def _print_summary(self, result: dict):
         print_summary(result)
 
+    def ledger(self):
+        """Collect the cost-attribution ledger of the current estimate
+        (see ``observe/ledger.py``): per-op and per-collective spans with
+        efficiency provenance, the MFU-loss waterfall, and the headline
+        summary. Post-hoc over the retained symbolic tree — calling it
+        never changes the estimate (ledger-on and ledger-off predictions
+        are bit-identical)."""
+        from simumax_tpu_torch.observe.ledger import Ledger
+
+        return Ledger.collect(self)
+
+    def memory_ledger(self, timeline: bool = True):
+        """Collect the per-tensor HBM ledger of the current estimate
+        (``observe/memledger.py``): the full live set at each stage's
+        predicted peak as ``MemSpan`` records, the peak-HBM waterfall
+        (buckets sum to ``analysis_mem()["max_peak_bytes"]`` within
+        1e-6), and the analytical memory timeline in the simulator's
+        snapshot schema. Post-hoc and read-only like :meth:`ledger` —
+        headline numbers with and without collection are bit-identical."""
+        from simumax_tpu_torch.observe.memledger import MemoryLedger
+
+        return MemoryLedger.collect(self, timeline=timeline)
+
+    def memory_crosscheck(self, granularity: str = "leaf"):
+        """Per-stage analytical-vs-DES peak cross-check
+        (``observe/memledger.py::mem_crosscheck``): replay the step in
+        the discrete-event simulator with memory tracking and compare
+        each stage's simulated peak against this estimate's
+        ``analysis_mem`` prediction — the memory analog of the sweep's
+        ``sim_vs_analytical`` time column."""
+        from simumax_tpu_torch.observe.memledger import mem_crosscheck
+
+        return mem_crosscheck(self, granularity=granularity)
+
+    def simulate(self, save_path: Optional[str] = None, **kwargs):
+        """Discrete-event replay of the estimated iteration
+        (``simulator/runner.py``). Key kwargs: ``granularity``
+        ("leaf"/"chunk"), ``world_ranks`` (simulate every global rank),
+        ``perturbation`` ({rank: compute multiplier} straggler
+        injection), ``reduce`` (rank-symmetry reduction: "auto" / True /
+        False), ``track_memory``, ``stream_trace`` (bounded-RSS
+        incremental trace write). ``faults`` and ``critical_path`` need
+        modules the port does not have yet and raise. Reports into
+        ``self.diagnostics``."""
+        from simumax_tpu_torch.simulator.runner import run_simulation
+
+        return run_simulation(self, save_path, **kwargs)
+
     # -- not ported yet ---------------------------------------------------
     # The JAX package's perf.py has these methods; the modules behind
-    # them (observe ledgers, the event simulator, the fault and DualPipe
-    # models) are later slices of the port (ROADMAP.md queue A item 4).
+    # them (the critical-path engine, the fault and DualPipe models, the
+    # search's pruning) are later slices of the port (ROADMAP.md queue A
+    # item 4).
 
     def _not_ported(self, name: str, module: str):
         raise NotImplementedError(
@@ -1231,20 +1281,8 @@ class PerfLLM(PerfBase):
             f"methods and the simulator)"
         )
 
-    def ledger(self):
-        self._not_ported("ledger", "observe/ledger.py")
-
-    def memory_ledger(self, timeline: bool = True):
-        self._not_ported("memory_ledger", "observe/memledger.py")
-
-    def memory_crosscheck(self, granularity: str = "leaf"):
-        self._not_ported("memory_crosscheck", "observe/memledger.py")
-
-    def simulate(self, save_path: Optional[str] = None, **kwargs):
-        self._not_ported("simulate", "simulator/runner.py")
-
     def critical_path(self, save_path: Optional[str] = None, **kwargs):
-        self._not_ported("critical_path", "simulator/runner.py")
+        self._not_ported("critical_path", "observe/critpath.py")
 
     def predict_goodput(self, scenario, **kwargs):
         self._not_ported("predict_goodput", "simulator/faults.py")

@@ -6,7 +6,11 @@ keys a family of representative single-card estimates miss, measure
 each on the card (GEMM layouts, grouped GEMM, int8, math and CUDA flash
 attention), calibrate the HBM bandwidth classes, and write the config
 to ``simumax_tpu_torch/configs/system/<base>_calibrated.json`` with a
-provenance stamp that names the card and its power limit.
+provenance stamp that names the card and its power limit and, for each
+key family (each op's keys, then the bandwidth classes), the SM clock
+``nvidia-smi`` sampled every 100 ms while the family was timed
+(``sm_clock``: median, least, most; ``max_sm_clock_mhz`` beside it):
+under the power cap a GEMM key moves with the clock it was read at.
 ``bench.detect_system`` then prefers it over the datasheet config.
 
 The family (:func:`representative_perfs`) is the single-card members of
@@ -31,7 +35,10 @@ from simumax_tpu_torch import bench
 from simumax_tpu_torch.calibration.autocal import (
     calibrate_bandwidth_classes,
     calibrate_key,
+    card_max_sm_clock,
+    clock_summary,
     save_system,
+    sm_clock_samples,
     validate_efficiency,
 )
 from simumax_tpu_torch.core.config import StrategyConfig, get_model_config, get_system_config
@@ -101,31 +108,45 @@ def build(out: str = "", device="cuda") -> str:
                     seen.add((op_key, shape_key))
                     todo.append((op_key, shape_key))
     print(f"[build] calibrating {len(todo)} shape keys on the card", flush=True)
-    measured = 0
-    for i, (op_key, shape_key) in enumerate(todo):
-        try:
-            eff = calibrate_key(op_key, shape_key, system, device=device)
-            if eff is not None:
-                eff = validate_efficiency(eff, op_key, shape_key)
-        except CalibrationError as exc:  # out of memory at every attempt
-            print(f"[build] {i + 1}/{len(todo)} {op_key}: failed ({shape_key}): {exc}",
-                  flush=True)
-            continue
-        if eff is None:
-            print(f"[build] {i + 1}/{len(todo)} {op_key}: unsupported ({shape_key})",
-                  flush=True)
-            continue
-        system.accelerator.op[op_key].accurate_efficient_factor[shape_key] = round(eff, 4)
-        measured += 1
-        print(f"[build] {i + 1}/{len(todo)} {op_key}: {shape_key} -> {eff:.4f}", flush=True)
+    families = list(dict.fromkeys(op_key for op_key, _key in todo))
+    todo.sort(key=lambda item: families.index(item[0]))  # one family after another
+    measured, clocks = 0, {}
+    for family in families:
+        with sm_clock_samples(device) as samples:
+            for i, (op_key, shape_key) in enumerate(todo):
+                if op_key == family:
+                    measured += _measure_key(system, i, len(todo), op_key, shape_key, device)
+        clocks[family] = clock_summary(samples)
+        print(f"[build] {family}: SM clock while timed {clocks[family]}", flush=True)
     print("[build] measuring HBM bandwidth classes", flush=True)
-    for key, eff in calibrate_bandwidth_classes(system, device=device).items():
+    with sm_clock_samples(device) as samples:
+        classes = calibrate_bandwidth_classes(system, device=device)
+    clocks["bandwidth"] = clock_summary(samples)
+    for key, eff in classes.items():
         print(f"[build] bandwidth {key}: eff {eff:.4f}", flush=True)
     out = out or os.path.join(CONFIG_DIR, f"{base}_calibrated.json")
     system.sys_name = os.path.splitext(os.path.basename(out))[0]
-    stamp = save_system(system, out, device)
+    stamp = save_system(system, out, device, extra={
+        "sm_clock": clocks, "max_sm_clock_mhz": card_max_sm_clock(device)})
     print(f"[build] wrote {out} ({measured} measured keys; provenance {stamp})", flush=True)
     return out
+
+
+def _measure_key(system, i: int, n: int, op_key: str, shape_key: str, device) -> int:
+    """Measure one shape key into ``system``'s table; 1 if it was written."""
+    try:
+        eff = calibrate_key(op_key, shape_key, system, device=device)
+        if eff is not None:
+            eff = validate_efficiency(eff, op_key, shape_key)
+    except CalibrationError as exc:  # out of memory at every attempt
+        print(f"[build] {i + 1}/{n} {op_key}: failed ({shape_key}): {exc}", flush=True)
+        return 0
+    if eff is None:
+        print(f"[build] {i + 1}/{n} {op_key}: unsupported ({shape_key})", flush=True)
+        return 0
+    system.accelerator.op[op_key].accurate_efficient_factor[shape_key] = round(eff, 4)
+    print(f"[build] {i + 1}/{n} {op_key}: {shape_key} -> {eff:.4f}", flush=True)
+    return 1
 
 
 def main(argv=None) -> str:

@@ -7,8 +7,13 @@ of the port's reference Llama on the card
 (``calibration.validate.validate_memory``: ``torch.cuda.max_memory_allocated``,
 where the reference read XLA's compiled buffer assignment). The
 prediction is the reference tool's: fp32 main gradients, math attention,
-the functional optimizer, on the card's system config. The table
-reports the gap; it changes nothing in the memory model.
+the functional optimizer, on the card's system config. Beside each
+prediction stand the buckets of its peak-memory waterfall
+(``PerfLLM.memory_ledger``: params, grads, optimizer states, activation
+cache, recompute working set, workspace, comm buffers), and beside the
+measured peak its split into what the step starts with (params, Adam
+moments and token ids) and what it adds. The table reports the gap; it
+changes nothing in the memory model.
 
 Usage: ``python -m simumax_tpu_torch.tools.validate_memory_table``
 (needs the card). Prints the table and writes it to
@@ -23,6 +28,7 @@ from typing import Dict, List
 from simumax_tpu_torch.bench import detect_system
 from simumax_tpu_torch.calibration.validate import validate_memory
 from simumax_tpu_torch.core.config import StrategyConfig, get_model_config
+from simumax_tpu_torch.observe.memledger import MEM_WATERFALL_ORDER, build_memory_waterfall
 from simumax_tpu_torch.perf import PerfLLM
 
 CASES = [
@@ -63,13 +69,16 @@ def run(cases=CASES, device="cuda") -> List[Dict]:
     system_name, kind = detect_system(device)
     rows = []
     for seq, layers, mbs, remat in cases:
-        rec = validate_memory(predict(seq, layers, mbs, remat, system_name), device=device)
+        perf = predict(seq, layers, mbs, remat, system_name)
+        rec = validate_memory(perf, device=device)
         meas, pred = rec["peak_memory_in_bytes"], rec["predicted_peak_bytes"]
+        waterfall = build_memory_waterfall(perf)
         rows.append({
             "seq": seq, "layers": layers, "mbs": mbs, "remat": remat,
             "measured_gib": meas / 2**30, "predicted_gib": pred / 2**30,
             "argument_gib": rec["argument_size_in_bytes"] / 2**30,
             "error_pct": (pred - meas) / meas * 100.0,
+            "waterfall_gib": {k: v / 2**30 for k, v in waterfall["buckets"].items()},
             "system_config": system_name, "device_kind": kind,
         })
         print(f"seq={seq} L={layers} mbs={mbs} remat={remat}: measured "
@@ -87,14 +96,25 @@ def write_table(rows: List[Dict], path: str = OUT) -> str:
         f"Device: {rows[0]['device_kind']}; system config {rows[0]['system_config']}; "
         "measured: `torch.cuda.max_memory_allocated` over one step.",
         "",
-        "| seq | layers | mbs | remat | measured GiB | predicted GiB | err % |",
-        "|---|---|---|---|---|---|---|",
+        "Measured: the peak, what the step starts with (params, Adam moments, ids) and "
+        "what it adds. Predicted: the peak and its waterfall buckets (GiB; buckets "
+        "that are 0 in every row are left out).",
+        "",
+    ]
+    buckets = [b for b in MEM_WATERFALL_ORDER
+               if any(r["waterfall_gib"][b] for r in rows)]
+    lines += [
+        "| seq | layers | mbs | remat | measured GiB | start | added | predicted GiB | "
+        + " | ".join(buckets) + " | err % |",
+        "|" + "---|" * (9 + len(buckets)),
     ]
     for r in rows:
         lines.append(
             f"| {r['seq']} | {r['layers']} | {r['mbs']} | {r['remat']} "
-            f"| {r['measured_gib']:.3f} | {r['predicted_gib']:.3f} "
-            f"| {r['error_pct']:+.1f} |"
+            f"| {r['measured_gib']:.3f} | {r['argument_gib']:.3f} "
+            f"| {r['measured_gib'] - r['argument_gib']:.3f} | {r['predicted_gib']:.3f} | "
+            + " | ".join(f"{r['waterfall_gib'][b]:.3f}" for b in buckets)
+            + f" | {r['error_pct']:+.1f} |"
         )
     lines += ["", f"Worst-case |error|: {worst:.1f}%", ""]
     os.makedirs(os.path.dirname(path), exist_ok=True)

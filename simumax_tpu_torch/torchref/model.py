@@ -19,8 +19,9 @@ fp32 Adam moments, the update computed in fp32 and cast back. With
 
 Parameters are a plain nested dict of tensors with the reference's
 structure, so :func:`params_from_jax` can carry the JAX package's
-parameters over. The Adam step updates params and moments in place
-(JAX donates the buffers; here no second copy is allocated).
+parameters over. The Adam step updates params, moments and the step
+count in place (JAX donates the buffers; here no second copy is
+allocated), with the step count and the bias corrections on the device.
 """
 
 from __future__ import annotations
@@ -35,6 +36,21 @@ from torch.utils.checkpoint import checkpoint
 
 from simumax_tpu_torch.torchref.kernels import attention, math_attention
 from simumax_tpu_torch.torchref.quantized import int8_matmul
+
+
+#: the op families whose profiler ranges (:func:`op_family`) the reference
+#: models mark; what runs in none of them is elementwise work
+OP_FAMILIES = ("gemm", "attention", "norm", "cross_entropy", "optimizer", "moe_dispatch")
+
+
+def op_family(name: str):
+    """A ``torch.profiler`` range that marks what runs inside it as one of
+    :data:`OP_FAMILIES`, so a profile of a step can be summed by family
+    beside the analytical ledger's. Without a profiler it costs a
+    function call; a CUDA graph capture records nothing of it."""
+    if name not in OP_FAMILIES:
+        raise ValueError(f"unknown op family {name!r} (known: {OP_FAMILIES})")
+    return torch.profiler.record_function(name)
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -169,8 +185,9 @@ def params_from_jax(np_params, device="cuda", dtype=torch.bfloat16) -> Dict:
 
 
 def _rms_norm(x, w, eps=1e-5):
-    var = x.float().square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
+    with op_family("norm"):
+        var = x.float().square().mean(-1, keepdim=True)
+        return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
 
 
 def _rope(x, theta: float):
@@ -188,9 +205,13 @@ def _rope(x, theta: float):
 
 
 def _linear(cfg: LlamaConfig) -> Callable:
-    if cfg.use_int8:
-        return int8_matmul
-    return lambda x, w: x @ w
+    mm = int8_matmul if cfg.use_int8 else torch.matmul
+
+    def linear(x, w):
+        with op_family("gemm"):
+            return mm(x, w)
+
+    return linear
 
 
 def _block(x, p, cfg: LlamaConfig):
@@ -206,15 +227,16 @@ def _block(x, p, cfg: LlamaConfig):
     q = _rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
     k = _rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
     v = v.reshape(b, s, cfg.kv_head_num, d)
-    if cfg.use_flash_attn:
-        kk, vv = k, v
-        if cfg.kv_head_num < cfg.head_num:  # the kernels want MHA layout
-            rep = cfg.head_num // cfg.kv_head_num
-            kk = k.repeat_interleave(rep, dim=2)
-            vv = v.repeat_interleave(rep, dim=2)
-        o = attention(q, kk, vv, causal=True, use_flash=True)
-    else:
-        o = math_attention(q, k, v, causal=True)
+    with op_family("attention"):
+        if cfg.use_flash_attn:
+            kk, vv = k, v
+            if cfg.kv_head_num < cfg.head_num:  # the kernels want MHA layout
+                rep = cfg.head_num // cfg.kv_head_num
+                kk = k.repeat_interleave(rep, dim=2)
+                vv = v.repeat_interleave(rep, dim=2)
+            o = attention(q, kk, vv, causal=True, use_flash=True)
+        else:
+            o = math_attention(q, k, v, causal=True)
     x = res + mm(o.reshape(b, s, q_out), p["out"])
     res = x
     y = _rms_norm(x, p["pre_mlp_norm"])
@@ -232,7 +254,9 @@ def forward(params, ids, cfg: LlamaConfig, remat: bool = False):
     x = params["embedding"][ids]
     for p in params["layers"]:
         if remat:
-            x = checkpoint(_block, x, p, cfg, use_reentrant=False)
+            # a block draws no random numbers: no RNG state to stash and
+            # restore around its recompute
+            x = checkpoint(_block, x, p, cfg, use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(x, p, cfg)
     x = _rms_norm(x, params["final_norm"])
@@ -241,10 +265,11 @@ def forward(params, ids, cfg: LlamaConfig, remat: bool = False):
 
 def loss_fn(params, batch, cfg: LlamaConfig, remat: bool = False):
     ids, targets = batch
-    logits = forward(params, ids, cfg, remat).float()
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, targets[..., None].long())
-    return -ll.mean()
+    logits = forward(params, ids, cfg, remat)
+    with op_family("cross_entropy"):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = torch.gather(logp, -1, targets[..., None].long())
+        return -ll.mean()
 
 
 # -- training step ------------------------------------------------------------
@@ -254,44 +279,55 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
 
 @torch.no_grad()
 def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
-                mu: List[torch.Tensor], nu: List[torch.Tensor], step: int,
+                mu: List[torch.Tensor], nu: List[torch.Tensor], step: torch.Tensor,
                 lr: float = 1e-4) -> None:
     """The Adam update of the reference's ``make_fused_adam``, in place:
     per leaf, the gradient upcast to fp32, fp32 moments, bias correction
-    by step, the new parameter computed in fp32 and cast back to its
-    dtype. Eager PyTorch runs it as several elementwise launches per
-    leaf (the calibration times this very function)."""
+    by ``step`` (the step count, an int32 scalar tensor on the params'
+    device), the new parameter computed in fp32 and cast back to its
+    dtype. The bias corrections 1 - b1^step and 1 - b2^step are fp32
+    tensors computed on the device, as JAX computes them in the jitted
+    step, so no number goes back to the host and one captured launch
+    sequence takes step N at its N-th replay. Eager PyTorch runs it as
+    several elementwise launches per leaf (the calibration times this
+    very function)."""
     b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
-    t = torch.tensor(float(step), dtype=torch.float32)
-    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
-    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
-    for p, g, m, v in zip(params, grads, mu, nu):
-        g = g.float()
-        m.mul_(b1).add_(g, alpha=1 - b1)
-        v.mul_(b2).addcmul_(g, g, value=1 - b2)
-        upd = (m / bc1).mul_(lr).div_((v / bc2).sqrt_().add_(eps))
-        p.copy_(p.float().sub_(upd))
+    with op_family("optimizer"):
+        t = step.float()
+        bc1 = 1 - torch.full_like(t, b1).pow(t)
+        bc2 = 1 - torch.full_like(t, b2).pow(t)
+        for p, g, m, v in zip(params, grads, mu, nu):
+            g = g.float()
+            m.mul_(b1).add_(g, alpha=1 - b1)
+            v.mul_(b2).addcmul_(g, g, value=1 - b2)
+            upd = (m / bc1).mul_(lr).div_((v / bc2).sqrt_().add_(eps))
+            p.copy_(p.float().sub_(upd))
 
 
 def make_fused_adam(loss: Callable, lr: float = 1e-4):
     """(init_opt, train_step) for any ``loss(params, batch)``: Adam with
-    fp32 moments (the analytical "functional" optimizer accounting)."""
+    fp32 moments (the analytical "functional" optimizer accounting). The
+    step count is an int32 scalar tensor on the params' device,
+    incremented in place, and params and moments are updated in place:
+    a call reads and writes the same storage each time, so a CUDA graph
+    can capture it."""
 
     def init_opt(params):
         def zeros(p):
             return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
+        device = param_leaves(params)[0].device
         return {"mu": _map_tree(zeros, params), "nu": _map_tree(zeros, params),
-                "step": 0}
+                "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def train_step(params, opt_state, batch):
         leaves = param_leaves(params)
         loss_val = loss(params, batch)
         grads = torch.autograd.grad(loss_val, leaves)
-        step = opt_state["step"] + 1
+        with op_family("optimizer"):
+            opt_state["step"].add_(1)
         adam_update(leaves, grads, param_leaves(opt_state["mu"]),
-                    param_leaves(opt_state["nu"]), step, lr)
-        opt_state["step"] = step
+                    param_leaves(opt_state["nu"]), opt_state["step"], lr)
         return params, opt_state, loss_val.detach()
 
     return init_opt, train_step

@@ -39,6 +39,7 @@ from simumax_tpu_torch.torchref.model import (  # noqa: F401  (params_from_jax: 
     _rms_norm,
     _rope,
     make_fused_adam,
+    op_family,
     param_leaves,
     params_from_jax,
     resolve_device,
@@ -158,18 +159,20 @@ def _moe_mlp(y, p, cfg: MoeConfig):
     b, s, h = y.shape
     T, e, k = b * s, cfg.expert_num, cfg.topk
     cap = _capacity(cfg, T)
-    sorted_e, slot, keep, _tok, w, order = route(y, p["gate"], cfg)
+    with op_family("moe_dispatch"):
+        sorted_e, slot, keep, _tok, w, order = route(y, p["gate"], cfg)
 
-    # permute (dispatch): each token's k copies in token-major order,
-    # permuted by expert (so the backward sums a token's k gradients in a
-    # fixed order), into the capacity buffer, the overflow into the
-    # scratch slot cap, which is sliced off
-    xs = y.reshape(T, 1, h).expand(T, k, h).reshape(T * k, h)[order]
-    where = (sorted_e, slot.clamp(max=cap))
-    xin = torch.zeros((e, cap + 1, h), dtype=y.dtype, device=y.device).index_put(
-        where, xs)[:, :cap]
+        # permute (dispatch): each token's k copies in token-major order,
+        # permuted by expert (so the backward sums a token's k gradients
+        # in a fixed order), into the capacity buffer, the overflow into
+        # the scratch slot cap, which is sliced off
+        xs = y.reshape(T, 1, h).expand(T, k, h).reshape(T * k, h)[order]
+        where = (sorted_e, slot.clamp(max=cap))
+        xin = torch.zeros((e, cap + 1, h), dtype=y.dtype, device=y.device).index_put(
+            where, xs)[:, :cap]
     # grouped GEMMs (balanced groups = one batched matmul each)
-    gate_a, val = torch.bmm(xin, p["moe_up"]).chunk(2, dim=-1)
+    with op_family("gemm"):
+        gate_a, val = torch.bmm(xin, p["moe_up"]).chunk(2, dim=-1)
     act = F.silu(gate_a) * val
     if cfg.dispatch_probs:
         # weighted-SiLU: the routing weights go into the capacity buffer
@@ -177,17 +180,19 @@ def _moe_mlp(y, p, cfg: MoeConfig):
         wbuf = torch.zeros((e, cap + 1), dtype=y.dtype, device=y.device).index_put(
             where, w)[:, :cap]
         act = act * wbuf[..., None]
-    down = torch.bmm(act, p["moe_down"])
-    # unpermute (combine): gather back in assignment order; a dropped
-    # assignment reads a clamped slot and is zeroed by the keep mask
-    vals = down[sorted_e, slot.clamp(max=cap - 1)]
-    mask = keep.to(y.dtype)
-    vals = vals * (mask if cfg.dispatch_probs else w * mask)[:, None]
-    # each assignment to its token-major row (order is a permutation, so
-    # each row is written once), then the k terms of a token summed in a
-    # fixed order
-    vals = torch.empty_like(vals).index_put((order,), vals)
-    return vals.reshape(T, k, h).sum(1).reshape(b, s, h)
+    with op_family("gemm"):
+        down = torch.bmm(act, p["moe_down"])
+    with op_family("moe_dispatch"):
+        # unpermute (combine): gather back in assignment order; a dropped
+        # assignment reads a clamped slot and is zeroed by the keep mask
+        vals = down[sorted_e, slot.clamp(max=cap - 1)]
+        mask = keep.to(y.dtype)
+        vals = vals * (mask if cfg.dispatch_probs else w * mask)[:, None]
+        # each assignment to its token-major row (order is a permutation,
+        # so each row is written once), then the k terms of a token
+        # summed in a fixed order
+        vals = torch.empty_like(vals).index_put((order,), vals)
+        return vals.reshape(T, k, h).sum(1).reshape(b, s, h)
 
 
 def _block(x, p, cfg: MoeConfig):
@@ -196,13 +201,17 @@ def _block(x, p, cfg: MoeConfig):
     kv_out = cfg.kv_head_num * d
     res = x
     y = _rms_norm(x, p["input_norm"])
-    q, k, v = torch.split(y @ p["qkv"], [q_out, kv_out, kv_out], dim=-1)
+    with op_family("gemm"):
+        qkv = y @ p["qkv"]
+    q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
     q = _rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
     k = _rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
     v = v.reshape(b, s, cfg.kv_head_num, d)
-    o = math_attention(q, k, v, causal=True)
-    x = res + o.reshape(b, s, q_out) @ p["out"]
+    with op_family("attention"):
+        o = math_attention(q, k, v, causal=True)
+    with op_family("gemm"):
+        x = res + o.reshape(b, s, q_out) @ p["out"]
     return x + _moe_mlp(_rms_norm(x, p["pre_mlp_norm"]), p, cfg)
 
 
@@ -211,13 +220,17 @@ def forward(params, ids, cfg: MoeConfig):
     x = params["embedding"][ids]
     for p in params["layers"]:
         x = _block(x, p, cfg)
-    return _rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    y = _rms_norm(x, params["final_norm"])
+    with op_family("gemm"):
+        return y @ params["lm_head"]
 
 
 def loss_fn(params, batch, cfg: MoeConfig):
     ids, targets = batch
-    logp = torch.log_softmax(forward(params, ids, cfg).float(), dim=-1)
-    return -torch.gather(logp, -1, targets[..., None].long()).mean()
+    logits = forward(params, ids, cfg)
+    with op_family("cross_entropy"):
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, targets[..., None].long()).mean()
 
 
 def make_train_step(cfg: MoeConfig, lr: float = 1e-4):

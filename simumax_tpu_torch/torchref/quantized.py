@@ -6,7 +6,8 @@ wgrad TN) with per-tensor symmetric scales, so that the int8 row of the
 self-calibration loop measures the kernel mix the analytical
 ``fp8=True, quant_dtype="int8"`` path costs. The products are
 ``torch._int_mm`` (cuBLASLt's int8 GEMM on the card), a plain product as
-JAX's ``lax.dot_general`` is; no hand-written kernel is involved.
+JAX's ``lax.dot_general`` is; only the quantization has kernels of its
+own.
 
 ``torch._int_mm`` multiplies 2-D operands only, and on the card it wants
 more than 16 rows and inner and outer sizes that are multiples of 8
@@ -14,23 +15,34 @@ more than 16 rows and inner and outer sizes that are multiples of 8
 rather than padding). cuBLASLt takes its operands in every memory order,
 but runs at full rate only with a row-major first operand and a
 column-major second one; ``chip_smoke.py`` times the four orders. So
-:func:`_mm` copies an operand that is in the other order: the weight of
-the forward (NN), both operands of the wgrad (TN), none in the dgrad
-(NT). Those copies are part of the path the calibration times.
+:func:`_q8` quantizes each operand straight into the order its product
+takes (``torchref/kernels.py``: ``q8_amax`` and ``q8_quantize``, the CUDA
+kernels of ``csrc/quant8.cu`` on the card, their plain versions on the
+CPU), and :func:`_mm` copies nothing: the forward's weight and both wgrad
+operands are written column-major, the gradient of the output both ways
+from one amax.
 """
 
 from __future__ import annotations
 
 import torch
 
+from simumax_tpu_torch.torchref.kernels import q8_amax, q8_quantize
 
-def _q8(x: torch.Tensor):
-    """Per-tensor symmetric int8 quantization -> (q, scale): the scale is
-    (amax + 1e-6) / 127 in fp32, rounded half to even, clipped to ±127."""
-    xf = x.float()
-    scale = (xf.abs().max() + 1e-6) / 127.0
-    q = torch.clamp(torch.round(xf / scale), -127, 127)
-    return q.to(torch.int8), scale
+#: per product layout (NN forward, NT dgrad, TN wgrad), whether its first
+#: and its second operand are quantized column-major: the order that
+#: gives ``torch._int_mm`` a row-major first and a column-major second
+#: operand once the layout's transposes are taken
+OPERAND_ORDERS = {"NN": (False, True), "NT": (False, False), "TN": (True, True)}
+
+
+def _q8(x: torch.Tensor, column_major: bool = False):
+    """Per-tensor symmetric int8 quantization of a 2-D tensor -> (q,
+    scale): the scale is (amax + 1e-6) / 127 in fp32, q rounded half to
+    even and clipped to ±127, row-major or (``column_major``)
+    column-major."""
+    x = x.contiguous()
+    return q8_quantize(x, q8_amax(x), column_major)
 
 
 def check_int_mm_shape(m: int, k: int, n: int) -> None:
@@ -47,20 +59,27 @@ def _mm(a: torch.Tensor, b: torch.Tensor, ta: bool = False, tb: bool = False) ->
     """int8 x int8 -> int32 product of 2-D operands; ``ta`` / ``tb``
     contract over a's first / b's second dim (NN forward, NT dgrad
     ``g @ w^T``, TN wgrad ``x^T @ g``). The operands go to
-    ``torch._int_mm`` as transposed views where that gives its full-rate
-    order (first row-major, second column-major), else as copies in it."""
+    ``torch._int_mm`` as they are (transposed views where ``ta`` / ``tb``
+    say so), and must be in its full-rate order: the first row-major, the
+    second column-major, as :func:`_q8` writes them for the int8 path.
+    Anything else raises (cuBLASLt refuses some other orders outright,
+    and runs the rest slower); nothing is copied."""
     lhs = a.t() if ta else a
     rhs = b.t() if tb else b
     check_int_mm_shape(lhs.shape[0], lhs.shape[1], rhs.shape[1])
-    if not rhs.t().is_contiguous():
-        rhs = rhs.t().contiguous().t()
-    return torch._int_mm(lhs.contiguous(), rhs)
+    if not (lhs.is_contiguous() and rhs.t().is_contiguous()):
+        raise ValueError(
+            f"int8 matmul: the first operand must be row-major and the second column-major "
+            f"(strides {lhs.stride()} and {rhs.stride()}); quantize each operand into the "
+            f"order its product takes")
+    return torch._int_mm(lhs, rhs)
 
 
 def _int8_fwd_only(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     shape = x.shape
-    qx, sx = _q8(x.reshape(-1, shape[-1]))
-    qw, sw = _q8(w)
+    x_cols, w_cols = OPERAND_ORDERS["NN"]
+    qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
+    qw, sw = _q8(w, w_cols)
     y = _mm(qx, qw).float() * (sx * sw)
     return y.to(torch.bfloat16).reshape(*shape[:-1], w.shape[-1])
 
@@ -75,11 +94,15 @@ class _Int8Matmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         shape = x.shape
-        qg, sg = _q8(g.reshape(-1, g.shape[-1]))
-        qw, sw = _q8(w)
-        qx, sx = _q8(x.reshape(-1, shape[-1]))
+        (g_cols_nt, w_cols), (x_cols, g_cols_tn) = OPERAND_ORDERS["NT"], OPERAND_ORDERS["TN"]
+        g2 = g.reshape(-1, g.shape[-1]).contiguous()
+        amax_g = q8_amax(g2)  # one amax for g in both of its orders
+        qg, sg = q8_quantize(g2, amax_g, g_cols_nt)
+        qg_tn, _sg = q8_quantize(g2, amax_g, g_cols_tn)
+        qw, sw = _q8(w, w_cols)
+        qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
         dx = _mm(qg, qw, tb=True).float() * (sg * sw)  # dgrad: g @ w^T, NT
-        dw = _mm(qx, qg, ta=True).float() * (sx * sg)  # wgrad: x^T @ g, TN
+        dw = _mm(qx, qg_tn, ta=True).float() * (sx * sg)  # wgrad: x^T @ g, TN
         return dx.to(x.dtype).reshape(shape), dw.to(w.dtype)
 
 

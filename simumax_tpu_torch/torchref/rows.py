@@ -55,7 +55,11 @@ def make_row_step(kind: str, mc, seq_len: int, batch_size: int, layers: int,
                   remat: bool = False, seed: int = 0, device="cuda") -> Callable:
     """A row's training step on ``device``: a call that takes one
     fwd+bwd+Adam step of the row's reference model (random weights and
-    token ids from ``seed``) and returns its loss."""
+    token ids from ``seed``) and returns its loss. The token ids and
+    targets are static device tensors, the parameters, moments and step
+    count are updated in place, and the loss is written into the same
+    float32 scalar tensor at every call, so nothing moves between calls
+    through Python and a CUDA graph can capture the call."""
     dev = resolve_device(device)
     if kind == "moe":
         cfg = moe_model.MoeConfig.from_model_config(mc, layer_num=layers)
@@ -66,13 +70,14 @@ def make_row_step(kind: str, mc, seq_len: int, batch_size: int, layers: int,
             mc, layer_num=layers, use_flash_attn=kind == "flash", use_int8=kind == "int8")
         params = dense_model.init_params(cfg, seed=seed, device=dev)
         init_opt, train_step = dense_model.make_train_step(cfg, remat=remat)
-    state = [params, init_opt(params)]
+    opt_state = init_opt(params)
     rs = np.random.RandomState(seed)
     ids = torch.tensor(rs.randint(0, cfg.vocab_size, (batch_size, seq_len)),
                        dtype=torch.long, device=dev)
+    loss_out = torch.zeros((), dtype=torch.float32, device=dev)
 
     def step():
-        state[0], state[1], loss = train_step(state[0], state[1], (ids, ids))
-        return loss
+        _params, _opt, loss = train_step(params, opt_state, (ids, ids))
+        return loss_out.copy_(loss)
 
     return step

@@ -160,6 +160,21 @@ def test_committed_calibrated_config_was_measured_on_the_card():
         assert not perf.system.miss_efficiency, _label
 
 
+def test_committed_calibrated_config_records_the_sm_clock_of_each_key_family():
+    """The builder samples the SM clock while it times each family of
+    keys and the bandwidth classes, and stamps what it read."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cal = get_system_config("h100_sxm_calibrated")
+    families = {op for op, spec in cal.accelerator.op.items() if spec.accurate_efficient_factor}
+    clocks = cal.provenance["sm_clock"]
+    assert set(clocks) == families | {"bandwidth"}
+    for family, clock in clocks.items():
+        assert clock["samples"] > 0, family
+        assert 0 < clock["min_mhz"] <= clock["median_mhz"] <= clock["max_mhz"] \
+            <= cal.provenance["max_sm_clock_mhz"], family
+
+
 def test_build_family_is_the_single_card_members_and_the_rows():
     family = build_system_config.representative_perfs()
     assert len(family) == 8 + len(bench.ROWS)

@@ -50,7 +50,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
     ref = [o_ref, K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal),
            *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)]
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                                 "swiglu_fwd": 0, "swiglu_bwd": 0}
+                                 "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
+                                 "q8_quantize": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -162,7 +163,7 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
                             K.launch_counts())
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
     assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                      "swiglu_fwd": 2, "swiglu_bwd": 2}
+                      "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -222,11 +223,14 @@ def test_int8_matmul_on_the_card_matches_the_cpu(card, dtype):
     x = torch.randn(2, 40, 64, generator=gen).to(dtype)
     w = (torch.randn(64, 48, generator=gen) * 0.1).to(dtype)
     g = torch.randn(2, 40, 48, generator=gen).bfloat16()
-    q = {name: Q._q8(t.reshape(-1, t.shape[-1]))[0] for name, t in (("x", x), ("w", w), ("g", g))}
-    for a, b, ta, tb in (("x", "w", False, False), ("g", "w", False, True),
-                         ("x", "g", True, False)):
-        ref = Q._mm(q[a], q[b], ta=ta, tb=tb)
-        got = Q._mm(q[a].to(card), q[b].to(card), ta=ta, tb=tb)
+    q = {(name, cols): Q._q8(t.reshape(-1, t.shape[-1]), column_major=cols)[0]
+         for name, t in (("x", x), ("w", w), ("g", g)) for cols in (False, True)}
+    # each operand in the order the int8 path quantizes it into
+    for a, b, ta, tb, (ca, cb) in (("x", "w", False, False, (False, True)),
+                                   ("g", "w", False, True, (False, False)),
+                                   ("x", "g", True, False, (True, True))):
+        ref = Q._mm(q[a, ca], q[b, cb], ta=ta, tb=tb)
+        got = Q._mm(q[a, ca].to(card), q[b, cb].to(card), ta=ta, tb=tb)
         assert got.dtype == torch.int32 and torch.equal(got.cpu(), ref)
     outs = {}
     for device in ("cuda", "cpu"):
@@ -246,7 +250,7 @@ def test_int_mm_shape_rules_raise_on_the_card(card):
     def ones(*shape):
         return torch.ones(shape, dtype=torch.int8, device=card)
 
-    assert torch.equal(Q._mm(ones(17, 8), ones(8, 8)).cpu(), torch.full((17, 8), 8))
+    assert torch.equal(Q._mm(ones(17, 8), ones(8, 8).t()).cpu(), torch.full((17, 8), 8))
     for a, b in ((ones(16, 8), ones(8, 8)), (ones(32, 12), ones(12, 8)),
                  (ones(32, 8), ones(8, 12))):
         with pytest.raises(ValueError, match="more than 16 rows"):
@@ -478,3 +482,105 @@ def test_top4_moe_combine_on_the_card_repeats_bit_for_bit_and_matches_the_cpu(ca
         ref = M.forward(params, ids, cfg)
         got = M.forward(_tree_to(params, card), ids.to(card), cfg).cpu()
     assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def _q8_inputs(rows, cols, dtype, card):
+    """x [rows, cols] with exact .5 ties of x / scale among its values
+    (x = (j + 0.5) * scale where the fp32 product divides back exactly)."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = (torch.randn(rows, cols, generator=gen, device=card) * 3).to(dtype)
+    amax = x.float().abs().max()
+    scale = (amax + 1e-6) / torch.full_like(amax, 127.0)
+    ties = ((torch.arange(-20, 20, device=card, dtype=torch.float32) + 0.5) * scale).to(dtype)
+    r = ties.float() / scale
+    ties = ties[r - r.floor() == 0.5][: x.numel()]
+    x.view(-1)[: ties.numel()] = ties
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols", [(2048, 2048), (21, 100), (64, 8), (130, 70), (1, 9)])
+def test_q8_kernels_are_bit_identical_to_their_plain_versions(card, dtype, rows, cols):
+    """amax and both quantize orders equal their plain versions bit for
+    bit (true IEEE division, round half to even), at aligned, ragged and
+    misaligned shapes; each wrapper launches its kernel once a call."""
+    x = _q8_inputs(rows, cols, dtype, card)
+    # the same values at an offset that is not 16-byte aligned
+    buf = torch.empty(rows * cols + 1, dtype=dtype, device=card)
+    shifted = buf[1:].view(rows, cols)
+    shifted.copy_(x)
+    for t in (x, shifted):
+        K.reset_launch_counts()
+        amax = K.q8_amax(t)
+        outs = [K.q8_quantize(t, amax, column_major=c) for c in (False, True)]
+        assert K.launch_counts()["q8_amax"] == 1 and K.launch_counts()["q8_quantize"] == 2
+        amax_ref = K.q8_amax_plain(t)
+        assert amax.dtype == torch.float32 and torch.equal(amax, amax_ref)
+        for c, (q, scale) in zip((False, True), outs):
+            q_ref, scale_ref = K.q8_quantize_plain(t, amax_ref, column_major=c)
+            assert q.dtype == torch.int8 and q.shape == (rows, cols)
+            assert q.stride() == ((1, rows) if c else (cols, 1)) or rows == 1 or cols == 1
+            assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+
+
+@pytest.mark.cuda
+def test_q8_wrappers_raise_for_what_the_kernels_refuse(card):
+    x = torch.ones(8, 16, device=card)
+    amax = K.q8_amax(x)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.q8_amax(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.q8_amax(x.t())
+    with pytest.raises(ValueError, match="2-D"):
+        K.q8_quantize(x.view(-1), amax)
+    with pytest.raises(ValueError, match="float32 scalar"):
+        K.q8_quantize(x, amax.view(1))
+
+
+def _row_step_case(kind):
+    from simumax_tpu_torch.torchref import rows
+
+    mc = rows.build_model(kind)
+    return mc, dict(kind=kind, seq_len=256, batch_size=1, layers=2, remat=kind == "remat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "remat", "flash", "int8", "moe"])
+def test_captured_row_step_takes_the_eager_steps(card, kind):
+    """A row's step (2 layers, seq 256) replayed from a CUDA graph gives,
+    step by step, the losses of the same steps run eagerly from the same
+    seed: equal bit for bit (the captured launches are the eager ones,
+    on the same cuBLAS algorithms). Each replay counts the CUDA kernels
+    it runs; the capture counts none."""
+    from simumax_tpu_torch.calibration.timing import time_captured_step, time_stateful
+    from simumax_tpu_torch.torchref import rows
+
+    mc, case = _row_step_case(kind)
+    model_kind = "dense" if kind == "remat" else kind
+    step = rows.make_row_step(model_kind, mc, case["seq_len"], case["batch_size"],
+                              case["layers"], case["remat"], device=card)
+    eager = []
+    time_stateful(lambda: eager.append(step().clone()), warmup=2, iters=3)
+    del step
+    step = rows.make_row_step(model_kind, mc, case["seq_len"], case["batch_size"],
+                              case["layers"], case["remat"], device=card)
+    K.reset_launch_counts()
+    seconds, losses = time_captured_step(step, warmup=2, iters=3)
+    counts = K.launch_counts()
+    assert seconds > 0 and losses.shape == (5,)
+    assert torch.equal(losses, torch.stack(eager)), (losses.tolist(), eager)
+    per_step = {"flash": {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+                # 4 linear layers a layer and the LM head: x and w in the
+                # forward, g (both orders from one amax), w and x backward
+                "int8": {"q8_amax": 5 * 9, "q8_quantize": 6 * 9}}.get(kind, {})
+    assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_host_fails_to_capture_and_is_not_timed(card):
+    from simumax_tpu_torch.calibration.timing import time_captured_step
+
+    x = torch.ones(4, device=card)
+    with pytest.raises(RuntimeError):
+        time_captured_step(lambda: x.mul_(float(x.sum())), warmup=1, iters=2)

@@ -167,7 +167,6 @@ def test_bench_rows_predict_what_the_accuracy_table_predicts(row):
 
 
 @pytest.mark.parametrize("method,args", [
-    ("ledger", ()), ("memory_ledger", ()), ("memory_crosscheck", ()), ("simulate", ()),
     ("critical_path", ()), ("predict_goodput", (None,)), ("analyze_faults", ()),
     ("rebatched_iter_time", (2,)), ("analysis_dualpp", ()),
 ])

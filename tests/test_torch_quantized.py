@@ -55,16 +55,23 @@ def test_quantized_operands_and_int32_products_equal_jax(dtype):
     k, n = SHAPE[2], SHAPE[3]
     q = {}
     for name, jv, tv, cols in (("x", jx, tx, k), ("w", jw, tw, n), ("g", jg, tg, n)):
-        (qj, sj), (qt, st) = JQ._q8(jv.reshape(-1, cols)), TQ._q8(tv.reshape(-1, cols))
-        assert qt.dtype == torch.int8 and np.array_equal(np.asarray(qj), qt.numpy())
-        assert float(sj) == float(st)
-        q[name] = (qj, qt)
-    # forward NN, dgrad NT (g @ w^T), wgrad TN (x^T @ g)
-    for a, b, ta, tb in (("x", "w", False, False), ("g", "w", False, True),
-                         ("x", "g", True, False)):
+        qj, sj = JQ._q8(jv.reshape(-1, cols))
+        q[name] = (qj, {})
+        for column_major in (False, True):
+            qt, st = TQ._q8(tv.reshape(-1, cols), column_major=column_major)
+            assert qt.dtype == torch.int8 and np.array_equal(np.asarray(qj), qt.numpy())
+            assert float(sj) == float(st)
+            q[name][1][column_major] = qt
+    # forward NN, dgrad NT (g @ w^T), wgrad TN (x^T @ g), each operand in
+    # the order the int8 path quantizes it into (column-major or not)
+    for a, b, ta, tb, orders in (("x", "w", False, False, (False, True)),
+                                 ("g", "w", False, True, (False, False)),
+                                 ("x", "g", True, False, (True, True))):
         ref = JQ._mm(q[a][0], q[b][0], ta=ta, tb=tb)
-        got = TQ._mm(q[a][1], q[b][1], ta=ta, tb=tb)
+        got = TQ._mm(q[a][1][orders[0]], q[b][1][orders[1]], ta=ta, tb=tb)
         assert got.dtype == torch.int32 and np.array_equal(np.asarray(ref), got.numpy())
+        with pytest.raises(ValueError, match="row-major"):
+            TQ._mm(q[a][1][not orders[0]], q[b][1][orders[1]], ta=ta, tb=tb)
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -84,7 +91,7 @@ def test_int8_matmul_and_its_gradients_match_jax(dtype):
 
 def test_int_mm_shape_rules_raise_on_every_device():
     ones = lambda *s: torch.ones(s, dtype=torch.int8)  # noqa: E731
-    assert TQ._mm(ones(17, 8), ones(8, 8)).shape == (17, 8)
+    assert TQ._mm(ones(17, 8), ones(8, 8).t()).shape == (17, 8)
     for a, b in ((ones(16, 8), ones(8, 8)), (ones(32, 12), ones(12, 8)),
                  (ones(32, 8), ones(8, 12))):
         with pytest.raises(ValueError, match="more than 16 rows"):
