@@ -20,7 +20,7 @@ takes (``torchref/kernels.py``: ``q8_amax`` and ``q8_quantize``, the CUDA
 kernels of ``csrc/quant8.cu`` on the card, their plain versions on the
 CPU), and :func:`_mm` copies nothing: the forward's weight and both wgrad
 operands are written column-major, the gradient of the output both ways
-from one amax.
+from one amax and one read (``q8_quantize(..., both=True)``).
 """
 
 from __future__ import annotations
@@ -96,9 +96,10 @@ class _Int8Matmul(torch.autograd.Function):
         shape = x.shape
         (g_cols_nt, w_cols), (x_cols, g_cols_tn) = OPERAND_ORDERS["NT"], OPERAND_ORDERS["TN"]
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
-        amax_g = q8_amax(g2)  # one amax for g in both of its orders
-        qg, sg = q8_quantize(g2, amax_g, g_cols_nt)
-        qg_tn, _sg = q8_quantize(g2, amax_g, g_cols_tn)
+        # g quantized once, as JAX does, into both of its orders
+        g_rows, g_cols, sg = q8_quantize(g2, q8_amax(g2), both=True)
+        qg = g_cols if g_cols_nt else g_rows
+        qg_tn = g_cols if g_cols_tn else g_rows
         qw, sw = _q8(w, w_cols)
         qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
         dx = _mm(qg, qw, tb=True).float() * (sg * sw)  # dgrad: g @ w^T, NT

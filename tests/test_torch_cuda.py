@@ -51,7 +51,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
            *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)]
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                                  "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
-                                 "q8_quantize": 0}
+                                 "q8_quantize": 0, "q8_quantize_cols_tma": 0,
+                                 "q8_quantize_both_tma": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -163,7 +164,8 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
                             K.launch_counts())
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
     assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                      "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0}
+                      "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0,
+                      "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -498,30 +500,79 @@ def _q8_inputs(rows, cols, dtype, card):
     return x
 
 
+def _q8_launches(kernels):
+    """The launch counts a list of quantize kernels adds."""
+    counts = dict.fromkeys(K.LAUNCHES, 0)
+    for kernel in kernels:
+        counts[K.Q8_KERNELS[kernel][1]] += 1
+    return counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,cols", [(2048, 2048), (21, 100), (64, 8), (130, 70), (1, 9)])
+@pytest.mark.parametrize("rows,cols", [
+    (2048, 2048), (2048, 5504), (2048, 4096), (2048, 11008), (5504, 2048), (2048, 32000),
+    (21, 100), (64, 8), (130, 70), (1, 9), (17, 32), (16, 16), (48, 16), (80, 272),
+])
 def test_q8_kernels_are_bit_identical_to_their_plain_versions(card, dtype, rows, cols):
-    """amax and both quantize orders equal their plain versions bit for
-    bit (true IEEE division, round half to even), at aligned, ragged and
-    misaligned shapes; each wrapper launches its kernel once a call."""
+    """amax and every quantize order (row-major, column-major, both from
+    one read) equal their plain versions bit for bit (true IEEE division,
+    round half to even), at the int8 row's shapes, at aligned shapes with
+    partial tiles, and at ragged and misaligned ones; each wrapper
+    launches the kernels :func:`q8_route` names, once each."""
     x = _q8_inputs(rows, cols, dtype, card)
-    # the same values at an offset that is not 16-byte aligned
-    buf = torch.empty(rows * cols + 1, dtype=dtype, device=card)
-    shifted = buf[1:].view(rows, cols)
-    shifted.copy_(x)
-    for t in (x, shifted):
+    # the same values at offsets that are not 16-byte aligned (and, for
+    # fp32, one that is)
+    views = [x]
+    for offset in (1, 4):
+        buf = torch.empty(rows * cols + offset, dtype=dtype, device=card)
+        views.append(buf[offset:].view(rows, cols))
+        views[-1].copy_(x)
+    for t in views:
+        amax_ref = K.q8_amax_plain(t)
         K.reset_launch_counts()
         amax = K.q8_amax(t)
-        outs = [K.q8_quantize(t, amax, column_major=c) for c in (False, True)]
-        assert K.launch_counts()["q8_amax"] == 1 and K.launch_counts()["q8_quantize"] == 2
-        amax_ref = K.q8_amax_plain(t)
+        assert K.launch_counts() == {**_q8_launches([]), "q8_amax": 1}
         assert amax.dtype == torch.float32 and torch.equal(amax, amax_ref)
-        for c, (q, scale) in zip((False, True), outs):
-            q_ref, scale_ref = K.q8_quantize_plain(t, amax_ref, column_major=c)
-            assert q.dtype == torch.int8 and q.shape == (rows, cols)
-            assert q.stride() == ((1, rows) if c else (cols, 1)) or rows == 1 or cols == 1
-            assert torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+        q_ref, scale_ref = K.q8_quantize_plain(t, amax_ref)
+        for column_major, both in ((False, False), (True, False), (False, True)):
+            K.reset_launch_counts()
+            out = K.q8_quantize(t, amax, column_major=column_major, both=both)
+            route = K.q8_route(rows, cols, dtype, t.data_ptr(), column_major, both)
+            assert K.launch_counts() == _q8_launches(route), route
+            qs, scale = (out[:2], out[2]) if both else ((out[0],), out[1])
+            orders = (False, True) if both else (column_major,)
+            for c, q in zip(orders, qs):
+                assert q.dtype == torch.int8 and q.shape == (rows, cols)
+                assert q.stride() == ((1, rows) if c else (cols, 1)) or rows == 1 or cols == 1
+                assert torch.equal(q, q_ref), (route, c, int((q != q_ref).sum()))
+            assert torch.equal(scale, scale_ref)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("both", [False, True])
+def test_q8_tma_kernels_replay_from_a_cuda_graph(card, both):
+    """The TMA quantize kernels allocate and synchronise nothing: a
+    capture of amax and quantize replays on new values of the same input
+    buffer, bit for bit as the plain versions."""
+    x = _q8_inputs(256, 384, torch.bfloat16, card)
+    assert K.q8_route(256, 384, x.dtype, x.data_ptr(), True, both)[0].endswith("_tma_kernel")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        K.q8_quantize(x, K.q8_amax(x), column_major=True, both=both)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.q8_quantize(x, K.q8_amax(x), column_major=True, both=both)
+    for seed in (1, 2):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=gen, device=card) * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = K.q8_quantize_plain(x, K.q8_amax_plain(x), column_major=True, both=both)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
 @pytest.mark.cuda
@@ -571,9 +622,12 @@ def test_captured_row_step_takes_the_eager_steps(card, kind):
     assert seconds > 0 and losses.shape == (5,)
     assert torch.equal(losses, torch.stack(eager)), (losses.tolist(), eager)
     per_step = {"flash": {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
-                # 4 linear layers a layer and the LM head: x and w in the
-                # forward, g (both orders from one amax), w and x backward
-                "int8": {"q8_amax": 5 * 9, "q8_quantize": 6 * 9}}.get(kind, {})
+                # 4 linear layers a layer and the LM head, 5 quantizes
+                # each: x row-major and w column-major forward, g in both
+                # orders from one read, w row-major and x column-major
+                # backward
+                "int8": {"q8_amax": 5 * 9, "q8_quantize": 2 * 9, "q8_quantize_cols_tma": 2 * 9,
+                         "q8_quantize_both_tma": 9}}.get(kind, {})
     assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
 
 
