@@ -7,7 +7,10 @@ carries its own copy of the jax-free analytical model (``perf.py``,
 whose flash attention runs hand-written CUDA kernels
 (``csrc/flash_attn.cu``), and the self-calibration loop
 (``calibration/``, ``bench.py``) that measures a real training step on
-the card and calibrates the estimate against it.
+the card and calibrates the estimate against it; and copies of the
+discrete-event simulator with its fault model and critical-path engine,
+whose batched scenario replay runs as a CUDA kernel on the card
+(``csrc/replay.cu``).
 """
 
 from simumax_tpu_torch.version import __version__

@@ -7,10 +7,8 @@ Reference: ``simumax/core/model_struct.py`` (``ModuleComputeInfo:40``,
 dataclasses keyed by the three backprop phases ``fwd`` / ``bwd_act``
 (dgrad) / ``bwd_w`` (wgrad).
 
-Copy of the JAX package's ``core/records.py``. The telemetry registry is
-not ported yet, so ``Diagnostics.counters`` is a plain dict here: the
-JAX package mirrors its numeric writes into ``diag_counter`` gauges,
-which changes no payload.
+Copy of the JAX package's ``core/records.py`` with its import paths
+changed.
 """
 
 from __future__ import annotations
@@ -448,7 +446,7 @@ class Diagnostics:
         #: count, pool restarts, ...) — reported, never a violation;
         #: writes mirror into the ``diag_counter`` registry gauge so
         #: a running sweep is observable from ``GET /metrics``
-        self.counters: Dict[str, float] = {}
+        self.counters: Dict[str, float] = _MirroredCounters()
 
     @classmethod
     def active(cls) -> Optional["Diagnostics"]:
@@ -682,6 +680,24 @@ class Diagnostics:
         if self.miss_count:
             out.append(f"{self.miss_count} efficiency-table miss(es)")
         return out
+
+
+class _MirroredCounters(dict):
+    """The free-form ``Diagnostics.counters`` dict, with every numeric
+    write mirrored into the process-wide metrics registry as a
+    ``diag_counter{name=...}`` gauge (``observe/telemetry.py``) — so
+    sweep cell accounting is scrapeable from ``GET /metrics`` while a
+    long sweep runs. Mirroring is observe-only: the dict (and every
+    payload built from it) is byte-identical to a plain dict."""
+
+    def __setitem__(self, key, value):
+        super().__setitem__(key, value)
+        if isinstance(value, (int, float)) and not isinstance(
+                value, bool):
+            from simumax_tpu_torch.observe.telemetry import get_registry
+
+            get_registry().gauge("diag_counter",
+                                 name=str(key)).set(value)
 
 
 @dataclass

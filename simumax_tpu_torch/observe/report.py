@@ -20,8 +20,8 @@ Two output modes, switched by the CLI's ``--log-json`` flag:
 ``--log-level`` filters: a call below the threshold emits nothing in
 either mode. ``debug`` lines only appear with ``--log-level debug``.
 
-Copy of the JAX package's ``observe/report.py``. The telemetry spans are
-not ported yet, so JSON lines carry no ``trace_id`` / ``span_id``.
+Copy of the JAX package's ``observe/report.py`` with its import paths
+changed.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import uuid
 from typing import Any, Optional, TextIO
 
 from simumax_tpu_torch.core.errors import ConfigError
+from simumax_tpu_torch.observe.telemetry import current_ids as telemetry_ids
 
 LEVELS = {"debug": 10, "info": 20, "warning": 30, "error": 40}
 
@@ -82,6 +83,9 @@ class Reporter:
                 "run_id": self.run_id,
                 "msg": msg,
             }
+            ids = telemetry_ids()
+            if ids is not None:
+                record["trace_id"], record["span_id"] = ids
             record.update(fields)
             out.write(json.dumps(record, default=str) + "\n")
         else:

@@ -11,13 +11,9 @@ TPU redesign: ``analysis_net`` places every parallel dim on the ICI torus
 / DCN via ``SystemConfig.place_group`` (mesh-axis model) instead of
 choosing NVLink/PCIe link classes.
 
-Copy of the JAX package's ``perf.py``. ``configure``, ``run_estimate``,
-``analysis_cost``, ``analysis_mem``, ``ledger``, ``memory_ledger``,
-``memory_crosscheck``, ``simulate`` and their helpers are whole; the
-flash-backend sanity check uses the CUDA kernels' shape gate
-(``cuda_flash_supported``); the methods that reach modules not ported
-yet (critical path, faults, search pruning, DualPipe) raise
-``NotImplementedError`` naming their ROADMAP item.
+Copy of the JAX package's ``perf.py`` with its import paths changed;
+the flash-backend sanity check uses the CUDA kernels' shape gate
+(``cuda_flash_supported``).
 """
 
 from __future__ import annotations
@@ -1261,37 +1257,71 @@ class PerfLLM(PerfBase):
         ``perturbation`` ({rank: compute multiplier} straggler
         injection), ``reduce`` (rank-symmetry reduction: "auto" / True /
         False), ``track_memory``, ``stream_trace`` (bounded-RSS
-        incremental trace write). ``faults`` and ``critical_path`` need
-        modules the port does not have yet and raise. Reports into
+        incremental trace write), ``critical_path`` (record the
+        event-dependency skeleton and attach the slack / blame /
+        divergence report — ``observe/critpath.py``,
+        ``docs/observability.md``). Reports into
         ``self.diagnostics``."""
         from simumax_tpu_torch.simulator.runner import run_simulation
 
         return run_simulation(self, save_path, **kwargs)
 
-    # -- not ported yet ---------------------------------------------------
-    # The JAX package's perf.py has these methods; the modules behind
-    # them (the critical-path engine, the fault and DualPipe models, the
-    # search's pruning) are later slices of the port (ROADMAP.md queue A
-    # item 4).
-
-    def _not_ported(self, name: str, module: str):
-        raise NotImplementedError(
-            f"PerfLLM.{name} needs {module}, which the port does not "
-            f"have yet (ROADMAP.md queue A item 4: the remaining perf.py "
-            f"methods and the simulator)"
-        )
-
     def critical_path(self, save_path: Optional[str] = None, **kwargs):
-        self._not_ported("critical_path", "observe/critpath.py")
+        """Convenience wrapper: :meth:`simulate` with
+        ``critical_path=True``, returning just the critical-path report
+        (per-event slack, the cross-rank path, the simulated waterfall
+        summing to the DES makespan, sim-vs-analytical divergence, and
+        per-rank / per-link slack headroom)."""
+        return self.simulate(
+            save_path, critical_path=True, **kwargs
+        )["critical_path"]
 
     def predict_goodput(self, scenario, **kwargs):
-        self._not_ported("predict_goodput", "simulator/faults.py")
+        """Goodput prediction for a fault scenario over its job horizon
+        (``simulator/faults.py``, ``docs/faults.md``): per-step
+        discrete-event replays under the scenario's timed faults plus
+        the checkpoint-write / restore-read / restart-replay cost
+        model. Returns a ``GoodputReport`` whose wall-time buckets sum
+        to the wall time exactly."""
+        from simumax_tpu_torch.simulator.faults import predict_goodput
+
+        return predict_goodput(self, scenario, **kwargs)
 
     def analyze_faults(self, **kwargs):
-        self._not_ported("analyze_faults", "simulator/faults.py")
+        """Seeded Monte-Carlo goodput analysis: sample N random fault
+        scenarios, predict each one's goodput, and sweep checkpoint
+        intervals for the optimum (``simulator/faults.py::
+        analyze_faults``)."""
+        from simumax_tpu_torch.simulator.faults import analyze_faults
+
+        return analyze_faults(self, **kwargs)
 
     def rebatched_iter_time(self, micro_batch_num: int) -> float:
-        self._not_ported("rebatched_iter_time", "search/prune.py")
+        """Analytical iteration time (seconds) of this built layout
+        under a different micro-batch count, via the :meth:`rebatch`
+        fast path — the fleet simulator's elastic-reshape re-costing
+        (``fleet/sim.py``): after a dp shrink the surviving replicas
+        carry ``gbs / (dp_eff * mbs)`` microbatches each, and only the
+        schedule/memory analyses read ``micro_batch_num``, so the
+        shrunk step is re-costed without rebuilding the module tree.
+
+        Mutates this estimate's strategy (the caller owns a dedicated
+        costing estimate; the fleet's per-template runtime keeps one
+        beside the replay context's untouched estimate) and leaves it
+        re-estimated at ``micro_batch_num`` on return."""
+        from simumax_tpu_torch.search.prune import clone_strategy
+
+        st = clone_strategy(self.strategy)
+        st.micro_batch_num = int(micro_batch_num)
+        st.__post_init__()
+        self.rebatch(st)
+        return self.analysis_cost()["iter_time"]
 
     def analysis_dualpp(self, save_path: Optional[str] = None):
-        self._not_ported("analysis_dualpp", "parallel/dualpp.py")
+        """Per-rank DualPipe projection of this estimate (even pp only):
+        bidirectional schedule, 2 stage chunks per rank, pp+1 in-flight
+        activation bound. ``save_path`` renders the overlapped F&B cell
+        timeline PNG. See ``parallel/dualpp.py``."""
+        from simumax_tpu_torch.parallel.dualpp import analyze
+
+        return analyze(self, save_path)

@@ -1,6 +1,13 @@
 """The discrete-event simulator: a copy of the JAX package's
-``simulator/`` (engine, memory, trace, schedule, reduce, runner, plot).
-The fault model (``faults.py``) and the batched replay are not ported
-yet (ROADMAP.md queue A items 4 and 7)."""
+``simulator/`` (engine, memory, trace, schedule, reduce, runner, plot,
+faults, and the batched scenario replay, whose XLA program is the CUDA
+kernel ``csrc/replay.cu`` here)."""
 
+from simumax_tpu_torch.simulator.faults import (  # noqa: F401
+    CheckpointSpec,
+    FaultEvent,
+    FaultScenario,
+    analyze_faults,
+    predict_goodput,
+)
 from simumax_tpu_torch.simulator.runner import run_simulation  # noqa: F401

@@ -17,14 +17,7 @@ Pod-scale additions on top of the reference shape:
   peak RSS is bounded regardless of event count.
 
 Copy of the JAX package's ``simulator/runner.py`` with its import paths
-changed and three hooks into modules the port does not have yet
-(ROADMAP.md queue A item 4) cut out: ``faults`` (``simulator/faults.py``)
-and ``critical_path=True`` (``observe/critpath.py``) raise
-``NotImplementedError`` naming that item, and the progress heartbeat
-keeps its debug line but not the ``des_*`` gauges of
-``observe/telemetry.py``, which the port dropped with its telemetry (as
-its ``observe/report.py`` did). With the default options a run is the
-JAX package's.
+changed.
 """
 
 from __future__ import annotations
@@ -164,8 +157,8 @@ def run_simulation(
     incrementally while the engine runs (bounded peak RSS); without
     ``save_path`` it is ignored with a Diagnostics warning.
 
-    ``faults`` (not ported yet: raises) injects a ``FaultScenario`` (or
-    a path to its JSON): timed rank slowdowns,
+    ``faults`` injects a :class:`~simumax_tpu_torch.simulator.faults.
+    FaultScenario` (or a path to its JSON): timed rank slowdowns,
     preemptions, link degradation, and rank deaths, consulted by the
     engine at event-service time (``docs/faults.md``). Requires
     ``world_ranks=True`` when non-empty; an empty scenario is
@@ -174,8 +167,7 @@ def run_simulation(
     gracefully (partners resolve via the fault model) instead of
     deadlocking.
 
-    ``critical_path=True`` (not ported yet: raises) records the
-    event-dependency skeleton during
+    ``critical_path=True`` records the event-dependency skeleton during
     the run and attaches a ``"critical_path"`` report
     (``observe/critpath.py``): per-event slack, the cross-rank critical
     path, a simulated waterfall whose buckets sum to ``end_time``
@@ -187,11 +179,20 @@ def run_simulation(
     ``stream_trace`` only the bounded skeleton is retained, so the
     streamed trace is not annotated (the report still is).
 
-    ``progress_every`` emits a debug-level Reporter line (events/s,
-    virtual clock, blocked-rank count) every N served engine events
-    when the reporter shows debug lines; 0 disables it. Default stdout
-    is byte-identical (debug lines are suppressed at the default log
-    level).
+    ``progress_every`` drives the progress heartbeat every N served
+    engine events: the ``des_events_served`` / ``des_blocked_ranks`` /
+    ``des_clock_seconds`` registry gauges (``observe/telemetry.py`` —
+    scrapeable from ``GET /metrics`` while the run is in flight) are
+    always updated, and a debug-level Reporter line (events/s, virtual
+    clock, blocked-rank count) is additionally emitted at ``--log-level
+    debug``; 0 disables both. Default stdout is byte-identical (debug
+    lines are suppressed at the default log level; gauges are
+    observe-only). The gauges are process-wide and unlabelled —
+    deliberately, so a long-lived server never accumulates per-run
+    label cardinality — which makes them last-writer-wins: concurrent
+    ``/v1/simulate`` runs interleave their heartbeats, so treat them
+    as "a simulation is alive and progressing", not as a per-run
+    series (per-run numbers live in the request's span tree).
 
     ``event_delays`` ({(engine rank, per-rank emit index): extra
     seconds}) perturbs single events at service time — the
@@ -203,18 +204,27 @@ def run_simulation(
             "simulate() needs a completed estimate: call run_estimate() "
             "first", phase="simulate",
         )
-    for option, module in ((faults is not None, "simulator/faults.py"),
-                           (critical_path, "observe/critpath.py")):
-        if option:
-            raise NotImplementedError(
-                f"simulate: this option needs {module}, which the port does "
-                f"not have yet (ROADMAP.md queue A item 4: the remaining "
-                f"perf.py methods and the simulator)"
-            )
     st = perf.strategy
     pp = st.pp_size
     perturbation = perturbation or {}
     diag = _diag(perf)
+    if isinstance(faults, str):
+        from simumax_tpu_torch.simulator.faults import FaultScenario
+
+        faults = FaultScenario.from_json(faults)
+    if faults is not None:
+        faults.validate(st.world_size)
+        if faults.empty:
+            # the empty scenario must be bit-identical to a run with no
+            # scenario at all: drop it before it can touch anything
+            faults = None
+        elif not world_ranks:
+            raise ConfigError(
+                "fault scenarios need world_ranks=True: rank-scoped "
+                "faults are meaningless when one simulated rank stands "
+                "for a whole pipeline stage",
+                phase="simulate", world_size=st.world_size,
+            )
     if world_ranks and track_memory:
         # memory tracking is per-representative-stage; world mode is for
         # timing/straggler analysis (satellite of ISSUE 4: surface the
@@ -239,16 +249,32 @@ def run_simulation(
                 "stream_trace=True needs save_path to stream to; ignored",
             )
 
+    rec = None
+    if critical_path:
+        from simumax_tpu_torch.observe.critpath import DependencySkeleton
+
+        rec = DependencySkeleton()
     progress = None
     if progress_every:
         from simumax_tpu_torch.observe.report import LEVELS, get_reporter
+        from simumax_tpu_torch.observe.telemetry import get_registry
 
         _rep = get_reporter()
-        # the debug line is emitted only when the reporter would show it
+        # registry gauges are updated at every heartbeat regardless of
+        # log level (a long pod-scale run stays observable from
+        # ``GET /metrics`` while it runs); the debug *line* is still
+        # emitted only when the reporter would show it
         _emit_lines = _rep.threshold <= LEVELS["debug"]
+        _reg = get_registry()
+        _g_events = _reg.gauge("des_events_served")
+        _g_blocked = _reg.gauge("des_blocked_ranks")
+        _g_clock = _reg.gauge("des_clock_seconds")
 
         def progress(served, events, clock_s, blocked_ranks,
                      elapsed_s):
+            _g_events.set(events)
+            _g_blocked.set(blocked_ranks)
+            _g_clock.set(clock_s)
             if not _emit_lines:
                 return
             # rate in emitted trace events/s — the same unit as
@@ -266,12 +292,14 @@ def run_simulation(
             )
 
     engine_kw = dict(
+        dep_recorder=rec,
         event_delays=event_delays,
         progress=progress,
         progress_every=progress_every,
     )
     plan = None
     trackers = []
+    fault_model = None
     if world_ranks:
         n = st.world_size
         bad = [r for r in perturbation if not 0 <= r < n]
@@ -287,19 +315,29 @@ def run_simulation(
         if reduce:
             from simumax_tpu_torch.simulator.reduce import build_reduction
 
-            plan = build_reduction(st, perturbation)
+            plan = build_reduction(
+                st, perturbation,
+                signatures=faults.rank_signatures() if faults else None,
+            )
             if reduce == "auto" and plan.n_classes >= n:
                 plan = None  # no symmetry to exploit: exact path
+        if faults is not None:
+            from simumax_tpu_torch.simulator.faults import StepFaultModel
+
+            fault_model = StepFaultModel(
+                faults, rank_map=plan.reps if plan is not None else None
+            )
         if plan is not None:
             engine = build_reduced_engine(
-                perf, plan, granularity,
+                perf, plan, granularity, fault_model=fault_model,
                 engine_kw=dict(event_sink=sink, **engine_kw),
             )
         else:
             from simumax_tpu_torch.parallel.mesh import rank_coords
 
             memberships = _world_memberships(st)
-            engine = SimuEngine(n, event_sink=sink, **engine_kw)
+            engine = SimuEngine(n, event_sink=sink,
+                                fault_model=fault_model, **engine_kw)
             for r in range(n):
                 stage = rank_coords(r, st)["pp"]
                 proc = StageProcess(
@@ -343,6 +381,7 @@ def run_simulation(
     # machine-variance inflation, same as the analytical path
     # (perf-vs-simulator agreement must survive the straggler model)
     ratio = perf.straggler_ratio()
+    raw_end = end_time
     end_time *= ratio
 
     if plan is not None:
@@ -369,6 +408,27 @@ def run_simulation(
         "num_events": num_events,
         "num_comm_events": num_comm,
     }
+    if fault_model is not None:
+        from simumax_tpu_torch.simulator.faults import FaultOutcome
+
+        deaths = []
+        for (r, t) in engine.deaths:
+            # a dead class rep stands for every member (a death that
+            # leaves ranks symmetric — e.g. whole-world kill — keeps
+            # them in one class); sort so reduced == exact regardless
+            # of engine kill order. Times carry the same straggler
+            # inflation as end_time so the result dict has one wall
+            # time base.
+            members = plan.classes[r] if plan is not None else [r]
+            deaths.extend(
+                {"rank": g, "time_ms": t * ratio * 1e3} for g in members
+            )
+        deaths.sort(key=lambda d: (d["time_ms"], d["rank"]))
+        result["faults"] = FaultOutcome(
+            applied_events=len(faults.events),
+            completed=not deaths,
+            deaths=deaths,
+        ).to_dict()
     if plan is not None:
         result["reduction"] = {
             "world_size": plan.world_size,
@@ -376,6 +436,53 @@ def run_simulation(
             "engine_events": engine.num_events,
             "max_class_size": max(plan.weights),
         }
+    annotations = None
+    if rec is not None:
+        from simumax_tpu_torch.observe.critpath import analyze, diverge
+
+        if plan is not None:
+            rank_map = plan.reps
+            weights = plan.weights
+            stages = plan.stages
+
+            def stage_of(r):
+                return stages[r]
+        elif world_ranks:
+            from simumax_tpu_torch.parallel.mesh import rank_coords
+
+            world_stages = [
+                rank_coords(r, st)["pp"] for r in range(st.world_size)
+            ]
+            rank_map = weights = None
+
+            def stage_of(r):
+                return world_stages[r]
+        else:
+            rank_map = weights = None
+
+            def stage_of(r):
+                return r  # merged mode: one engine rank per pp stage
+        report, annotations = analyze(
+            rec, raw_end, straggle_ratio=ratio, rank_map=rank_map,
+            weights=weights, stage_of=stage_of,
+            # share the analytical anchor stage so the two waterfalls'
+            # compute-vs-bubble split diverges only on model drift
+            ref_stage=perf.analysis_cost()["binding_stage_rs"],
+            meta={
+                "model": perf.model_config.model_name,
+                "system": perf.system.sys_name,
+                "world_size": st.world_size,
+                "mode": ("reduced" if plan is not None
+                         else "world" if world_ranks else "merged"),
+                "granularity": granularity,
+                "faulted": fault_model is not None,
+            },
+        )
+        # top=32 matches the slack-sample depth so the CLI's --top can
+        # go deeper than diverge()'s display default without the saved
+        # report silently capping the op table
+        report["divergence"] = diverge(perf, report, top=32)
+        result["critical_path"] = report
     if do_memory:
         result["memory"] = [t.summary() for t in trackers]
         for t in trackers:
@@ -387,13 +494,23 @@ def run_simulation(
         os.makedirs(save_path, exist_ok=True)
         trace_path = os.path.join(save_path, "trace.json")
         if sink is not None:
-            # streamed events already left the process
+            # streamed events already left the process: the trace stays
+            # un-annotated (the critpath report still lands below —
+            # only the bounded skeleton was retained)
             sink.close(trackers if do_memory else None)
         else:
             write_chrome_trace(
                 trace_path, engine.events, trackers if do_memory else None,
+                annotations=annotations,
             )
         result["trace_path"] = trace_path
+        if rec is not None:
+            from simumax_tpu_torch.observe.critpath import save_report
+
+            result["critical_path_path"] = save_report(
+                result["critical_path"],
+                os.path.join(save_path, "critpath.json"),
+            )
         if do_memory:
             snaps = [t.snapshot() for t in trackers]
             with open(

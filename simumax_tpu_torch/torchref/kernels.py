@@ -36,6 +36,13 @@ column-major and both orders from one read where TMA takes the tensor,
 ``csrc/quant8.cu``, bound by HBM bytes, and bit-identical to their plain
 versions.
 
+And one that replaces an XLA array program: the vmapped op-table loop of
+the JAX package's ``simulator/batched_replay.py`` (``_compiled`` :528,
+``solve_batch`` :684) as ``replay_solve_kernel`` in ``csrc/replay.cu``,
+wrapped by :func:`replay_solve`: one warp replays one fault scenario of
+a step-program family, bit for bit the scalar engine; a serial
+dependence chain, bound by its latency, not by bytes or operations.
+
 The flash wrappers take the JAX package's public layout ``[b, s, h, d]``
 (MHA: repeat GQA kv heads upstream) and work on ``[b*h, s, d]``
 contiguous inside; the SwiGLU wrappers take ``[..., 2f]`` and work on
@@ -65,7 +72,8 @@ import torch
 from simumax_tpu_torch.core.utils import cuda_flash_supported
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCES = {"flash_attn": "flash_attn.cu", "swiglu": "swiglu.cu", "quant8": "quant8.cu"}
+_SOURCES = {"flash_attn": "flash_attn.cu", "swiglu": "swiglu.cu", "quant8": "quant8.cu",
+            "replay": "replay.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -89,6 +97,9 @@ _ENTRY_POINTS = {
         "q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P],
         "q8_tma_occupancy": [_I, _I, _P, _P],
     },
+    "replay": {
+        "replay_solve": [_I] * 8 + [_P] * 18,
+    },
 }
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
@@ -97,7 +108,8 @@ _ENTRY_POINTS = {
 #: column-major one; the TMA quantize kernels count on their own keys
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0, "q8_quantize": 0,
-                            "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0}
+                            "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
+                            "replay_solve": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -812,3 +824,54 @@ def q8_quantize(x, amax, column_major: bool = False, both: bool = False):
     if both:
         return q_rows, q_cols, scale
     return (q_cols if column_major else q_rows), scale
+
+
+# -- batched scenario replay ----------------------------------------------------
+
+#: dynamic shared memory one block may have (``SMEM_MAX`` in csrc/replay.cu)
+_REPLAY_SMEM_MAX = 232448
+_REPLAY_INTS = ("kind", "rank", "aux", "mask", "refs")
+
+
+def replay_solve(rb):
+    """Raw makespans (float64 [B]) of a
+    :class:`~simumax_tpu_torch.simulator.batched_replay.ReplayBatch`: one
+    launch of ``replay_solve_kernel`` (``csrc/replay.cu``, one warp a
+    scenario) for a batch on the card, bit for bit
+    :func:`~simumax_tpu_torch.simulator.batched_replay.replay_solve_plain`,
+    which runs for a batch on the CPU. The value slots live in shared
+    memory where they fit, else in scratch allocated here."""
+    from simumax_tpu_torch.simulator import batched_replay
+
+    tensors = {f: getattr(rb, f) for f in (
+        "kind", "rank", "dur", "aux", "mask", "refs", "win_s", "win_e", "win_m", "edges",
+        "has_slow", "link_s", "link_e", "link_m", "app_bits")}
+    dev = rb.win_s.device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"replay_solve: {name} is on {t.device}, the batch on {dev}")
+    if dev.type == "cpu":
+        return batched_replay.replay_solve_plain(rb)
+    for name, t in tensors.items():
+        want = (torch.int32 if name in _REPLAY_INTS else torch.uint8 if name == "has_slow"
+                else torch.int64 if name == "app_bits" else torch.float64)
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"replay_solve: {name} must be contiguous {want}, got "
+                             f"{t.dtype}{'' if t.is_contiguous() else ' (strided)'}")
+    n_ops, k, c = rb.n_ops, rb.n_classes, rb.n_chains
+    b, w, e, g = rb.batch, rb.win_s.shape[2], rb.link_s.shape[1], rb.refs.shape[1]
+    if e > batched_replay.MAX_LINKS:
+        raise ValueError(f"replay_solve: {e} link windows; the kernel takes at most "
+                         f"{batched_replay.MAX_LINKS}")
+    fits = (2 * k + c + n_ops + 1) * 8 <= _REPLAY_SMEM_MAX
+    scratch = None if fits else torch.empty((b, n_ops + 1), dtype=torch.float64, device=dev)
+    out = torch.empty(b, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib("replay").replay_solve(
+            n_ops, k, rb.mask.shape[1], g, c, w, e, b,
+            *(t.data_ptr() for t in tensors.values()),
+            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("replay_solve", rc)
+    LAUNCHES["replay_solve"] += 1
+    return out

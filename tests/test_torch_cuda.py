@@ -10,6 +10,8 @@ rms(plain)), rtol 2^-7 for bf16 outputs (the two may round one bf16 ulp
 apart; the plain versions round P and dS to bf16 where the wgmma kernels
 do); for fp32 outputs 1e-4 for the flash kernels (summation order
 only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
+The int8 quantize kernels and the batched scenario replay are held bit
+for bit (the replay also against the scalar engine).
 """
 
 import math
@@ -52,7 +54,7 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                                  "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
                                  "q8_quantize": 0, "q8_quantize_cols_tma": 0,
-                                 "q8_quantize_both_tma": 0}
+                                 "q8_quantize_both_tma": 0, "replay_solve": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -165,7 +167,8 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
     assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                       "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0,
-                      "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0}
+                      "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
+                      "replay_solve": 0}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -638,3 +641,134 @@ def test_a_step_that_reads_the_host_fails_to_capture_and_is_not_timed(card):
     x = torch.ones(4, device=card)
     with pytest.raises(RuntimeError):
         time_captured_step(lambda: x.mul_(float(x.sum())), warmup=1, iters=2)
+
+
+# -- the batched scenario replay ------------------------------------------------
+
+
+def _replay_groups(cell_key, card_backend=True):
+    """A cell's estimate, and every family group the batched replay
+    solved in a lockstep walk of seeded scenarios on the card:
+    [(family, program, [(sub-scenario, fault model)], raw makespans)]."""
+    from simumax_tpu_torch import PerfLLM
+    from simumax_tpu_torch.core.config import get_model_config, get_strategy_config
+    from simumax_tpu_torch.simulator import batched_replay as br
+    from simumax_tpu_torch.simulator import faults as tf
+    from torch_fault_cells import CELLS, SYNC_CELL, build_perf, mixed, sampled
+
+    cell = SYNC_CELL if cell_key == "dense-pp2-sync" else CELLS[cell_key]
+    perf = build_perf(PerfLLM, get_model_config, get_strategy_config, **cell)
+    h = perf.simulate(None, world_ranks=True, granularity="chunk",
+                      track_memory=False)["end_time_ms"]
+    groups = []
+    ctx = tf.ReplayContext(perf, options=tf.ReplayOptions(replay_backend="cuda"))
+    orig = ctx._solve_groups
+
+    def solve_groups(grp, outs):
+        for fam, prog, members in grp.values():
+            models = [m for _it, m in members]
+            before = K.launch_counts()["replay_solve"]
+            raws = br.solve_batch(prog, models)
+            assert K.launch_counts()["replay_solve"] == before + 1
+            groups.append((fam, prog, [(it[1], m) for it, m in members], raws))
+        return orig(grp, outs)
+
+    ctx._solve_groups = solve_groups
+    scs = sampled(tf.sample_scenario, cell_key, perf.strategy.world_size, h, n=4) + [
+        mixed(tf.FaultEvent, tf.FaultScenario, h, death=False)]
+    tf._predict_goodput_batch(ctx, [(s, tf.CheckpointSpec(interval_steps=2)) for s in scs])
+    return ctx, groups
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell_key", ["dense-pp2", "moe-pp4", "mla-pp2", "dense-pp2-sync"])
+def test_replay_kernel_is_bit_identical_to_its_plain_version(card, cell_key):
+    """Every family group a walk of seeded scenarios hands the kernel,
+    and every lowered family with all its scenarios in one batch: the
+    kernel's makespans == the plain version's == the scalar engine's."""
+    from simumax_tpu_torch.simulator import batched_replay as br
+
+    ctx, groups = _replay_groups(cell_key)
+    assert groups
+    by_prog = {}
+    for fam, prog, members, raws in groups:
+        plain = br.replay_solve_plain(br.pack_batch(prog, [m for _s, m in members], "cpu"))
+        assert raws.tolist() == plain.tolist(), (cell_key, prog.n_ops)
+        for (sub, _m), raw in zip(members, raws):
+            assert raw == ctx._replay(sub, fam)[2]
+        by_prog.setdefault(id(prog), (prog, []))[1].extend(m for _s, m in members)
+    for prog, models in by_prog.values():
+        got = K.replay_solve(br.pack_batch(prog, models, card)).cpu()
+        want = br.replay_solve_plain(br.pack_batch(prog, models, "cpu"))
+        assert got.tolist() == want.tolist(), (cell_key, prog.n_ops, len(models))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeat", [1, 15000])  # the value slots in shared memory / in scratch
+def test_replay_kernel_takes_every_op_kind_and_fault(card, repeat):
+    """A family with every lowered op kind (async chains, send_sync,
+    wait_comm, both advances) under overlapping slowdowns, preemptions
+    and scoped and unscoped link windows, in one batch: the kernel ==
+    the plain version. At 15000 repeats the op table (30k ops) holds
+    more value slots than a block's shared memory."""
+    from simumax_tpu_torch.simulator import batched_replay as br
+    from simumax_tpu_torch.simulator import faults as tf
+    from torch_fault_cells import synthetic_family, synthetic_models
+
+    streams, plan = synthetic_family(repeat)
+    prog = br.lower_family(streams, plan)
+    models = synthetic_models(tf, plan)
+    if repeat > 1:  # keep the plain version's loop short: no slowdown on class 0
+        models = [m for m in models if 0 not in m._slow]
+    assert (prog.n_ops + 1) * 8 > K._REPLAY_SMEM_MAX or repeat == 1
+    K.reset_launch_counts()
+    got = K.replay_solve(br.pack_batch(prog, models, card)).cpu()
+    assert K.launch_counts()["replay_solve"] == 1
+    want = br.replay_solve_plain(br.pack_batch(prog, models, "cpu"))
+    assert got.tolist() == want.tolist()
+    if repeat == 1:  # the faults move the makespan (the long chain absorbs them)
+        assert len(set(want.tolist())) > 2
+
+
+@pytest.mark.cuda
+def test_analyze_faults_on_the_card_equals_the_scalar_engine_with_two_jobs(card):
+    """``replay_backend="cuda"`` equals ``"numpy"``; with CUDA initialised
+    the two-worker pool spawns its workers and gives the serial result."""
+    import json
+
+    from simumax_tpu_torch import PerfLLM
+    from simumax_tpu_torch.core.config import get_model_config, get_strategy_config
+    from simumax_tpu_torch.simulator import faults as tf
+    from torch_fault_cells import CELLS, build_perf
+
+    perf = build_perf(PerfLLM, get_model_config, get_strategy_config, **CELLS["dense-pp2"])
+    kw = dict(n_scenarios=4, seed=2, horizon_steps=6, spec=tf.CheckpointSpec(interval_steps=3))
+    K.reset_launch_counts()
+    on_card = perf.analyze_faults(options=tf.ReplayOptions(replay_backend="cuda"), **kw)
+    assert K.launch_counts()["replay_solve"] > 0 and torch.cuda.is_initialized()
+    assert tf._mc_context().get_start_method() == "spawn"
+    two = perf.analyze_faults(jobs=2, options=tf.ReplayOptions(replay_backend="cuda"), **kw)
+    scalar = perf.analyze_faults(options=tf.ReplayOptions(replay_backend="numpy"), **kw)
+    dump = [json.dumps(x, sort_keys=True) for x in (on_card, two, scalar)]
+    assert dump[0] == dump[1] == dump[2]
+
+
+@pytest.mark.cuda
+def test_replay_wrapper_raises_for_what_the_kernel_refuses(card):
+    from simumax_tpu_torch.simulator import batched_replay as br
+    from simumax_tpu_torch.simulator import faults as tf
+    from torch_fault_cells import synthetic_family, synthetic_models
+
+    streams, plan = synthetic_family()
+    prog = br.lower_family(streams, plan)
+    rb = br.pack_batch(prog, synthetic_models(tf, plan), card)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        K.replay_solve(dataclasses_replace(rb, dur=rb.dur.float()))
+    with pytest.raises(ValueError, match="is on cpu"):
+        K.replay_solve(dataclasses_replace(rb, kind=rb.kind.cpu()))
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+
+    return dataclasses.replace(obj, **kw)

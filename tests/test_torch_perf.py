@@ -171,9 +171,35 @@ def test_bench_rows_predict_what_the_accuracy_table_predicts(row):
     ("rebatched_iter_time", (2,)), ("analysis_dualpp", ()),
 ])
 def test_unported_methods_name_their_roadmap_item(method, args):
-    perf = PerfLLM().configure("tp1_pp2_dp4_mbs1", "llama3-8b", "tpu_v5e_256")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        getattr(perf, method)(*args)
+    """The five methods that raised NotImplementedError naming ROADMAP
+    queue A item 4 until the fault model, the critical-path engine,
+    DualPipe and the search's pruning were ported: each now runs and
+    returns the JAX package's value, equal as JSON (the fault methods
+    on the scalar engine, which the JAX package runs here too)."""
+    import json
+
+    from simumax_tpu.simulator import faults as jf
+    from simumax_tpu_torch.simulator import faults as tf
+
+    got, ref = (cls().configure("tp1_pp2_dp4_mbs1", "llama3-8b", "tpu_v5e_256")
+                for cls in (PerfLLM, JaxPerfLLM))
+    for perf in (got, ref):
+        perf.run_estimate()
+    values = []
+    for perf, fm in ((got, tf), (ref, jf)):
+        kw = {}
+        if method in ("predict_goodput", "analyze_faults"):
+            kw = dict(_ctx=fm.ReplayContext(perf, options=fm.ReplayOptions(
+                replay_backend="numpy")))
+        if method == "predict_goodput":
+            args = (fm.FaultScenario([fm.FaultEvent("preemption", 5.0, duration_ms=20.0,
+                                                    rank=3)], horizon_steps=4),)
+        if method == "analyze_faults":
+            kw.update(n_scenarios=3, horizon_steps=4)
+        out = getattr(perf, method)(*args, **kw)
+        values.append(json.dumps(out.to_dict() if hasattr(out, "to_dict") else out,
+                                 sort_keys=True, default=str))
+    assert values[0] == values[1]
 
 
 def test_calibration_helpers(monkeypatch):

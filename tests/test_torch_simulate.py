@@ -188,7 +188,20 @@ def test_world_ranks_with_a_straggler_match_jax(reduce):
 
 
 def test_unported_simulate_options_name_their_roadmap_item():
-    _ref, got = _pair("tp1_pp2_dp4_mbs1", "llama3-8b", {}, {}, None)
-    for kw in (dict(critical_path=True), dict(world_ranks=True, faults={})):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-            got.simulate(None, **kw)
+    """``critical_path=True`` and ``faults=`` raised NotImplementedError
+    naming ROADMAP queue A item 4 until the critical-path engine and the
+    fault model were ported: both now run and match the JAX package (an
+    empty scenario is dropped, so it equals the healthy run)."""
+    ref, got = _pair("tp1_pp2_dp4_mbs1", "llama3-8b", {}, {}, None)
+    from simumax_tpu.simulator.faults import FaultScenario as JaxScenario
+    from simumax_tpu_torch.simulator.faults import FaultScenario
+
+    results = []
+    for kw_ref, kw in ((dict(critical_path=True), dict(critical_path=True)),
+                       (dict(world_ranks=True, faults=JaxScenario([])),
+                        dict(world_ranks=True, faults=FaultScenario([])))):
+        r, g = ref.simulate(None, **kw_ref), got.simulate(None, **kw)
+        _assert_same(_mapped(_json(r)), _json(g))
+        results.append(g)
+    assert results[0]["critical_path"]["schema"] == "simumax-critpath-v1"
+    assert "faults" not in results[1]
