@@ -25,9 +25,14 @@ one call:
   slowdown integration of ``StepFaultModel.compute_end``, link
   degradations as an ordered product over the scenario's event-ordered
   link windows — for every scenario of the batch: on the card as one
-  launch of the CUDA kernel ``replay_solve_kernel``
-  (``csrc/replay.cu``, wrapped by ``torchref.kernels.replay_solve``),
+  launch of the CUDA kernel ``replay_levels_kernel``
+  (``csrc/replay.cu``, wrapped by ``torchref.kernels.replay_levels``),
   on the CPU as its plain PyTorch version :func:`replay_solve_plain`.
+* :func:`level_schedule` sorts a family's op table by dependence level
+  (146 levels for up to 9137 ops in the v5p-256 example), and
+  :func:`replay_tables` puts the level-ordered table on the card once
+  per family; a call then packs and copies only its scenarios' arrays
+  (:func:`pack_scenarios`) and the kernel replays a level at a time.
 
 The scalar engine remains the bit-identity oracle: batched makespans
 feed the same ``(raw_end * straggle_ratio, None, raw_end)`` tail as
@@ -53,8 +58,10 @@ counterpart.
 
 from __future__ import annotations
 
+import hashlib
 import math
-from dataclasses import dataclass
+from collections import OrderedDict
+from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,6 +160,10 @@ class LoweredProgram:
     op_dim_id: np.ndarray            # int32 [L], -1 = not a comm op
     dim_ids: Dict[str, int]          # collective-dim vocabulary
     n_chains: int                    # async chain slots (V2 length)
+    #: the family's level-ordered tables on each device it was replayed
+    #: on (:func:`replay_tables`), memoised with the program
+    tables: Dict[str, Any] = field(default_factory=dict, repr=False,
+                                   compare=False)
 
     @property
     def n_ops(self) -> int:
@@ -521,6 +532,16 @@ class ReplayBatch:
         return int(self.win_s.shape[0])
 
 
+def _mask_words(mask: np.ndarray) -> np.ndarray:
+    """bool [L, K] -> uint32 [L, ceil(K / 32)]: class c at bit c % 32 of
+    word c // 32."""
+    n, k = mask.shape
+    packed = np.packbits(mask, axis=1, bitorder="little")
+    out = np.zeros((n, 4 * ((k + 31) // 32)), dtype=np.uint8)
+    out[:, : packed.shape[1]] = packed
+    return out.view(np.dtype("<u4"))
+
+
 def pack_batch(prog: LoweredProgram, models: Sequence[Any],
                device="cuda") -> ReplayBatch:
     """``prog`` and one ``StepFaultModel`` (no deaths) per scenario as a
@@ -535,10 +556,7 @@ def pack_batch(prog: LoweredProgram, models: Sequence[Any],
         raise ValueError(f"pack_batch: {e} link windows in one scenario; "
                          f"the replay takes at most {MAX_LINKS}")
     arrs = [prepare_scenario(prog, m, w, 2 * w, e) for m in models]
-    words = (k + 31) // 32
-    bits = np.zeros((n_ops, words), dtype=np.uint32)
-    for c in range(k):
-        bits[:, c // 32] |= prog.mask[:, c].astype(np.uint32) << np.uint32(c % 32)
+    bits = _mask_words(prog.mask)
     refs = np.where(prog.refs >= n_ops, n_ops, prog.refs).astype(np.int32)
     shifts = np.arange(e, dtype=np.uint64)
     app = np.stack([
@@ -569,8 +587,11 @@ def pack_batch(prog: LoweredProgram, models: Sequence[Any],
 
 
 def replay_solve_plain(rb: ReplayBatch):
-    """Plain PyTorch version of ``replay_solve_kernel``: the raw
-    makespans (float64 [B]) of the op table under each scenario.
+    """Plain PyTorch version of ``replay_levels_kernel``: the raw
+    makespans (float64 [B]) of the op table under each scenario, one op
+    at a time in the table's order (the kernel replays a level at a
+    time; any order that keeps :func:`level_schedule`'s levels gives
+    the same values).
 
     The body of the JAX package's ``_compiled``/``run_one``
     (``batched_replay.py:539-667``) step by step, in float64 tensors
@@ -676,6 +697,426 @@ def replay_solve_plain(rb: ReplayBatch):
     return clock.amax(dim=1)
 
 
+# --------------------------------------------------------------------------
+# The level schedule and the family's tables on the card
+# --------------------------------------------------------------------------
+
+
+def level_schedule(prog: LoweredProgram) -> Tuple[np.ndarray, np.ndarray]:
+    """The op table's dependence levels, in one pass over the ops:
+    ``(order, offsets)``, ``order`` the ops sorted by level (stable,
+    int64 [L]) and level ``l`` the ops ``order[offsets[l]:offsets[l + 1]]``.
+
+    An op's level is one more than the highest level of the earlier ops
+    it depends on through a state slot the replay touches, read after
+    write, write after read or write after write:
+
+    * ``clock[x]``: read by every op of class x, by a ``send_sync``
+      whose peer is x and by the collectives x is in; written by every
+      op of class x except sends, async posts and no-ops, and by the
+      collectives x is in;
+    * ``cd[x]``: read by ``wait_comm``; read and written (a max-update)
+      by the async finishes x is in;
+    * ``v2[c]``: the async chain, read and written by its finishes;
+    * ``v[i]``: written by op i alone; read by the ``recv`` whose
+      ``aux`` it is and by the finishes whose ``refs`` hold it.
+
+    So no op of a level touches a slot another op of its level writes,
+    the ops of a level may run in any order or at once, and every order
+    that keeps the levels gives the lowered order's values.
+
+    Memoised by the table's content (the families of one analysis, one
+    per touched-rank partition, share a few tables): the arrays are
+    shared and must not be written."""
+    key = _schedule_key(prog)
+    got = _SCHEDULES.get(key)
+    if got is not None:
+        _SCHEDULES.move_to_end(key)
+        return got
+    n, k = prog.n_ops, prog.n_classes
+    kind, rank, aux = prog.kind.tolist(), prog.rank.tolist(), prog.aux.tolist()
+    grouped = np.flatnonzero((prog.kind == OP_COLL) | (prog.kind == OP_ASYNC_FINISH))
+    members = {i: np.flatnonzero(prog.mask[i]).tolist() for i in grouped.tolist()}
+    posts = {i: [j for j in prog.refs[i].tolist() if j < n] for i in grouped.tolist()}
+    clock_w, clock_r = [0] * k, [0] * k  # level of the last write / read
+    cd_w, cd_r = [0] * k, [0] * k
+    chain = [0] * prog.n_chains
+    level = [0] * n
+    for i in range(n):
+        op = kind[i]
+        if op == OP_COLL:
+            lv = 0
+            for x in members[i]:
+                lv = max(lv, clock_w[x], clock_r[x])
+            lv += 1
+            for x in members[i]:
+                clock_w[x] = clock_r[x] = lv
+        elif op == OP_ASYNC_FINISH:
+            a = aux[i]
+            lv = chain[a]
+            for x in members[i]:
+                lv = max(lv, cd_w[x], cd_r[x])
+            for j in posts[i]:
+                lv = max(lv, level[j])
+            lv += 1
+            chain[a] = lv
+            for x in members[i]:
+                cd_w[x] = cd_r[x] = lv
+        elif op == OP_SEND or op == OP_ASYNC_POST or op == OP_NOOP:
+            r = rank[i]  # reads clock[r], writes v[i] alone
+            lv = clock_w[r] + 1
+            if clock_r[r] < lv:
+                clock_r[r] = lv
+        else:  # reads and writes clock[r], and reads one more slot
+            r = rank[i]
+            lv = clock_w[r] if clock_w[r] > clock_r[r] else clock_r[r]
+            if op == OP_RECV:
+                if level[aux[i]] > lv:
+                    lv = level[aux[i]]
+            elif op == OP_WAIT_COMM:
+                if cd_w[r] > lv:
+                    lv = cd_w[r]
+                if cd_r[r] <= lv:
+                    cd_r[r] = lv + 1
+            elif op == OP_SEND_SYNC:
+                a = aux[i]
+                if clock_w[a] > lv:
+                    lv = clock_w[a]
+                if clock_r[a] <= lv:
+                    clock_r[a] = lv + 1
+            lv += 1
+            clock_w[r] = clock_r[r] = lv
+        level[i] = lv
+    lev = np.asarray(level, dtype=np.int64)
+    order = np.argsort(lev, kind="stable")
+    offsets = np.zeros(int(lev.max(initial=0)) + 1, dtype=np.int64)
+    np.cumsum(np.bincount(lev)[1:], out=offsets[1:])
+    _SCHEDULES[key] = order, offsets
+    if len(_SCHEDULES) > SCHEDULES_KEPT:
+        _SCHEDULES.popitem(last=False)
+    return order, offsets
+
+
+#: level schedules of the op tables seen last, by content: the families
+#: of one analysis (one per touched-rank partition) share a few tables
+_SCHEDULES: "OrderedDict[bytes, Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
+SCHEDULES_KEPT = 64
+
+
+def _schedule_key(prog: LoweredProgram) -> bytes:
+    """A digest of what the schedule reads: kinds, classes, aux, and the
+    members and refs of the collectives and async finishes."""
+    grouped = (prog.kind == OP_COLL) | (prog.kind == OP_ASYNC_FINISH)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray([prog.n_ops, prog.n_classes, prog.n_chains]).tobytes())
+    for a in (prog.kind, prog.rank, prog.aux, np.packbits(prog.mask[grouped], axis=1),
+              prog.refs[grouped]):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
+
+
+def permute_program(prog: LoweredProgram, order) -> LoweredProgram:
+    """``prog`` with its ops in ``order`` (a permutation of the op
+    index): op ``j`` of the result is op ``order[j]`` of ``prog``, its
+    value slot ``v[j]``, and the ``recv`` ops' ``aux`` and the finishes'
+    ``refs`` point at the new slots (padding still at the -inf slot
+    ``L``). Replayed in any order that keeps the dependences of
+    :func:`level_schedule`, it gives ``prog``'s makespans."""
+    n = prog.n_ops
+    order = np.asarray(order, dtype=np.int64)
+    pos = np.empty(n + 1, dtype=np.int64)
+    pos[order] = np.arange(n)
+    pos[n] = n
+    kind = prog.kind[order]
+    aux = prog.aux[order].astype(np.int64)
+    recv = kind == OP_RECV
+    aux[recv] = pos[aux[recv]]
+    return LoweredProgram(
+        n_classes=prog.n_classes, reps=prog.reps, kind=kind,
+        rank=prog.rank[order], dur=prog.dur[order], aux=aux.astype(np.int32),
+        mask=prog.mask[order],
+        refs=pos[np.minimum(prog.refs[order], n)].astype(np.int32),
+        peer_mask=prog.peer_mask[order], op_dim_id=prog.op_dim_id[order],
+        dim_ids=dict(prog.dim_ids), n_chains=prog.n_chains)
+
+
+#: the most ops one step of the kernel takes: a wider level is replayed in
+#: consecutive steps (its ops are independent, so any cut keeps the values)
+STEP_CAP = 2048
+#: one op of the kernel's table: ``dur``, ``kind | arg << 8`` (``arg`` the
+#: class, or for a collective and an async finish its row among the
+#: step's group rows) and ``aux``; 16 bytes, as ``struct Op`` in replay.cu
+OP_RECORD = np.dtype([("dur", "<f8"), ("kr", "<i4"), ("aux", "<i4")])
+
+
+@dataclass
+class ReplayTables:
+    """A family's op table in level order, on one device, built once
+    (:func:`replay_tables`) and read by every replay of the family: what
+    ``replay_levels_kernel`` (``csrc/replay.cu``) takes besides the
+    scenarios' arrays. Table slot ``j`` holds op ``order[j]`` of the
+    lowered program, and ``v`` is indexed by the slots: the ``recv``
+    ops' ``aux`` and the finishes' refs point at slots
+    (:func:`permute_program`).
+
+    The table is cut into steps, one a level, a level wider than
+    ``STEP_CAP`` ops into several; within a step the collectives come
+    first (a warp each), then the other ops (a thread each) by kind."""
+
+    n_ops: int
+    n_classes: int
+    n_chains: int
+    n_levels: int     # levels of the schedule
+    n_steps: int      # steps of the kernel
+    max_width: int    # ops in the widest step
+    max_groups: int   # collectives and async finishes in one step, at most
+    threads: int      # the kernel's block: a thread for each op of a step, <= 1024
+    words: int        # mask words of a group row: ceil(K / 32)
+    group: int        # refs of a group row (G)
+    row: int          # int32s in a group row: words + G, padded to 16 bytes
+    source: LoweredProgram  # the lowered program (host)
+    order: np.ndarray       # table slot -> op of the lowered program
+    dims: np.ndarray        # int32 [L]: the slots' comm dims (-1: not a comm op)
+    ops: Any      # uint8 [16 L]: OP_RECORD a slot
+    steps: Any    # int32 [n_steps + 1, 4]: (first slot, collectives, first group row, 0)
+    groups: Any   # int32 [max(rows, 1), row]: member mask words, then refs
+    scope_peers: Optional[Tuple[np.ndarray, np.ndarray]] = None  # (slots, classes)
+
+    @property
+    def app_stride(self) -> int:
+        """Link words a scenario: L rounded up to even (16-byte rows)."""
+        return self.n_ops + (self.n_ops & 1)
+
+    def peers(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The comm-scope peers, as (slot, class) pairs."""
+        if self.scope_peers is None:
+            ops, classes = np.nonzero(self.source.peer_mask)
+            pos = np.empty(self.n_ops, dtype=np.int64)
+            pos[self.order] = np.arange(self.n_ops)
+            self.scope_peers = pos[ops], classes
+        return self.scope_peers
+
+
+def build_tables(prog: LoweredProgram, device="cuda") -> ReplayTables:
+    """``prog``'s :class:`ReplayTables` on ``device`` (no memo: see
+    :func:`replay_tables`)."""
+    import torch
+
+    n, k = prog.n_ops, prog.n_classes
+    order0, offsets = level_schedule(prog)
+    level = np.repeat(np.arange(len(offsets) - 1), np.diff(offsets))
+    # in each level the collectives first, then the other ops by kind (stable),
+    # so a warp's ops mostly take one branch; then each level cut at STEP_CAP
+    kind0 = prog.kind[order0]
+    order = order0[np.lexsort((np.where(kind0 == OP_COLL, -1, kind0), level))]
+    starts = [s for lo, hi in zip(offsets[:-1].tolist(), offsets[1:].tolist())
+              for s in range(lo, hi, STEP_CAP)]
+    pos = np.empty(n + 1, dtype=np.int64)
+    pos[order] = np.arange(n)
+    pos[n] = n
+    kind = prog.kind[order]
+    coll = kind == OP_COLL
+    grouped = coll | (kind == OP_ASYNC_FINISH)
+    first_row = np.concatenate([[0], np.cumsum(grouped)])
+    bounds = np.asarray(starts + [n], dtype=np.int64)
+    width = np.diff(bounds)
+    n_coll = (np.add.reduceat(coll.astype(np.int64), starts) if n
+              else np.zeros(0, dtype=np.int64))
+    steps = np.zeros((len(starts) + 1, 4), dtype=np.int32)
+    steps[:, 0] = n
+    steps[:, 2] = first_row[n]
+    steps[: len(starts), 0] = starts
+    steps[: len(starts), 1] = n_coll
+    steps[: len(starts), 2] = first_row[starts]
+
+    step_of = np.repeat(np.arange(len(starts)), width)
+    arg = np.where(grouped, first_row[:n] - first_row[bounds[step_of]], prog.rank[order])
+    if n and (arg.max() >= 1 << 23 or kind.max() > 0xFF):
+        raise ValueError("replay tables: a class or group row does not fit the op record")
+    aux = prog.aux[order].astype(np.int64)
+    recv = kind == OP_RECV
+    aux[recv] = pos[aux[recv]]
+    rec = np.zeros(n, dtype=OP_RECORD)
+    rec["dur"] = prog.dur[order]
+    rec["kr"] = kind | (arg.astype(np.int32) << 8)
+    rec["aux"] = aux
+    words = (k + 31) // 32
+    group = prog.refs.shape[1]
+    row = 4 * ((words + group + 3) // 4)
+    rows = order[grouped]
+    groups = np.zeros((max(len(rows), 1), row), dtype=np.int32)
+    groups[: len(rows), :words] = _mask_words(prog.mask[rows]).view(np.int32)
+    groups[: len(rows), words:words + group] = pos[np.minimum(prog.refs[rows], n)]
+    narrow = width - n_coll
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return ReplayTables(
+        n_ops=n, n_classes=k, n_chains=prog.n_chains, n_levels=len(offsets) - 1,
+        n_steps=len(starts), max_width=int(width.max(initial=0)),
+        max_groups=int(np.diff(first_row[bounds]).max(initial=0)),
+        threads=min(1024, max(32, -(-int(narrow.max(initial=0)) // 32) * 32)),
+        words=words, group=group, row=row, source=prog, order=order,
+        dims=prog.op_dim_id[order], ops=dev(rec.view(np.uint8)), steps=dev(steps),
+        groups=dev(groups))
+
+
+def replay_tables(prog: LoweredProgram, device="cuda") -> ReplayTables:
+    """``prog``'s :class:`ReplayTables` on ``device``, built at its first
+    replay there and kept with the program (which the replay context
+    memoises per family, ``ReplayContext._lowered``)."""
+    import torch
+
+    key = str(torch.device(device))
+    got = prog.tables.get(key)
+    if got is None:
+        got = prog.tables[key] = build_tables(prog, device)
+    return got
+
+
+@dataclass
+class ScenarioTensors:
+    """A batch of scenarios' fault arrays for one family's
+    :class:`ReplayTables`, as :class:`ReplayBatch` holds them but with
+    the link bits in table order, each row ``app_stride`` words long.
+    :func:`pack_scenarios` writes them into one host buffer (pinned for
+    the card), :meth:`to` copies that buffer in one transfer and
+    returns views of the copy."""
+
+    batch: int
+    w: int
+    e: int
+    buffer: Any    # uint8: every array below, each at a 16-byte offset
+    layout: Tuple[Tuple[str, Any, Tuple[int, ...], int], ...]
+    win_s: Any     # float64 [B, K, W]
+    win_e: Any
+    win_m: Any
+    edges: Any     # float64 [B, K, 2W]
+    link_s: Any    # float64 [B, E]
+    link_e: Any
+    link_m: Any
+    app_bits: Any  # int64 [B, app_stride], table order
+    has_slow: Any  # uint8 [B, K]
+
+    def to(self, device) -> "ScenarioTensors":
+        return _scenario_views(self.buffer.to(device, non_blocking=True),
+                               self.batch, self.w, self.e, self.layout)
+
+
+def _scenario_views(buf, b, w, e, layout) -> ScenarioTensors:
+    views = {name: buf[off:off + math.prod(shape) * dt.itemsize].view(dt).view(shape)
+             for name, dt, shape, off in layout}
+    return ScenarioTensors(batch=b, w=w, e=e, buffer=buf, layout=layout, **views)
+
+
+def pack_scenarios(tables: ReplayTables, models: Sequence[Any],
+                   pin: bool = False) -> ScenarioTensors:
+    """One ``StepFaultModel`` (no deaths) per scenario as the
+    :class:`ScenarioTensors` of ``tables``' family, in one host buffer
+    (page-locked with ``pin``): the arrays of :func:`prepare_scenario`
+    with each op's link windows as the bits of one word."""
+    import torch
+
+    k, n = tables.n_classes, tables.n_ops
+    reps = tables.source.reps
+    b = len(models)
+    w = max((len(m._slow.get(rep, ())) for m in models for rep in reps), default=0)
+    e = max((len(m._links) for m in models), default=0)
+    if e > MAX_LINKS:
+        raise ValueError(f"pack_scenarios: {e} link windows in one scenario; "
+                         f"the replay takes at most {MAX_LINKS}")
+    f64, i64, u8 = (torch.float64, torch.int64, torch.uint8)
+    shapes = (("win_s", f64, (b, k, w)), ("win_e", f64, (b, k, w)),
+              ("win_m", f64, (b, k, w)), ("edges", f64, (b, k, 2 * w)),
+              ("link_s", f64, (b, e)), ("link_e", f64, (b, e)),
+              ("link_m", f64, (b, e)), ("app_bits", i64, (b, tables.app_stride)),
+              ("has_slow", u8, (b, k)))
+    layout, off = [], 0
+    for name, dt, shape in shapes:
+        layout.append((name, dt, shape, off))
+        off += -(-math.prod(shape) * dt.itemsize // 16) * 16
+    buf = torch.empty(max(off, 16), dtype=torch.uint8, pin_memory=pin)
+    host = _scenario_views(buf, b, w, e, tuple(layout))
+    a = {name: getattr(host, name).numpy() for name, *_ in shapes}
+    for name in ("win_s", "win_e", "edges", "link_s", "link_e"):
+        a[name].fill(math.inf)
+    a["win_m"].fill(1.0)
+    a["link_m"].fill(1.0)
+    a["app_bits"].fill(0)
+    a["has_slow"].fill(0)
+    dims = tables.dims
+    dim_ids = tables.source.dim_ids
+    applies: Dict[tuple, np.ndarray] = {}  # (dim, scope) -> the ops a window applies to
+    app = a["app_bits"].view(np.uint64)
+    for s, m in enumerate(models):
+        for c, rep in enumerate(reps):
+            wins = m._slow.get(rep)
+            if not wins:
+                continue
+            a["has_slow"][s, c] = 1
+            for j, (ws, we, wm) in enumerate(wins):
+                a["win_s"][s, c, j] = ws
+                a["win_e"][s, c, j] = we
+                a["win_m"][s, c, j] = wm
+            eds = sorted({x for win in wins for x in win[:2] if math.isfinite(x)})
+            a["edges"][s, c, : len(eds)] = eds
+        for j, (d, ls, le, mult, scope) in enumerate(m._links):
+            a["link_s"][s, j] = ls
+            a["link_e"][s, j] = le
+            a["link_m"][s, j] = mult
+            key = (d, None if scope is None else tuple(sorted(scope)))
+            ok = applies.get(key)
+            if ok is None:
+                ok = dims >= 0 if d == "*" else dims == dim_ids.get(d, -2)
+                if scope is not None:
+                    slots, classes = tables.peers()
+                    in_scope = np.fromiter((r in scope for r in reps), dtype=bool, count=k)
+                    touched = np.zeros(n, dtype=bool)
+                    touched[slots[in_scope[classes]]] = True
+                    ok = ok & touched
+                ok = applies[key] = ok.astype(np.uint64)
+            app[s, :n] |= ok << np.uint64(j)
+    return host
+
+
+def table_batch(tables: ReplayTables, scen: ScenarioTensors) -> ReplayBatch:
+    """The :class:`ReplayBatch` of a family's tables and a batch of
+    scenarios, in table order, on the scenarios' device: what the plain
+    version takes."""
+    import torch
+
+    dev = scen.win_s.device
+    t = permute_program(tables.source, tables.order)
+
+    def d(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device=dev, dtype=dtype)
+
+    i32 = torch.int32
+    return ReplayBatch(
+        n_ops=t.n_ops, n_classes=t.n_classes, n_chains=t.n_chains,
+        kind=d(t.kind, i32), rank=d(t.rank, i32), dur=d(t.dur, torch.float64),
+        aux=d(t.aux, i32), mask=d(_mask_words(t.mask).view(np.int32), i32),
+        refs=d(t.refs, i32), win_s=scen.win_s, win_e=scen.win_e, win_m=scen.win_m,
+        edges=scen.edges, has_slow=scen.has_slow, link_s=scen.link_s,
+        link_e=scen.link_e, link_m=scen.link_m,
+        app_bits=scen.app_bits[:, : t.n_ops].contiguous())
+
+
+def batch_program(rb: ReplayBatch) -> LoweredProgram:
+    """The op table of a :class:`ReplayBatch` as a
+    :class:`LoweredProgram` on the host (its link bits are the batch's
+    own: no comm dims or scopes)."""
+    n, k = rb.n_ops, rb.n_classes
+    words = rb.mask.cpu().numpy().view(np.uint8).reshape(n, -1)
+    return LoweredProgram(
+        n_classes=k, reps=tuple(range(k)), kind=rb.kind.cpu().numpy(),
+        rank=rb.rank.cpu().numpy(), dur=rb.dur.cpu().numpy(), aux=rb.aux.cpu().numpy(),
+        mask=np.unpackbits(words, axis=1, count=k, bitorder="little").astype(bool),
+        refs=rb.refs.cpu().numpy(), peer_mask=np.zeros((n, k), dtype=bool),
+        op_dim_id=np.full(n, -1, dtype=np.int32), dim_ids={}, n_chains=rb.n_chains)
+
+
 def check_backend(backend: str, device: str) -> None:
     """Refuse a replay backend the machine cannot run: ``"cuda"`` and
     ``"auto"`` launch the kernel on the card unless ``device="cpu"``
@@ -703,14 +1144,21 @@ def solve_batch(prog: LoweredProgram, models: Sequence[Any],
     """Replay ``prog`` under each scenario's fault model; returns the
     raw (pre-straggle) makespans, bit-identical to ``SimuEngine.run()``
     on the same streams. On the card, one launch of the CUDA kernel for
-    the whole batch; ``device="cpu"`` runs its plain version.
+    the whole batch over the family's tables, which stay on the card
+    (:func:`replay_tables`): the call copies the scenarios' arrays over
+    in one transfer from page-locked memory and the makespans back in
+    one. ``device="cpu"`` runs the plain version over a
+    :class:`ReplayBatch` in the lowered order.
 
     Caller contract: every model has no deaths (``deaths`` fall back
     scalar)."""
-    from simumax_tpu_torch.torchref.kernels import replay_solve
+    from simumax_tpu_torch.torchref import kernels
 
-    out = replay_solve(pack_batch(prog, models, device))
-    return out.cpu().numpy()
+    if str(device) == "cpu":
+        return kernels.replay_solve(pack_batch(prog, models, "cpu")).numpy()
+    tables = replay_tables(prog, device)
+    scen = pack_scenarios(tables, models, pin=True).to(device)
+    return kernels.replay_levels(tables, scen).cpu().numpy()
 
 
 __all__ = [
@@ -721,11 +1169,20 @@ __all__ = [
     "LoweredProgram",
     "LoweringError",
     "ReplayBatch",
+    "ReplayTables",
     "ScenarioArrays",
+    "ScenarioTensors",
+    "batch_program",
+    "build_tables",
     "check_backend",
+    "level_schedule",
     "lower_family",
     "pack_batch",
+    "pack_scenarios",
+    "permute_program",
     "prepare_scenario",
     "replay_solve_plain",
+    "replay_tables",
     "solve_batch",
+    "table_batch",
 ]

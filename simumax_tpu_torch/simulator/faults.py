@@ -1628,7 +1628,10 @@ class ReplayContext:
         string explaining why it cannot lower. Lowering outcomes are
         memoized per family; the one retryable miss — streams not
         recorded yet — is not cached, so the family lowers on the
-        round after its recording run."""
+        round after its recording run. The program keeps its
+        level-ordered tables on the card once built
+        (``batched_replay.replay_tables``), so they too are built once
+        per family."""
         if not self.options.prefix_fork:
             return "no_streams"
         got = self._lowerings.get(id(fam))

@@ -38,10 +38,13 @@ versions.
 
 And one that replaces an XLA array program: the vmapped op-table loop of
 the JAX package's ``simulator/batched_replay.py`` (``_compiled`` :528,
-``solve_batch`` :684) as ``replay_solve_kernel`` in ``csrc/replay.cu``,
-wrapped by :func:`replay_solve`: one warp replays one fault scenario of
-a step-program family, bit for bit the scalar engine; a serial
-dependence chain, bound by its latency, not by bytes or operations.
+``solve_batch`` :684) as ``replay_levels_kernel`` in ``csrc/replay.cu``,
+wrapped by :func:`replay_levels` (a family's level-ordered tables kept on
+the card, and a batch of scenarios) and :func:`replay_solve` (a
+``ReplayBatch``): one block replays one fault scenario of a step-program
+family a dependence level at a time, bit for bit the scalar engine;
+bound by the depth of the family's dependence DAG, not by bytes or
+operations. Both count their launches under ``replay_solve``.
 
 The flash wrappers take the JAX package's public layout ``[b, s, h, d]``
 (MHA: repeat GQA kv heads upstream) and work on ``[b*h, s, d]``
@@ -98,7 +101,7 @@ _ENTRY_POINTS = {
         "q8_tma_occupancy": [_I, _I, _P, _P],
     },
     "replay": {
-        "replay_solve": [_I] * 8 + [_P] * 18,
+        "replay_levels": [_I] * 17 + [_P] * 15,
     },
 }
 
@@ -828,19 +831,106 @@ def q8_quantize(x, amax, column_major: bool = False, both: bool = False):
 
 # -- batched scenario replay ----------------------------------------------------
 
-#: dynamic shared memory one block may have (``SMEM_MAX`` in csrc/replay.cu)
+#: dynamic shared memory one block may have and the most stages of the
+#: table's ring (``SMEM_MAX``, ``MAX_STAGES`` in csrc/replay.cu)
 _REPLAY_SMEM_MAX = 232448
+_REPLAY_STAGES_MAX = 8
 _REPLAY_INTS = ("kind", "rank", "aux", "mask", "refs")
+_SCENARIO_DTYPES = {"win_s": torch.float64, "win_e": torch.float64, "win_m": torch.float64,
+                    "edges": torch.float64, "has_slow": torch.uint8, "link_s": torch.float64,
+                    "link_e": torch.float64, "link_m": torch.float64, "app_bits": torch.int64}
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def replay_smem(tables, w: int, e: int) -> Tuple[int, int, bool, bool, bool]:
+    """Dynamic shared memory of one block of ``replay_levels_kernel``
+    and how it is spent (as ``replay_levels`` in csrc/replay.cu counts
+    it): two stages of the table's ring and the state; then the step
+    table, the slowdown windows and the value slots, in this order, where
+    they fit; then more stages, up to eight, where they fit. Returns
+    (bytes, stages, the step table, the windows, the value slots in
+    shared memory)."""
+    k, c, n_ops = tables.n_classes, tables.n_chains, tables.n_ops
+    stage = (_align16(16 * tables.max_width) + (_align16(8 * (tables.max_width + 2)) if e else 0)
+             + _align16(4 * tables.row * tables.max_groups))
+    smem = (8 * _REPLAY_STAGES_MAX + 32 * 8 + 2 * stage + _align16((2 * k + c) * 8)
+            + _align16(3 * e * 8) + _align16(k))
+    fits = []
+    for part in (16 * (tables.n_steps + 1), _align16(5 * k * w * 8), (n_ops + 1) * 8):
+        fits.append(smem + part <= _REPLAY_SMEM_MAX)
+        smem += part if fits[-1] else 0
+    more = min(_REPLAY_STAGES_MAX - 2, max(0, _REPLAY_SMEM_MAX - smem) // max(stage, 1))
+    return (smem + more * stage, 2 + more, *fits)
+
+
+def replay_levels(tables, scen):
+    """Raw makespans (float64 [B]) of a family's
+    :class:`~simumax_tpu_torch.simulator.batched_replay.ReplayTables`
+    under a batch of
+    :class:`~simumax_tpu_torch.simulator.batched_replay.ScenarioTensors`:
+    one launch of ``replay_levels_kernel`` (``csrc/replay.cu``, one block
+    a scenario, a level of the op table at a time) for tables on the
+    card; for tables on the CPU, the plain version over the same table
+    (:func:`~simumax_tpu_torch.simulator.batched_replay.replay_solve_plain`).
+    The step table, the windows and the value slots live in shared
+    memory where they fit (:func:`replay_smem`), else the kernel reads
+    the first two where they are and keeps the value slots in scratch
+    allocated here."""
+    from simumax_tpu_torch.simulator import batched_replay
+
+    dev = tables.ops.device
+    arrays = {name: getattr(scen, name) for name in _SCENARIO_DTYPES}
+    for name, t in arrays.items():
+        if t.device != dev:
+            raise ValueError(f"replay_levels: {name} is on {t.device}, the tables on {dev}")
+    if dev.type == "cpu":
+        return batched_replay.replay_solve_plain(batched_replay.table_batch(tables, scen))
+    b, w, e = scen.batch, scen.w, scen.e
+    k = tables.n_classes
+    shapes = {"win_s": (b, k, w), "win_e": (b, k, w), "win_m": (b, k, w),
+              "edges": (b, k, 2 * w), "has_slow": (b, k), "link_s": (b, e), "link_e": (b, e),
+              "link_m": (b, e), "app_bits": (b, tables.app_stride)}
+    for name, t in arrays.items():
+        if t.dtype != _SCENARIO_DTYPES[name] or not t.is_contiguous() or \
+                tuple(t.shape) != shapes[name] or t.data_ptr() % 16:
+            raise ValueError(f"replay_levels: {name} must be a contiguous, 16-byte aligned "
+                             f"{_SCENARIO_DTYPES[name]} tensor of shape {shapes[name]}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if e > batched_replay.MAX_LINKS:
+        raise ValueError(f"replay_levels: {e} link windows; the kernel takes at most "
+                         f"{batched_replay.MAX_LINKS}")
+    smem, n_stages, steps_smem, win_smem, v_smem = replay_smem(tables, w, e)
+    if smem > _REPLAY_SMEM_MAX:
+        raise ValueError(f"replay_levels: a block needs {smem} bytes of shared memory; the card "
+                         f"gives at most {_REPLAY_SMEM_MAX}")
+    scratch = None if v_smem else torch.empty((b, tables.n_ops + 1), dtype=torch.float64,
+                                              device=dev)
+    out = torch.empty(b, dtype=torch.float64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _lib("replay").replay_levels(
+            tables.n_ops, tables.n_classes, tables.words, tables.group, tables.row,
+            tables.n_chains, w, e, b, tables.n_steps, n_stages, tables.max_width,
+            tables.max_groups, tables.threads, tables.app_stride, int(win_smem),
+            int(steps_smem), tables.ops.data_ptr(), tables.steps.data_ptr(),
+            tables.groups.data_ptr(),
+            *(t.data_ptr() for t in arrays.values()),
+            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on("replay_levels", rc)
+    LAUNCHES["replay_solve"] += 1
+    return out
 
 
 def replay_solve(rb):
     """Raw makespans (float64 [B]) of a
-    :class:`~simumax_tpu_torch.simulator.batched_replay.ReplayBatch`: one
-    launch of ``replay_solve_kernel`` (``csrc/replay.cu``, one warp a
-    scenario) for a batch on the card, bit for bit
+    :class:`~simumax_tpu_torch.simulator.batched_replay.ReplayBatch`: for a
+    batch on the card, its op table sorted by level (not memoised) and one
+    launch of ``replay_levels_kernel`` (:func:`replay_levels`), bit for bit
     :func:`~simumax_tpu_torch.simulator.batched_replay.replay_solve_plain`,
-    which runs for a batch on the CPU. The value slots live in shared
-    memory where they fit, else in scratch allocated here."""
+    which runs for a batch on the CPU."""
     from simumax_tpu_torch.simulator import batched_replay
 
     tensors = {f: getattr(rb, f) for f in (
@@ -858,20 +948,12 @@ def replay_solve(rb):
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"replay_solve: {name} must be contiguous {want}, got "
                              f"{t.dtype}{'' if t.is_contiguous() else ' (strided)'}")
-    n_ops, k, c = rb.n_ops, rb.n_classes, rb.n_chains
-    b, w, e, g = rb.batch, rb.win_s.shape[2], rb.link_s.shape[1], rb.refs.shape[1]
-    if e > batched_replay.MAX_LINKS:
-        raise ValueError(f"replay_solve: {e} link windows; the kernel takes at most "
-                         f"{batched_replay.MAX_LINKS}")
-    fits = (2 * k + c + n_ops + 1) * 8 <= _REPLAY_SMEM_MAX
-    scratch = None if fits else torch.empty((b, n_ops + 1), dtype=torch.float64, device=dev)
-    out = torch.empty(b, dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = _lib("replay").replay_solve(
-            n_ops, k, rb.mask.shape[1], g, c, w, e, b,
-            *(t.data_ptr() for t in tensors.values()),
-            0 if scratch is None else scratch.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on("replay_solve", rc)
-    LAUNCHES["replay_solve"] += 1
-    return out
+    tables = batched_replay.build_tables(batched_replay.batch_program(rb), dev)
+    b, w, e = rb.batch, rb.win_s.shape[2], rb.link_s.shape[1]
+    app = torch.zeros((b, tables.app_stride), dtype=torch.int64, device=dev)
+    app[:, : rb.n_ops] = rb.app_bits[:, torch.from_numpy(tables.order).to(dev)]
+    scen = batched_replay.ScenarioTensors(
+        batch=b, w=w, e=e, buffer=None, layout=(), win_s=rb.win_s, win_e=rb.win_e,
+        win_m=rb.win_m, edges=rb.edges, link_s=rb.link_s, link_e=rb.link_e, link_m=rb.link_m,
+        app_bits=app, has_slow=rb.has_slow)
+    return replay_levels(tables, scen)

@@ -731,6 +731,61 @@ def test_replay_kernel_takes_every_op_kind_and_fault(card, repeat):
 
 
 @pytest.mark.cuda
+def test_replay_kernel_takes_a_level_wider_than_its_block(card):
+    """1100 classes: 1100 independent compute ops, a collective over all
+    of them (a warp's masked max over 35 mask words), 1100 more. A level
+    holds more ops than the block's 1024 threads; the kernel, through
+    the family's memoised tables and its packed scenarios, == the plain
+    version == the scalar engine."""
+    import types
+
+    from simumax_tpu_torch.simulator import batched_replay as br
+    from simumax_tpu_torch.simulator import faults as tf
+    from simumax_tpu_torch.simulator.engine import ReplayProc, SimuEngine
+    from torch_fault_cells import synthetic_models
+
+    k = 1100
+    streams = [[("compute", 1.0 + c / 1024, "a", "c"),
+                ("collective", "x:tp", 0.5, "ar", list(range(k))),
+                ("compute", 0.25 * (c % 3), "b", "c")] for c in range(k)]
+    plan = types.SimpleNamespace(n_classes=k, reps=tuple(range(k)))
+    prog = br.lower_family(streams, plan)
+    models = synthetic_models(tf, plan)
+    tables = br.replay_tables(prog, card)
+    assert tables.max_width == k and tables.threads == 1024 and tables.n_steps == 3
+    K.reset_launch_counts()
+    got = br.solve_batch(prog, models)
+    assert K.launch_counts()["replay_solve"] == 1
+    want = br.replay_solve_plain(br.pack_batch(prog, models, "cpu")).tolist()
+    assert got.tolist() == want
+    for m, raw in zip(models, want):
+        eng = SimuEngine(k, drop_events=True)
+        for i in range(k):
+            eng.add_rank(i, ReplayProc(streams[i]))
+        eng._fault = m
+        eng.run_incremental()
+        assert raw == max(eng.clock)
+
+
+@pytest.mark.cuda
+def test_replay_kernel_takes_a_batch_of_264(card):
+    """The largest family a walk of the MoE cell lowers, under 264
+    scenarios (the walk's, repeated): two blocks on every SM of the card,
+    every makespan == the plain version's."""
+    from simumax_tpu_torch.simulator import batched_replay as br
+
+    _ctx, groups = _replay_groups("moe-pp4")
+    by_prog = {}
+    for _fam, prog, members, _raws in groups:
+        by_prog.setdefault(id(prog), (prog, []))[1].extend(m for _s, m in members)
+    prog, models = max(by_prog.values(), key=lambda pm: (pm[0].n_ops, len(pm[1])))
+    models = [models[j % len(models)] for j in range(264)]
+    got = br.solve_batch(prog, models)
+    want = br.replay_solve_plain(br.pack_batch(prog, models, "cpu"))
+    assert len(got) == 264 and got.tolist() == want.tolist()
+
+
+@pytest.mark.cuda
 def test_analyze_faults_on_the_card_equals_the_scalar_engine_with_two_jobs(card):
     """``replay_backend="cuda"`` equals ``"numpy"``; with CUDA initialised
     the two-worker pool spawns its workers and gives the serial result."""
