@@ -6,7 +6,8 @@ one CUDA card and exits non-zero without one (or outside the repository).
 Phases, each fatal on failure:
 
 1. build the CUDA kernels from ``simumax_tpu_torch/csrc/`` (flash
-   attention, SwiGLU, int8 quantization, the batched scenario replay)
+   attention, SwiGLU, int8 quantization, the batched scenario replay,
+   the search's pipeline-schedule folds)
    with nvcc, one process per source, all started together; log the
    replay kernel's registers and spills; log each flash kernel's
    registers and spills (ptxas), failing unless there are six wgmma
@@ -125,7 +126,28 @@ Phases, each fatal on failure:
        for the same misses, and, at the largest family, the plain
        version on the card and the kernel by batch size; each family's
        levels and widest level, the wall time of the analyses, the
-       fallbacks by reason and the miss-batch sizes are logged.
+       fallbacks by reason and the miss-batch sizes are logged;
+    d. the strategy search on the JAX package's TPU system config
+       ``tpu_v5p_256`` (world 64, gbs 64; no H100 config places groups
+       larger than one card yet): the guided Mixtral-8x7B sweep
+       (``ep4_pp2_dp4_mbs1``, tp x pp x ep {1,2,4,8} x ZeRO {0..3} x three
+       recompute families) through ``search_best_parallel_strategy`` with
+       the defaults (``backend="auto"``, ``device="cuda"``): the fold
+       kernel (``csrc/fold.cu``) launched once for each shape group its
+       sweep-wide fold batch dispatched, the rows equal as JSON to the
+       same sweep with the numpy fold, its top 5 the batched grid
+       sweep's, no ``status=error`` cell; the dense wide grid (Llama3-8B,
+       tp x pp {1,2,4,8} x ZeRO {0..3}) cell by cell through
+       ``BatchedScorer(backend="cuda")``, equal to ``"numpy"`` bit for bit
+       with every pp > 1 group on the kernel; the VPP families (world 16)
+       at mbc up to 64, equal to the numpy fold bit for bit; the kernel
+       bench (``tools/bench_sweep.run_kernel_bench``: 4096 candidates of
+       tp2 pp4 full-block; candidates/s of the numpy fold, the plain
+       version on the card and the kernel; the kernel's device ms a call
+       behind a spin kernel, the host ms a call in parts, the kernel by
+       group size from 256 to 65536, the ``auto`` crossover); every call
+       of the phase held bit for bit against the plain version on the
+       card.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -151,6 +173,22 @@ FAULT_CONFIG = ("tp4_pp4_dp16_mbs1", "llama3-8b", "tpu_v5p_256")
 FAULT_SCENARIO = os.path.join("configs", "faults", "v5p256_preemption.json")
 FAULT_ANALYSIS = dict(n_scenarios=8, seed=0, horizon_steps=50)
 FAULT_INTERVAL = 25
+#: the search phase's workloads (10d), on the JAX package's TPU system
+#: config as data: the guided Mixtral-8x7B sweep (the main path), the
+#: dense wide grid of the JAX package's bench_sweep.py:86-90, the VPP
+#: families of its tests/test_batched.py:484-490 (world 16) and the
+#: kernel bench's candidates (bench_sweep.py:147-156)
+SEARCH_SYSTEM = "tpu_v5p_256"
+SEARCH_WORLD, SEARCH_GBS = 64, 64
+SEARCH_MOE = ("mixtral-8x7b", "ep4_pp2_dp4_mbs1",
+              dict(tp_list=(1, 2, 4, 8), pp_list=(1, 2, 4, 8), ep_list=(1, 2, 4, 8),
+                   zero_list=(0, 1, 2, 3)))
+SEARCH_DENSE = ("llama3-8b", "tp1_pp1_dp8_mbs1",
+                dict(tp_list=(1, 2, 4, 8), pp_list=(1, 2, 4, 8), zero_list=(0, 1, 2, 3)))
+SEARCH_VPP = [dict(pp_size=2, interleaving_size=2), dict(pp_size=2, interleaving_size=4),
+              dict(pp_size=4, tp_size=2, interleaving_size=2),
+              dict(pp_size=2, interleaving_size=2, pp_comm_async=False)]
+SEARCH_BENCH = 4096
 SLICE = dict(b=1, s=2048, h=16, d=128, dtype="bfloat16", causal=True)
 CASES = [
     ("slice", SLICE),
@@ -179,7 +217,9 @@ Q8_ORDERS = {"row-major": (False, False, "q8_quantize"),
 SOURCES = {**{k: "simumax_tpu_torch/csrc/flash_attn.cu" for k in FLASH},
            **{k: "simumax_tpu_torch/csrc/swiglu.cu" for k in SWIGLU},
            **{k: "simumax_tpu_torch/csrc/quant8.cu" for k in Q8},
-           "replay_levels": "simumax_tpu_torch/csrc/replay.cu"}
+           "replay_levels": "simumax_tpu_torch/csrc/replay.cu",
+           "fold_1f1b": "simumax_tpu_torch/csrc/fold.cu",
+           "fold_interleaved": "simumax_tpu_torch/csrc/fold.cu"}
 #: the launch count of a kernel-table row kept under another name: the
 #: replay wrappers count their kernel under ``replay_solve``
 LAUNCH_KEYS = {"replay_levels": "replay_solve"}
@@ -200,6 +240,10 @@ TPU_KERNELS = {
     # no Pallas kernel: the batched scenario replay is a vmapped XLA
     # program (_compiled :528, called by solve_batch :684)
     "replay_levels": "simumax_tpu/simulator/batched_replay.py:528",
+    # no Pallas kernel: the search's pipeline-schedule folds are jitted,
+    # vmapped XLA programs, one for each schedule
+    "fold_1f1b": "simumax_tpu/search/batched.py:459",
+    "fold_interleaved": "simumax_tpu/search/batched.py:515",
 }
 #: (case, shape, timed): 2-D tensors the int8 row quantizes (hidden 2048,
 #: qkv 4096, ffn 5504, vocab 32000, 2048 tokens); each is checked in bf16
@@ -1673,6 +1717,256 @@ def check_faults(torch, K):
     return row, record, launches["replay_solve"]
 
 
+def search_inputs(model, strategy, world):
+    """A search's base strategy (``world`` cards), model and system, on
+    the JAX package's TPU system config (used as data: no H100 config
+    places groups larger than one card yet)."""
+    from simumax_tpu_torch.core import config as C
+
+    base = C.get_strategy_config(strategy)
+    base.world_size = world
+    base.__post_init__()
+    return base, C.get_model_config(model), C.get_system_config(SEARCH_SYSTEM)
+
+
+def fold_calls_by_table(calls):
+    """Recorded ``fold_schedule`` calls grouped by op table, each group's
+    inputs and results joined along the candidates: the fold of a
+    candidate reads only its own column, so one plain call a table holds
+    every call of it."""
+    import torch
+
+    groups = {}
+    for ops, fwd, bwd, p2p, blk, out in calls:
+        key = (tuple(fwd.shape[:2]), tuple(ops.shape), ops.data_ptr())
+        groups.setdefault(key, []).append((ops, fwd, bwd, p2p, blk, out))
+    for members in groups.values():
+        ops = members[0][0]
+        yield ops, *(torch.cat([m[i] for m in members], dim=-1) for i in range(1, 6))
+
+
+def check_search(torch, K):
+    """Phase 10d: the strategy search on the card, on the JAX package's
+    TPU system config ``tpu_v5p_256`` (world 64, gbs 64). Main paths, the
+    launch counts set to 0 just before each and read just after: (a) the
+    guided Mixtral-8x7B sweep through ``search_best_parallel_strategy``
+    with the defaults (``backend="auto"``, ``device="cuda"``): the fold
+    kernel launched once for each shape group its sweep-wide fold batch
+    dispatched, the rows equal as JSON to the same sweep with the numpy
+    fold, the top 5 the batched grid sweep's, no ``status=error`` row;
+    (b) the dense wide grid cell by cell through ``BatchedScorer(backend=
+    "cuda")`` (``evaluate_cell`` and ``screen_cells``), equal to
+    ``backend="numpy"`` bit for bit, with no pp > 1 fold left to numpy;
+    (c) the VPP families at mbc up to 64 with ``backend="cuda"``, equal
+    to the numpy fold bit for bit. Then (d) the kernel bench
+    (``tools/bench_sweep.run_kernel_bench``: 4096 candidates of one
+    family; the kernel by batch size up to 65536; the crossover), and
+    every call of (a)-(d) held bit for bit against the plain version on
+    the card. Returns (the two kernel-table rows, the phase's record,
+    the launches of the main paths)."""
+    import copy
+    import dataclasses
+
+    from simumax_tpu_torch.core.records import Diagnostics
+    from simumax_tpu_torch.search import batched as B
+    from simumax_tpu_torch.search import executor as E
+    from simumax_tpu_torch.search import search_best_parallel_strategy
+    from simumax_tpu_torch.search.prune import enumerate_cells, make_cell_strategy
+    from simumax_tpu_torch.tools import bench_sweep as BS
+
+    keys = ("fold_1f1b", "fold_interleaved")
+    launches = dict.fromkeys(keys, 0)
+    checked = []
+
+    def path_launches(what):
+        got = K.launch_counts()
+        others = {k: n for k, n in got.items() if n and k not in keys}
+        if others:
+            raise AssertionError(f"search phase ({what}) launched other kernels: {others}")
+        for k in keys:
+            launches[k] += got[k]
+        return {k: got[k] for k in keys}
+
+    # a. the guided Mixtral sweep, the defaults
+    model_name, strategy, lists = SEARCH_MOE
+    base, model, system = search_inputs(model_name, strategy, SEARCH_WORLD)
+
+    def sweep(mode):
+        diag = Diagnostics()
+        t0 = time.perf_counter()
+        rows = search_best_parallel_strategy(copy.deepcopy(base), model, system, SEARCH_GBS,
+                                             topk=5, diagnostics=diag, engine="batched",
+                                             search_mode=mode, **lists)
+        torch.cuda.synchronize()
+        return rows, diag, time.perf_counter() - t0
+
+    E._SCORERS.clear()
+    K.reset_launch_counts()
+    with BS.recorded_folds() as calls_a:
+        guided, gdiag, guided_s = sweep("guided")
+    got_a = path_launches("guided sweep")
+    checked += calls_a
+    groups = dict(E._batched_scorer(model, system, "cuda").last_screen_jit)
+    if not groups or sum(got_a.values()) != len(groups) or got_a["fold_1f1b"] != len(groups):
+        raise AssertionError(f"guided sweep: fold launches {got_a} for the {len(groups)} shape "
+                             f"groups its fold batch dispatched ({groups})")
+    errors = gdiag.counters.get("sweep_cells_quarantined", 0)
+    if errors or len(guided) != 5:
+        raise AssertionError(f"guided sweep: {errors} status=error cells, {len(guided)} rows")
+    grid, grid_diag, grid_s = sweep("grid")
+    orig_scorer = E._batched_scorer
+    E._batched_scorer = lambda m, s, device="cuda": B.BatchedScorer(m, s, backend="numpy")
+    try:
+        numpy_guided, _d, numpy_s = sweep("guided")
+    finally:
+        E._batched_scorer = orig_scorer
+    if json.dumps(guided, sort_keys=True) != json.dumps(numpy_guided, sort_keys=True):
+        raise AssertionError("guided sweep: the kernel's rows differ from the numpy fold's")
+    if json.dumps(guided, sort_keys=True) != json.dumps(grid, sort_keys=True):
+        raise AssertionError("guided sweep: its top 5 differ from the batched grid sweep's")
+    log(f"search (a) guided {model_name} {strategy} on {SEARCH_SYSTEM}: {guided_s:.3f} s, "
+        f"{gdiag.counters.get('sweep_cells_evaluated')} cells evaluated of "
+        f"{gdiag.counters.get('sweep_cells_screened')} screened; fold launches {got_a} for "
+        f"{len(groups)} shape groups of {min(groups.values())}-{max(groups.values())} cells; "
+        f"rows equal to the numpy fold's ({numpy_s:.3f} s), top 5 the batched grid sweep's "
+        f"({grid_s:.3f} s, {grid_diag.counters.get('sweep_cells_evaluated')} cells); no "
+        f"status=error cell; best {guided[0]['tp']}/{guided[0]['pp']}/{guided[0]['ep']} "
+        f"z{guided[0]['zero']} {guided[0]['recompute']} mfu {guided[0]['mfu']:.6f}")
+
+    # b. the dense wide grid cell by cell, backend="cuda" against "numpy"
+    model_name, strategy, lists = SEARCH_DENSE
+    base, model, system = search_inputs(model_name, strategy, SEARCH_WORLD)
+    cells, _pruned, _deduped = enumerate_cells(
+        base, model, system, SEARCH_GBS, lists["tp_list"], (1,), (1,), lists["pp_list"],
+        lists["zero_list"], ("none", "selective", "full_block"), prune=True)
+    items = [(make_cell_strategy(base, c.tp, c.cp, c.ep, c.pp, c.zero), c.rc) for c in cells]
+
+    def walk(scorer):
+        out = []
+        for st, rc in items:
+            try:
+                got = scorer.evaluate_cell(st, rc, model, SEARCH_GBS)
+            except (B.UnsupportedBatched, ValueError) as exc:
+                out.append(type(exc).__name__)
+                continue
+            out.append(None if got is None else json.dumps(
+                [got[0], dataclasses.asdict(got[1]), got[2]], sort_keys=True, default=str))
+        screens = scorer.screen_cells(items, model, SEARCH_GBS)
+        out += [s if not isinstance(s, Exception) else type(s).__name__ for s in screens]
+        return out
+
+    numpy_pp = []
+    orig_one = B._fold_numpy_one
+
+    def numpy_one(job, i):
+        if job.pp > 1:
+            numpy_pp.append(job.pp)
+        return orig_one(job, i)
+
+    K.reset_launch_counts()
+    B._fold_numpy_one = numpy_one
+    t0 = time.perf_counter()
+    try:
+        with BS.recorded_folds() as calls_b:
+            on_card = walk(B.BatchedScorer(model, system, backend="cuda"))
+    finally:
+        B._fold_numpy_one = orig_one
+    dense_s = time.perf_counter() - t0
+    got_b = path_launches("dense grid")
+    checked += calls_b
+    t0 = time.perf_counter()
+    numpy_walk = walk(B.BatchedScorer(model, system, backend="numpy"))
+    dense_numpy_s = time.perf_counter() - t0
+    if on_card != numpy_walk:
+        bad = sum(a != b for a, b in zip(on_card, numpy_walk))
+        raise AssertionError(f"dense wide grid: {bad} cells differ between backend cuda and numpy")
+    if numpy_pp or not got_b["fold_1f1b"]:
+        raise AssertionError(f"dense wide grid: {len(numpy_pp)} pp > 1 folds took numpy, "
+                             f"launches {got_b}")
+    log(f"search (b) dense wide grid {model_name}: {len(cells)} cells evaluated and screened "
+        f"with backend cuda ({dense_s:.3f} s) and numpy ({dense_numpy_s:.3f} s), equal bit for "
+        f"bit; fold launches {got_b}, every pp > 1 group on the kernel")
+
+    # c. the VPP families at mbc up to 64
+    model_name = "llama3-8b"
+    vpp = []
+    K.reset_launch_counts()
+    with BS.recorded_folds() as calls_c:
+        for spec in SEARCH_VPP:
+            st, model, system = search_inputs(model_name, "tp1_pp1_dp8_mbs1", 16)
+            for k, v in spec.items():
+                setattr(st, k, v)
+            st.__post_init__()
+            g = st.vpp_group_size
+            mbc = list(range(g, 65, g))
+            scores = {}
+            for backend in ("cuda", "numpy"):
+                kern = B.BatchedScorer(model, system, backend=backend).kernel_for(st)
+                scores[backend] = kern.score([1] * len(mbc), mbc, backend=backend)
+            for key in ("iter_time", "mfu", "tgs", "max_peak_bytes", "fits_margin_bytes"):
+                if not (scores["cuda"][key] == scores["numpy"][key]).all():
+                    raise AssertionError(f"VPP family {spec}: {key} differs from the numpy fold")
+            vpp.append({"spec": spec, "mbc": [mbc[0], mbc[-1]], "candidates": len(mbc)})
+    got_c = path_launches("VPP families")
+    checked += calls_c
+    if not got_c["fold_interleaved"]:
+        raise AssertionError(f"VPP families: launches {got_c}")
+    log(f"search (c) VPP families of {model_name} (world 16): "
+        + "; ".join(f"{v['spec']} mbc {v['mbc'][0]}-{v['mbc'][1]}" for v in vpp)
+        + f": equal to the numpy fold bit for bit; fold launches {got_c}")
+
+    # d. the kernel bench
+    bench = BS.run_kernel_bench(BS.GRIDS["wide"], SEARCH_BENCH, "cuda")
+    checked += bench.pop("calls")
+    per_call = ", ".join("n %d ops %d: %.4f" % (c["n"], c["n_ops"], c["ms"])
+                         for c in bench["kernel_calls"])
+    host = ", ".join(f"{k} {v:.4f}" for k, v in bench["host_ms_per_call"].items())
+    log(f"search (d) kernel bench ({SEARCH_BENCH} candidates, tp2 pp4 full-block): "
+        f"candidates/s numpy {bench['numpy_cands_per_sec']:.1f}, plain version on the card "
+        f"{bench['plain_cuda_cands_per_sec']:.1f}, kernel {bench['cuda_cands_per_sec']:.1f}; "
+        f"kernel device ms a call {bench['kernel_ms_per_call']:.4f} ({per_call}); host ms a "
+        f"call {host}")
+    log("search (d) kernel by group size (device ms a call): "
+        + ", ".join(f"{n}: {ms:.4f}" for n, ms in bench["kernel_ms_by_batch"].items())
+        + "; fold alone, host ms numpy / kernel: "
+        + ", ".join(f"{n}: {t['numpy']:.3f} / {t['cuda']:.3f}"
+                    for n, t in bench["fold_ms"].items())
+        + f"; crossover {bench['crossover']}")
+
+    # every call against the plain version on the card
+    worst = 0.0
+    for ops, fwd, bwd, p2p, blk, out in fold_calls_by_table(checked):
+        plain = K.fold_schedule_plain(ops, fwd, bwd, p2p, blk)
+        if not torch.equal(plain, out):
+            raise AssertionError(f"fold_schedule differs from its plain version on the card "
+                                 f"(pp {fwd.shape[0]}, vp {fwd.shape[1]}, {ops.shape[0]} ops)")
+        worst = max(worst, float((plain - out).abs().max()))
+    log(f"search: {len(checked)} fold_schedule calls bit for bit their plain version on the card")
+
+    rows = {}
+    for name, calls in (("fold_1f1b", calls_a), ("fold_interleaved", calls_c)):
+        ops, fwd, bwd, p2p, blk, out = max(calls, key=lambda c: (c[0].shape[0], c[1].shape[2]))
+        ms = event_ms(torch, lambda: K.fold_schedule(ops, fwd, bwd, p2p, blk))
+        plain_ms = event_ms(torch, lambda: K.fold_schedule_plain(ops, fwd, bwd, p2p, blk),
+                            reps=1)
+        bound_s, bound_by = BS.fold_bound(ops, fwd, out)
+        rows[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": None,
+                      "shape": {"pp": fwd.shape[0], "vp": fwd.shape[1], "n": fwd.shape[2],
+                                "n_ops": ops.shape[0]}}
+        log(f"{name} at its path's largest call (pp {fwd.shape[0]}, vp {fwd.shape[1]}, "
+            f"n {fwd.shape[2]}, {ops.shape[0]} ops): kernel {ms:.4f} ms, plain version on the "
+            f"card {plain_ms:.3f} ms, bound {bound_s * 1e3:.6f} ms ({bound_by})")
+    record = {"guided": {"s": guided_s, "numpy_s": numpy_s, "grid_s": grid_s,
+                         "launches": got_a, "groups": {str(k): v for k, v in groups.items()},
+                         "counters": gdiag.counters, "top": guided},
+              "dense": {"cells": len(cells), "cuda_s": dense_s, "numpy_s": dense_numpy_s,
+                        "launches": got_b},
+              "vpp": {"families": vpp, "launches": got_c}, "bench": bench,
+              "checked_calls": len(checked), "rows": rows}
+    return rows, record, launches
+
+
 def main():
     import torch
 
@@ -1700,7 +1994,7 @@ def main():
     t0 = time.perf_counter()
     reports = K.build()
     log(f"kernel build: {time.perf_counter() - t0:.3f} s (nvcc, sm_90a, into {K.build_dir()})")
-    for name in ("swiglu", "replay"):
+    for name in ("swiglu", "replay", "fold"):
         for line in reports.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  ptxas {name}: {line.strip()}")
@@ -1782,6 +2076,13 @@ def main():
         counts = {k: counts[k] + rec["launches"][k] for k in counts}
     # main path 10c: the fault model's Monte-Carlo analysis
     table["replay_levels"], faults, counts["replay_solve"] = check_faults(torch, K)
+    # main path 10d: the strategy search
+    t0 = time.perf_counter()
+    search_rows, search, search_launches = check_search(torch, K)
+    search["phase_s"] = time.perf_counter() - t0
+    log(f"search phase: {search['phase_s']:.3f} s")
+    table.update(search_rows)
+    counts.update(search_launches)
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:
@@ -1801,7 +2102,8 @@ def main():
             k: table[k] for k in FLASH}, "flash_fp32_timing": flash_fp32, "build": build_info, "swiglu_cases": swiglu_cases,
             "rows": rows, "steps": steps, "int8_ms": int8_ms, "bandwidth": bandwidth,
             "host_slowed": host_slowed_reads, "memory_table": memory, "q8_cases": q8_cases,
-            "attribution": attribution, "faults": faults}, f, indent=1)
+            "attribution": attribution, "faults": faults, "search": search}, f, indent=1,
+            default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -41,8 +41,9 @@ Copy of the JAX package's ``observe/telemetry.py`` with its import
 paths changed and its own closed catalogue: :data:`METRICS` holds the
 metrics this package emits (the ``Diagnostics`` counter mirror, the
 simulator's ``des_*`` heartbeat, the tracer's drop counter, the fault
-replay's ``faults_*`` and ``replay_*`` counters). The serving, pool,
-ring, store and fleet metrics return with the modules that emit them.
+replay's ``faults_*`` and ``replay_*`` counters, the content store's
+``store_*`` counters). The serving, pool, ring and fleet metrics return
+with the modules that emit them.
 """
 
 from __future__ import annotations
@@ -127,6 +128,17 @@ METRICS: Dict[str, Dict[str, str]] = {
                 "scalar engine, by counted reason (deaths/sendrecv/"
                 "unknown_kind/no_streams/lowering_error/"
                 "small_batch/backend_numpy).",
+    },
+    "store_ops_total": {
+        "type": "counter",
+        "help": "Content-addressed store operations, by op "
+                "(hits/misses/puts/evictions/corrupt_dropped).",
+    },
+    "store_quarantined_total": {
+        "type": "counter",
+        "help": "Corrupt/torn store entries moved into .quarantine/ "
+                "(read-path drops, verify --drop, and the start-time "
+                "recovery sweep all route here).",
     },
 }
 

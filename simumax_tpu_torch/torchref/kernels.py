@@ -46,6 +46,16 @@ family a dependence level at a time, bit for bit the scalar engine;
 bound by the depth of the family's dependence DAG, not by bytes or
 operations. Both count their launches under ``replay_solve``.
 
+And the XLA programs of the JAX package's ``search/batched.py``: the
+jitted pipeline-schedule folds ``_jit_fold_1f1b`` (:459) and
+``_jit_fold_interleaved`` (:515) as ``fold_schedule_kernel`` in
+``csrc/fold.cu``, wrapped by :func:`fold_schedule`: one thread a
+candidate walks a shape's op table in float64, bit for bit the numpy
+fold; bound by the table's length times one step's latency. It counts
+its launches under ``fold_1f1b`` (vp == 1) and ``fold_interleaved``.
+Every error of that wrapper, and of any kernel's build, is a
+:class:`KernelError`, which the strategy search lets through.
+
 The flash wrappers take the JAX package's public layout ``[b, s, h, d]``
 (MHA: repeat GQA kv heads upstream) and work on ``[b*h, s, d]``
 contiguous inside; the SwiGLU wrappers take ``[..., 2f]`` and work on
@@ -76,7 +86,7 @@ from simumax_tpu_torch.core.utils import cuda_flash_supported
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SOURCES = {"flash_attn": "flash_attn.cu", "swiglu": "swiglu.cu", "quant8": "quant8.cu",
-            "replay": "replay.cu"}
+            "replay": "replay.cu", "fold": "fold.cu"}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -103,6 +113,9 @@ _ENTRY_POINTS = {
     "replay": {
         "replay_levels": [_I] * 17 + [_P] * 15,
     },
+    "fold": {
+        "fold_schedule": [_I] * 4 + [_P] * 8,
+    },
 }
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
@@ -112,10 +125,16 @@ _ENTRY_POINTS = {
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0, "q8_quantize": 0,
                             "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
-                            "replay_solve": 0}
+                            "replay_solve": 0, "fold_1f1b": 0, "fold_interleaved": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, refused its inputs or failed to
+    launch. The strategy search lets it through: a failed fold stops the
+    search instead of being quarantined like a failed candidate."""
 
 
 def reset_launch_counts() -> None:
@@ -160,7 +179,7 @@ def _nvcc() -> str:
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked in $CUDA_HOME/bin and PATH): the CUDA "
         "kernels are built from source at first use"
     )
@@ -199,7 +218,7 @@ def build() -> Dict[str, str]:
             f.write(out)
         os.replace(tmp, lib)
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     reports = {}
     for name in _SOURCES:
         path = f"{_target(name)[1]}.ptxas.txt"
@@ -286,7 +305,7 @@ def _launch_args(name: str, q: torch.Tensor, skv: int, tensors) -> Tuple[int, in
 
 def _raise_on(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
+        raise KernelError(f"{name}: CUDA kernel launch failed with cudaError {rc}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -957,3 +976,85 @@ def replay_solve(rb):
         win_m=rb.win_m, edges=rb.edges, link_s=rb.link_s, link_e=rb.link_e, link_m=rb.link_m,
         app_bits=app, has_slow=rb.has_slow)
     return replay_levels(tables, scen)
+
+
+# -- pipeline-schedule folds ------------------------------------------------------
+
+
+def fold_schedule_plain(ops, fwd, bwd, p2p, blocking):
+    """The fold of :func:`fold_schedule` in PyTorch, vectorised over the
+    candidates: a loop over the op table, each step the kernel's float64
+    additions and comparison on ``[n]`` tensors."""
+    pp, vp, n = fwd.shape
+    times = (fwd.reshape(pp * vp, n), bwd.reshape(pp * vp, n))
+    state = torch.zeros((ops.shape[0], n), dtype=torch.float64, device=fwd.device)
+    out = torch.zeros((pp + 1, n), dtype=torch.float64, device=fwd.device)
+    ends = out[:pp]
+    for code, row, slot, dep in ops.tolist():
+        s = code & 0xFF
+        c = ends[s]
+        start = c
+        if dep >= 0:
+            d = state[dep] + p2p
+            start = torch.where(c >= d, c, d)
+        end = start + times[(code >> 9) & 1][row]
+        state[slot] = end
+        if code & 0x100:
+            end = end + blocking
+        ends[s] = end
+    total = ends[0].clone()
+    for s in range(1, pp):
+        total = torch.where(ends[s] > total, ends[s], total)
+    out[pp] = total
+    return out
+
+
+def fold_schedule(ops, fwd, bwd, p2p, blocking):
+    """Each candidate's pipeline schedule over one shape's op table
+    (``search/batched.py::fold_table``, int32 ``[2*pp*vp*mbc, 4]``):
+    ``fwd``/``bwd`` float64 ``[pp, vp, n]``, ``p2p``/``blocking``
+    float64 ``[n]``. Returns float64 ``[pp + 1, n]``: each stage's end,
+    then the total. On the card one launch of ``fold_schedule_kernel``
+    (``csrc/fold.cu``), counted under ``fold_1f1b`` at vp == 1 and
+    ``fold_interleaved`` above; on the CPU :func:`fold_schedule_plain`.
+    Every error is a :class:`KernelError`."""
+    if fwd.dim() != 3 or bwd.shape != fwd.shape:
+        raise KernelError(f"fold_schedule: fwd and bwd must be [pp, vp, n], got "
+                          f"{tuple(fwd.shape)} and {tuple(bwd.shape)}")
+    pp, vp, n = fwd.shape
+    n_ops = ops.shape[0] if ops.dim() == 2 else -1
+    if ops.dim() != 2 or ops.shape[1] != 4 or ops.dtype != torch.int32 \
+            or n_ops < 1 or n_ops % (2 * pp * vp):
+        raise KernelError(f"fold_schedule: ops must be int32 [2*pp*vp*mbc, 4] for pp {pp}, "
+                          f"vp {vp}, got {ops.dtype} {tuple(ops.shape)}")
+    if not 1 <= pp <= 255 or n < 1:
+        raise KernelError(f"fold_schedule: pp {pp} (1-255) and n {n} (>= 1)")
+    tensors = {"ops": ops, "fwd": fwd, "bwd": bwd, "p2p": p2p, "blocking": blocking}
+    for name, t in tensors.items():
+        if t.device != fwd.device:
+            raise KernelError(f"fold_schedule: {name} is on {t.device}, fwd on {fwd.device}")
+        if name != "ops" and t.dtype != torch.float64:
+            raise KernelError(f"fold_schedule: {name} must be float64, got {t.dtype}")
+    for t in (p2p, blocking):
+        if tuple(t.shape) != (n,):
+            raise KernelError(f"fold_schedule: p2p and blocking must be [{n}], got "
+                              f"{tuple(t.shape)}")
+    if fwd.device.type == "cpu":
+        return fold_schedule_plain(ops, fwd, bwd, p2p, blocking)
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise KernelError(f"fold_schedule: {name} must be contiguous")
+    if ops.data_ptr() % 16:
+        raise KernelError("fold_schedule: ops must be 16-byte aligned (int4 records)")
+    try:
+        lib = _lib("fold")
+    except OSError as exc:
+        raise KernelError(f"fold_schedule: cannot load the kernel library: {exc}") from exc
+    state = torch.empty((n_ops, n), dtype=torch.float64, device=fwd.device)
+    out = torch.empty((pp + 1, n), dtype=torch.float64, device=fwd.device)
+    rc = lib.fold_schedule(n_ops, pp, vp, n, ops.data_ptr(), fwd.data_ptr(), bwd.data_ptr(),
+                           p2p.data_ptr(), blocking.data_ptr(), state.data_ptr(),
+                           out.data_ptr(), _stream(fwd))
+    _raise_on("fold_schedule", rc)
+    LAUNCHES["fold_1f1b" if vp == 1 else "fold_interleaved"] += 1
+    return out

@@ -10,8 +10,9 @@ rms(plain)), rtol 2^-7 for bf16 outputs (the two may round one bf16 ulp
 apart; the plain versions round P and dS to bf16 where the wgmma kernels
 do); for fp32 outputs 1e-4 for the flash kernels (summation order
 only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
-The int8 quantize kernels and the batched scenario replay are held bit
-for bit (the replay also against the scalar engine).
+The int8 quantize kernels, the batched scenario replay and the search's
+pipeline-schedule fold are held bit for bit (the replay also against the
+scalar engine, the fold's scores against the numpy fold).
 """
 
 import math
@@ -54,7 +55,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                                  "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
                                  "q8_quantize": 0, "q8_quantize_cols_tma": 0,
-                                 "q8_quantize_both_tma": 0, "replay_solve": 0}
+                                 "q8_quantize_both_tma": 0, "replay_solve": 0,
+                                 "fold_1f1b": 0, "fold_interleaved": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -168,7 +170,7 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
     assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                       "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0,
                       "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
-                      "replay_solve": 0}
+                      "replay_solve": 0, "fold_1f1b": 0, "fold_interleaved": 0}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -827,3 +829,143 @@ def dataclasses_replace(obj, **kw):
     import dataclasses
 
     return dataclasses.replace(obj, **kw)
+
+
+# -- the search's pipeline-schedule folds ------------------------------------------
+
+
+def _fold_inputs(pp, vp, mbc, group, n, seed, device):
+    import numpy as np
+
+    from simumax_tpu_torch.search import batched as tb
+
+    gen = np.random.default_rng(seed)
+    fwd, bwd = gen.uniform(0.01, 5.0, (2, pp, vp, n))
+    p2p = gen.uniform(0.0, 2.0, n)
+    blocking = np.where(gen.random(n) < 0.5, 0.0, p2p)
+    ops = torch.from_numpy(tb.fold_table(pp, vp, mbc, group)).to(device)
+    return (ops, *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                   for a in (fwd, bwd, p2p, blocking)))
+
+
+FOLD_SHAPES = [(2, 1, 1, 0), (3, 1, 17, 0), (4, 1, 8, 0), (8, 1, 64, 0), (2, 2, 4, 2),
+               (3, 3, 12, 6), (4, 2, 16, 4), (4, 4, 64, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pp,vp,mbc,group", FOLD_SHAPES)
+@pytest.mark.parametrize("n", [1, 37, 1000])
+def test_fold_kernel_is_bit_identical_to_its_plain_version(card, pp, vp, mbc, group, n):
+    """Both schedules (vp 1 is 1F1B), a batch of 1 and ragged batches:
+    the kernel's ends and totals equal the plain version's on the card
+    and on the CPU bit for bit, in one launch under the schedule's key."""
+    args = _fold_inputs(pp, vp, mbc, group, n, pp * 100 + n, card)
+    K.reset_launch_counts()
+    got = K.fold_schedule(*args)
+    counts = K.launch_counts()
+    key = "fold_1f1b" if vp == 1 else "fold_interleaved"
+    assert counts[key] == 1 and sum(counts.values()) == 1
+    assert torch.equal(got, K.fold_schedule_plain(*args))
+    assert torch.equal(got.cpu(), K.fold_schedule(*(a.cpu() for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,margin", [
+    (dict(pp_size=2, pp_comm_async=False), 13.0),  # the larger splits take no fold
+    (dict(pp_size=2, tp_size=2, enable_recompute=True, recompute_granularity="full_block",
+          recompute_layer_num=1), None),
+    (dict(pp_size=2, interleaving_size=2), None)])
+def test_scorer_on_the_card_equals_the_numpy_fold(card, spec, margin):
+    """``BatchedScorer(backend="cuda")`` on the card against
+    ``backend="numpy"``, bit for bit, with candidates the cost margin
+    leaves unfolded (``inf``) between those the kernel folds."""
+    import numpy as np
+
+    from simumax_tpu_torch.core.config import (get_model_config, get_strategy_config,
+                                               get_system_config)
+    from simumax_tpu_torch.search import batched as tb
+
+    vpp = "interleaving_size" in spec
+    st = get_strategy_config("tp1_pp1_dp8_mbs1")
+    st.world_size = 16 if vpp else 8
+    for k, v in spec.items():
+        setattr(st, k, v)
+    st.__post_init__()
+    model = get_model_config("llama3-8b" if vpp else "llama2-tiny")
+    system = get_system_config("tpu_v5p_256" if vpp else "tpu_v5e_256")
+    if vpp:
+        mbc = list(range(st.vpp_group_size, 65, st.vpp_group_size))
+        mbs, nrc = [1] * len(mbc), None
+    else:
+        splits = [(1, 8), (2, 4), (4, 2), (8, 1)]
+        mbs, mbc = [splits[i % 4][0] for i in range(64)], [splits[i % 4][1] for i in range(64)]
+        nrc = [i % 3 for i in range(64)]
+    scores = {}
+    for backend in ("cuda", "numpy"):
+        kern = tb.BatchedScorer(model, system, backend=backend).kernel_for(st)
+        K.reset_launch_counts()
+        scores[backend] = kern.score(mbs, mbc, nrc=nrc, cost_margin=margin, backend=backend)
+        launched = K.launch_counts()["fold_interleaved" if vpp else "fold_1f1b"]
+        assert (launched > 0) == (backend == "cuda")
+    for key in ("iter_time", "mfu", "tgs", "max_peak_bytes", "fits_margin_bytes"):
+        assert np.array_equal(scores["cuda"][key], scores["numpy"][key]), key
+    if margin is not None:
+        finite = np.isfinite(scores["cuda"]["iter_time"])
+        assert finite.any() and not finite.all()
+
+
+def _mixtral_guided_sweep(**kw):
+    from simumax_tpu_torch.core.config import (get_model_config, get_strategy_config,
+                                               get_system_config)
+    from simumax_tpu_torch.search import search_best_parallel_strategy
+
+    base = get_strategy_config("ep4_pp2_dp4_mbs1")
+    base.world_size = 64
+    base.__post_init__()
+    return search_best_parallel_strategy(
+        base, get_model_config("mixtral-8x7b"), get_system_config("tpu_v5p_256"), 64, topk=5,
+        tp_list=(1, 2, 4, 8), pp_list=(1, 2, 4, 8), ep_list=(1, 2, 4, 8),
+        zero_list=(0, 1, 2, 3), engine="batched", search_mode="guided", **kw)
+
+
+class _RefusingFoldLibrary:
+    """A fold library whose every launch is refused (cudaErrorInvalidValue)."""
+
+    def fold_schedule(self, *args):
+        return 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["launch", "build"])
+def test_a_guided_sweep_whose_kernel_fails_raises(card, monkeypatch, tmp_path, how):
+    """The guided Mixtral sweep launches the fold kernel under the
+    defaults; a refused launch, or a fold source that does not compile,
+    must stop it with a KernelError instead of returning rows."""
+    from simumax_tpu_torch.search import executor as te
+
+    monkeypatch.setattr(te, "_SCORERS", {})
+    if how == "launch":
+        monkeypatch.setitem(K._libs, "fold", _RefusingFoldLibrary())
+    else:
+        broken = tmp_path / "fold_broken.cu"
+        broken.write_text('extern "C" int fold_schedule( { return 0; }\n')
+        monkeypatch.delitem(K._libs, "fold", raising=False)
+        monkeypatch.setitem(K._SOURCES, "fold", str(broken))
+    with pytest.raises(K.KernelError):
+        _mixtral_guided_sweep()
+
+
+@pytest.mark.cuda
+def test_guided_sweep_on_the_card_with_two_jobs_equals_the_serial_sweep(card):
+    """With CUDA initialised the sweep's pool spawns its workers; the
+    rows equal the serial sweep's as JSON, and the fold kernel ran."""
+    import json
+
+    from simumax_tpu_torch.search import executor as te
+
+    K.reset_launch_counts()
+    serial = _mixtral_guided_sweep()
+    assert K.launch_counts()["fold_1f1b"] > 0 and torch.cuda.is_initialized()
+    assert te._mp_context().get_start_method() == "spawn"
+    pooled = _mixtral_guided_sweep(jobs=2)
+    assert json.dumps(pooled, sort_keys=True) == json.dumps(serial, sort_keys=True)
