@@ -19,15 +19,18 @@ Phases, each fatal on failure:
    blocks per SM and (with ``cuobjdump``) their bf16 instruction mix;
 2. hold each flash kernel against its plain PyTorch version on the card,
    at the slice shapes (b=1, s=2048, h=16, d=128, bf16, causal) and at
-   four extra cases (non-causal; bf16 at d=64; bf16 at s = 320, which is
-   64 mod 128; fp32 with several kv blocks), and time the kernel (its own
-   device time under ``torch.profiler``), its plain version and the
-   PyTorch library call that computes the same function
-   (``scaled_dot_product_attention``: a yardstick the port never calls) in
-   three alternating turns, logging the library's spread and the SDPA
-   backend its kernel names show: the wgmma kernels at the slice shapes,
-   the fp32 kernels at the fp32 case (into ``build/chip_smoke.json``; no
-   main path runs them, so they have no row in the kernel line);
+   five extra cases (non-causal; bf16 at d=64; bf16 at s = 320, which is
+   64 mod 128; fp32 with 16 kv blocks at b=1, s=1024, h=2, d=64, where
+   the forward splits each q tile's keys across CTAs and merges them;
+   fp32 at the slice shapes, where it does not), and time the kernel (its
+   own device time under ``torch.profiler``; the fp32 forward's with its
+   merge kernel), its plain version and the PyTorch library call that
+   computes the same function (``scaled_dot_product_attention``: a
+   yardstick the port never calls) in three alternating turns, logging
+   the library's spread and the SDPA backend its kernel names show: the
+   wgmma kernels at the slice shapes, the fp32 kernels at both fp32 cases
+   (into ``build/chip_smoke.json``; no main path runs them, so they have
+   no row in the kernel line);
 3. hold the SwiGLU forward and backward kernels against their plain
    versions at the three shapes the manual-parallel step gives them
    (dense MLP, psum MoE, a2a MoE; bf16), in fp32 at one of them and at a
@@ -145,9 +148,12 @@ Phases, each fatal on failure:
        tp2 pp4 full-block; candidates/s of the numpy fold, the plain
        version on the card and the kernel; the kernel's device ms a call
        behind a spin kernel, the host ms a call in parts, the kernel by
-       group size from 256 to 65536, the ``auto`` crossover); every call
-       of the phase held bit for bit against the plain version on the
-       card.
+       group size from 256 to 65536, the ``auto`` crossover); each call
+       of the guided sweep and the VPP families with its levels and its
+       kernel ms a call and a level, and the largest of each beside its
+       latency floor (its levels' shared-memory round trips and an empty
+       launch); every call of the phase held bit for bit against the
+       plain version on the card.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -196,6 +202,7 @@ CASES = [
     ("bf16 d=64", dict(b=1, s=1024, h=4, d=64, dtype="bfloat16", causal=True)),
     ("bf16 s=320 (64 mod 128)", dict(b=2, s=320, h=3, d=128, dtype="bfloat16", causal=True)),
     ("fp32, 16 kv blocks", dict(b=1, s=1024, h=2, d=64, dtype="float32", causal=True)),
+    ("fp32 full width", dict(SLICE, dtype="float32")),
 ]
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SWIGLU = ("swiglu_fwd", "swiglu_bwd")
@@ -203,10 +210,12 @@ SWIGLU = ("swiglu_fwd", "swiglu_bwd")
 BF16_FUNCTIONS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
-#: ... and for fp32 inputs (CUDA cores); they are timed at FP32_CASE
-FP32_FUNCTIONS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+#: ... and for fp32 inputs (CUDA cores; the forward's merge kernel runs where
+#: it splits a q tile's keys); they are timed at FP32_CASES
+FP32_FUNCTIONS = {"flash_fwd": ("flash_fwd_fp32_kernel", "flash_fwd_merge_kernel"),
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
-FP32_CASE = "fp32, 16 kv blocks"
+FP32_CASES = ("fp32, 16 kv blocks", "fp32 full width")
 TURNS = 3  # alternating timing turns at the slice shapes
 Q8 = ("q8_amax", "q8_quantize", "q8_quantize_cols_tma", "q8_quantize_both_tma")
 #: quantize orders: (column_major, both) as the wrapper takes them, and the
@@ -358,9 +367,9 @@ def excess(got, ref, dtype, rtol=RTOL):
 
 def check_kernels(K, time_fn):
     """Phase 2: each kernel against its plain version, and timings at
-    the slice shapes (bf16, the wgmma kernels) and at ``FP32_CASE`` (the
-    fp32 kernels). Returns ({kernel: row of the kernel table}, {kernel:
-    the fp32 kernel's timings})."""
+    the slice shapes (bf16, the wgmma kernels) and at ``FP32_CASES`` (the
+    fp32 kernels). Returns ({kernel: row of the kernel table}, {case:
+    {kernel: the fp32 kernel's timings}})."""
     import torch
 
     table, fp32 = {}, {}
@@ -400,12 +409,12 @@ def check_kernels(K, time_fn):
                 worst = max(worst, err)
             if name == "slice":
                 table[kernel] = {"max_abs_err": worst}
-        if name == FP32_CASE:
-            fp32.update(time_slice(K, time_fn, c, q, k, v, do, lse_ref, delta, FP32_FUNCTIONS,
-                                   name))
-            for kernel in fp32:
-                fp32[kernel]["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
-                                                  for _o, a, b, _d in outputs[kernel])
+        if name in FP32_CASES:
+            fp32[name] = time_slice(K, time_fn, c, q, k, v, do, lse_ref, delta, FP32_FUNCTIONS,
+                                    name)
+            for kernel, rec in fp32[name].items():
+                rec["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                         for _o, a, b, _d in outputs[kernel])
         if name != "slice":
             continue
 
@@ -428,11 +437,13 @@ def prime_profiler(torch):
 
 
 def device_ms(torch, calls, functions, reps=10):
-    """Device ms per launch of each CUDA function of ``functions`` ({name:
-    function symbol}) under ``torch.profiler``, over ``reps`` rounds of
-    ``calls``, each of which launches each function once. The profiler
-    may miss the first launches of its window, so the mean is over the
-    launches it recorded (at least one, at most ``reps``)."""
+    """Device ms per call of each entry of ``functions`` ({name: function
+    symbol, or a tuple of the symbols one call launches}) under
+    ``torch.profiler``, over ``reps`` rounds of ``calls``, each of which
+    launches each function once. The profiler may miss the first launches
+    of its window, so each symbol's mean is over the launches it recorded
+    (at least one, at most ``reps``, of the first symbol; a later one may
+    launch in no call), and a call's time is the sum of its symbols'."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -443,13 +454,18 @@ def device_ms(torch, calls, functions, reps=10):
         torch.cuda.synchronize()
     events = prof.key_averages()
     out = {}
-    for name, symbol in functions.items():
-        hits = [e for e in events if f"::{symbol}<" in e.key and e.self_device_time_total > 0]
-        count = sum(e.count for e in hits)
-        if not 0 < count <= reps:
-            raise AssertionError(f"{symbol}: {count} launches under the profiler in {reps} "
-                                 f"rounds")
-        out[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
+    for name, symbols in functions.items():
+        symbols = (symbols,) if isinstance(symbols, str) else symbols
+        out[name] = 0.0
+        for i, symbol in enumerate(symbols):
+            hits = [e for e in events
+                    if f"::{symbol}<" in e.key and e.self_device_time_total > 0]
+            count = sum(e.count for e in hits)
+            if not (0 if i else 1) <= count <= reps:
+                raise AssertionError(f"{symbol}: {count} launches under the profiler in "
+                                     f"{reps} rounds")
+            if count:
+                out[name] += sum(e.self_device_time_total for e in hits) / count / 1e3
     return out
 
 
@@ -540,7 +556,9 @@ def time_slice(K, time_fn, c, q, k, v, do, lse, delta, functions=BF16_FUNCTIONS,
                    library_ms=median(lib["flash_fwd" if name == "flash_fwd" else "backward"]),
                    library_samples=lib["flash_fwd" if name == "flash_fwd" else "backward"])
         table[name] = rec
-        log(f"time {name} [{label}, {functions[name]}]: kernel {rec['ms']:.4f} ms "
+        fn_label = "+".join((functions[name],) if isinstance(functions[name], str)
+                            else functions[name])
+        log(f"time {name} [{label}, {fn_label}]: kernel {rec['ms']:.4f} ms "
             f"({', '.join(f'{x:.4f}' for x in s['ms'])}), {flops / rec['ms'] / 1e9:.1f} TFLOP/s, "
             f"{b_s * 1e3 / rec['ms']:.1%} of its bound {b_s * 1e3:.4f} ms ({b_by}: "
             f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.3f} MB); wrapper call {rec['call_ms']:.4f} "
@@ -1918,7 +1936,8 @@ def check_search(torch, K):
     # d. the kernel bench
     bench = BS.run_kernel_bench(BS.GRIDS["wide"], SEARCH_BENCH, "cuda")
     checked += bench.pop("calls")
-    per_call = ", ".join("n %d ops %d: %.4f" % (c["n"], c["n_ops"], c["ms"])
+    per_call = ", ".join("n %d ops %d levels %d: %.4f (%.3f us a level)"
+                         % (c["n"], c["n_ops"], c["levels"], c["ms"], c["us_per_level"])
                          for c in bench["kernel_calls"])
     host = ", ".join(f"{k} {v:.4f}" for k, v in bench["host_ms_per_call"].items())
     log(f"search (d) kernel bench ({SEARCH_BENCH} candidates, tp2 pp4 full-block): "
@@ -1943,6 +1962,20 @@ def check_search(torch, K):
         worst = max(worst, float((plain - out).abs().max()))
     log(f"search: {len(checked)} fold_schedule calls bit for bit their plain version on the card")
 
+    # each call of the guided sweep and the VPP families: levels, kernel ms
+    launch_ms = event_ms(torch, lambda: torch.cuda._sleep(0))
+    per_call = {}
+    for path, calls in (("guided", calls_a), ("vpp", calls_c)):
+        per_call[path] = []
+        for ops, fwd, bwd, p2p, blk, _out in calls:
+            levels = len(K.fold_level_spans(ops))
+            ms = event_ms(torch, lambda: K.fold_schedule(ops, fwd, bwd, p2p, blk))
+            per_call[path].append({"pp": fwd.shape[0], "vp": fwd.shape[1], "n": fwd.shape[2],
+                                   "n_ops": ops.shape[0], "levels": levels, "ms": ms,
+                                   "us_per_level": ms / levels * 1e3})
+        log(f"search {path} fold calls (pp/vp/n/ops: levels, kernel ms, us a level): "
+            + "; ".join(f"{c['pp']}/{c['vp']}/{c['n']}/{c['n_ops']}: {c['levels']}, "
+                        f"{c['ms']:.4f}, {c['us_per_level']:.3f}" for c in per_call[path]))
     rows = {}
     for name, calls in (("fold_1f1b", calls_a), ("fold_interleaved", calls_c)):
         ops, fwd, bwd, p2p, blk, out = max(calls, key=lambda c: (c[0].shape[0], c[1].shape[2]))
@@ -1950,20 +1983,26 @@ def check_search(torch, K):
         plain_ms = event_ms(torch, lambda: K.fold_schedule_plain(ops, fwd, bwd, p2p, blk),
                             reps=1)
         bound_s, bound_by = BS.fold_bound(ops, fwd, out)
+        levels = len(K.fold_level_spans(ops))
+        floor_ms = BS.fold_floor(levels, launch_ms)
         rows[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_s * 1e3, "bound_by": bound_by, "library_ms": None,
+                      "levels": levels, "us_per_level": ms / levels * 1e3,
+                      "floor_ms": floor_ms, "launch_ms": launch_ms,
                       "shape": {"pp": fwd.shape[0], "vp": fwd.shape[1], "n": fwd.shape[2],
                                 "n_ops": ops.shape[0]}}
         log(f"{name} at its path's largest call (pp {fwd.shape[0]}, vp {fwd.shape[1]}, "
-            f"n {fwd.shape[2]}, {ops.shape[0]} ops): kernel {ms:.4f} ms, plain version on the "
-            f"card {plain_ms:.3f} ms, bound {bound_s * 1e3:.6f} ms ({bound_by})")
+            f"n {fwd.shape[2]}, {ops.shape[0]} ops, {levels} levels): kernel {ms:.4f} ms "
+            f"({ms / levels * 1e3:.3f} us a level), plain version on the card {plain_ms:.3f} "
+            f"ms, bound {bound_s * 1e3:.6f} ms ({bound_by}), latency floor {floor_ms:.4f} ms "
+            f"({levels} shared-memory round trips and a launch of {launch_ms:.4f} ms)")
     record = {"guided": {"s": guided_s, "numpy_s": numpy_s, "grid_s": grid_s,
                          "launches": got_a, "groups": {str(k): v for k, v in groups.items()},
                          "counters": gdiag.counters, "top": guided},
               "dense": {"cells": len(cells), "cuda_s": dense_s, "numpy_s": dense_numpy_s,
                         "launches": got_b},
               "vpp": {"families": vpp, "launches": got_c}, "bench": bench,
-              "checked_calls": len(checked), "rows": rows}
+              "checked_calls": len(checked), "rows": rows, "per_call": per_call}
     return rows, record, launches
 
 

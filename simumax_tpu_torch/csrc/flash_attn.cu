@@ -33,13 +33,17 @@
 //     P); dq rounds dS to bf16 for dQ += dS.K; dk/dv round P^T and dS^T to
 //     bf16 for dV += P^T.dO and dK += dS^T.Q. Scores are Q.K^T (or K.Q^T)
 //     in fp32, times sm_scale; dQ and dK are scaled by sm_scale at the end.
-//   * fp32 (flash_*_kernel): tiles in padded fp32 shared memory, every
-//     product an fp32 FMA on the CUDA cores (each thread a 4x4 register
-//     tile of the score block), the TPU kernels' arithmetic: q scaled by
+//   * fp32 (flash_fwd_fp32_kernel with flash_fwd_merge_kernel,
+//     flash_bwd_dq_kernel, flash_bwd_dkv_kernel): every product an fp32
+//     FMA on the CUDA cores, the TPU kernels' arithmetic: q scaled by
 //     sm_scale before Q.K^T in fwd and dq, (q * sm_scale).K^T and
 //     dk += (dS^T.Q) * sm_scale in dkv. The fp32 rate (67 TFLOP/s) caps
 //     them; the tensor cores have no fp32 path without TF32 rounding,
-//     which the fp32 tolerances do not allow.
+//     which the fp32 tolerances do not allow. The forward streams K and V
+//     through a cp.async ring into a 4 x 8 register tile a thread and may
+//     split a q tile's keys across CTAs (its section says how); dq and
+//     dk/dv copy tiles with scalar loads into padded shared memory, each
+//     thread a 4 x 4 register tile of the score block.
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -83,127 +87,9 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one CTA per (q tile, b*h); thread (ty, tx) owns query rows
-// ty + 16 i (i < 4), key columns tx + 16 j of each score tile, and output
-// columns tx + 16 c (c < D / 16)
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int sq, int skv, float sm_scale, int causal) {
-  constexpr int LD = D + 1;  // padded rows: column reads hit 16 banks
-  constexpr int PLD = BK + 1;
-  constexpr int CJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * D;
-
-  const int nqb = sq / BQ;
-  const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const size_t bh = blockIdx.y;
-  const float* qb = q + bh * sq * D;
-  const float* kb = k + bh * skv * D;
-  const float* vb = v + bh * skv * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<D>(Qs, LD, qb, qi * BQ, sm_scale);
-  int nkb = skv / BK;
-  if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
-
-  float m[4], l[4], acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int kt = 0; kt < nkb; ++kt) {
-    __syncthreads();  // the previous tile is no longer read
-    load_tile<D>(Ks, LD, kb, kt * BK, 1.f);
-    load_tile<D>(Vs, D, vb, kt * BK, 1.f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = qi * BQ + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = kt * BK + tx + 16 * j;
-        if (causal && kpos > qpos) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-      const float corr = (m[i] == -INFINITY) ? 0.f : expf(m[i] - safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - safe);
-        rs += p;
-        Ps[(ty + 16 * i) * PLD + tx + 16 * j] = p;
-      }
-      rs = row_sum(rs);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ps[(ty + 16 * i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = qi * BQ + ty + 16 * i;
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + (bh * sq + row) * D;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
-    if (tx == 0) {
-      const float safe = (m[i] == -INFINITY) ? 0.f : m[i];
-      lse[bh * sq + row] = safe + logf(denom);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dq: one CTA per (q tile, b*h), streaming K/V tiles; the same thread map
-// as the forward
+// dq: one CTA per (q tile, b*h), streaming K/V tiles; thread (ty, tx) owns
+// query rows ty + 16 i (i < 4), key columns tx + 16 j of each score tile,
+// and dq columns tx + 16 c (c < D / 16)
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(NT)
@@ -980,6 +866,289 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 forward on the CUDA cores: flash_fwd_fp32_kernel, and
+// flash_fwd_merge_kernel, which joins the kv chunks of a split launch.
+//
+// What bounds it. Each score and each output term is an fp32 FMA (no
+// TF32), so the card's 67 TFLOP/s FP32 rate is the bound at every shape
+// the main paths give it; an SM issues 128 FMAs a clock and reads 128 bytes
+// of shared memory a clock, so a thread must do at least one FMA for each
+// byte it reads from shared memory, and every copy must overlap a product.
+//
+// The design. 128 threads, 16 row groups of 8 lanes: thread (ty, tx) =
+// (tid / 8, tid % 8) owns query rows 4 ty + i (i < 4) of the 64-row q tile,
+// score columns tx + 8 j (j < 8) of each 64-key tile and output columns
+// 4 tx + 32 c + e (c < D / 32, e < 4), so a row's scores and outputs lie
+// in the 8 lanes of one quarter-warp (shfl_xor 1, 2, 4) and a warp's rows
+// are its own.
+//   * Q.K^T: a 4 x 8 register tile of scores, fed by float4 reads along d
+//     of 4 q rows and 8 k rows: 12 16-byte reads for 128 FMAs. The K tile
+//     stays row-major, its rows padded to D + 4 floats, so the 8 rows a
+//     quarter-warp reads at one d sit in distinct banks; a d-major K tile
+//     needs as many reads for the same FMAs and cannot be filled by
+//     cp.async, which copies 16 contiguous bytes.
+//   * P.V: P is written to shared memory (rows padded to 65 floats, read
+//     back one broadcast float a row) and read by the warp that wrote it,
+//     after __syncwarp: no block barrier; V as float4, 4 rows x D / 8
+//     columns, so each k of P.V is 4 + D / 32 reads for 4 D / 8 FMAs.
+//   * K and V tiles come through a two-stage cp.async (16-byte) ring: tile
+//     t + 1 is copied while tile t is computed.
+//   * The grid fills the card at small b*h: where fewer than two q tiles
+//     an SM would run, each q tile's kv tiles are split into chunks of
+//     kv_chunk keys, a CTA each, which write their unnormalised (acc, m,
+//     l); flash_fwd_merge_kernel joins them with the online softmax's
+//     rescaling (torchref/kernels.py flash_fwd_plain(kv_chunk=...) is the
+//     same arithmetic). Causal q tiles run heaviest first.
+// The TPU kernel's arithmetic is kept: q * sm_scale before Q.K^T, the
+// top-left causal mask and block skip, a fully masked row 0 (its running
+// max -inf: exp terms 0), max(l, 1e-30).
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 128;  // threads of the fp32 forward: ty = tid / 8, tx = tid % 8
+
+template <int D>
+struct Fp32Fwd {
+  static constexpr int BKF = 64;     // keys a tile
+  static constexpr int TN = BKF / 8;  // score columns a thread
+  static constexpr int KLD = D + 4;   // K row stride: a quarter-warp's 8 rows in distinct banks
+  static constexpr int PLD = BKF + 1;
+  static constexpr int TC = D / 32;   // float4 output columns a thread
+  static constexpr int Q_F = BQ * D, K_F = BKF * KLD, V_F = BKF * D, P_F = BQ * PLD;
+  static constexpr size_t SMEM = sizeof(float) * (Q_F + 2 * K_F + 2 * V_F + P_F);
+};
+
+__device__ __forceinline__ float quarter_max(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float quarter_sum(float x) {
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// kv tiles of a q tile: all of them, or up to the causal diagonal
+template <int BKT>
+__device__ __forceinline__ int kv_tiles(int qi, int skv, int causal) {
+  const int nkb = skv / BKT;
+  return causal ? min((qi * BQ + BQ + BKT - 1) / BKT, nkb) : nkb;
+}
+
+// grid (n_q_tiles * n_chunks, b*h); chunk: kv tiles a CTA (all of them when
+// n_chunks == 1, which writes o and lse; else the CTA writes its partial
+// acc [n_chunks, bh, sq, D] and (m, l) [n_chunks, bh, sq])
+template <int D>
+__global__ void __launch_bounds__(FT)
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, float* __restrict__ part_acc,
+                      float2* __restrict__ part_ml, int sq, int skv, float sm_scale,
+                      int causal, int chunk, int n_chunks) {
+  using C = Fp32Fwd<D>;
+  constexpr int BKF = C::BKF;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;
+  float* Ks = Qs + C::Q_F;
+  float* Vs = Ks + 2 * C::K_F;
+  float* Ps = Vs + 2 * C::V_F;
+
+  const int nqb = sq / BQ;
+  const int qi = causal ? nqb - 1 - (int)blockIdx.x / n_chunks : (int)blockIdx.x / n_chunks;
+  const int ci = (int)blockIdx.x % n_chunks;
+  const size_t bh = blockIdx.y;
+  const int t0 = ci * chunk;
+  const int t1 = min(t0 + chunk, kv_tiles<BKF>(qi, skv, causal));
+  if (t0 >= t1) return;  // a chunk past the causal diagonal
+  const int tid = threadIdx.x, tx = tid % 8, ty = tid / 8;
+  const float* kb = k + bh * skv * D;
+  const float* vb = v + bh * skv * D;
+
+  auto issue = [&](int t, int stage) {
+    float* kd = Ks + stage * C::K_F;
+    float* vd = Vs + stage * C::V_F;
+    const size_t row0 = (size_t)t * BKF;
+    for (int c = tid; c < BKF * D / 4; c += FT) {
+      const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+      cp_async16(smem_u32(kd + r * C::KLD + c4), kb + (row0 + r) * D + c4);
+      cp_async16(smem_u32(vd + r * D + c4), vb + (row0 + r) * D + c4);
+    }
+    cp_async_commit();
+  };
+  issue(t0, 0);
+  {
+    const float* qb = q + (bh * sq + (size_t)qi * BQ) * D;
+    for (int c = tid; c < BQ * D / 4; c += FT) {
+      float4 x = reinterpret_cast<const float4*>(qb)[c];
+      x.x *= sm_scale;
+      x.y *= sm_scale;
+      x.z *= sm_scale;
+      x.w *= sm_scale;
+      reinterpret_cast<float4*>(Qs)[c] = x;
+    }
+  }
+
+  float m[4], l[4];
+  float4 acc[4][C::TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < C::TC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = t0; t < t1; ++t) {
+    const int stage = (t - t0) & 1;
+    if (t + 1 < t1) {
+      issue(t + 1, stage ^ 1);
+      cp_async_wait<1>();  // tile t has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + stage * C::K_F;
+    const float* Vt = Vs + stage * C::V_F;
+
+    float s[4][C::TN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < D; d += 4) {
+      float4 b[C::TN];
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j)
+        b[j] = *reinterpret_cast<const float4*>(Kt + (tx + 8 * j) * C::KLD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * D + d);
+#pragma unroll
+        for (int j = 0; j < C::TN; ++j) {
+          s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
+        }
+      }
+    }
+
+    const bool diagonal = causal && t * BKF + BKF - 1 > qi * BQ;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = qi * BQ + 4 * ty + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        if (diagonal && t * BKF + tx + 8 * j > qpos) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = quarter_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float safe = (m_new == -INFINITY) ? 0.f : m_new;
+      const float corr = (m[i] == -INFINITY) ? 0.f : expf(m[i] - safe);
+      float rs = 0.f;
+      float* prow = Ps + (4 * ty + i) * C::PLD;
+#pragma unroll
+      for (int j = 0; j < C::TN; ++j) {
+        const float p = expf(s[i][j] - safe);
+        rs += p;
+        prow[tx + 8 * j] = p;
+      }
+      rs = quarter_sum(rs);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < C::TC; ++c) {
+        acc[i][c].x *= corr;
+        acc[i][c].y *= corr;
+        acc[i][c].z *= corr;
+        acc[i][c].w *= corr;
+      }
+    }
+    __syncwarp();  // the warp's P rows are written; only this warp reads them
+
+#pragma unroll 4
+    for (int kk = 0; kk < BKF; ++kk) {
+      float4 vv[C::TC];
+#pragma unroll
+      for (int c = 0; c < C::TC; ++c)
+        vv[c] = *reinterpret_cast<const float4*>(Vt + kk * D + 4 * tx + 32 * c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = Ps[(4 * ty + i) * C::PLD + kk];
+#pragma unroll
+        for (int c = 0; c < C::TC; ++c) {
+          acc[i][c].x = fmaf(p, vv[c].x, acc[i][c].x);
+          acc[i][c].y = fmaf(p, vv[c].y, acc[i][c].y);
+          acc[i][c].z = fmaf(p, vv[c].z, acc[i][c].z);
+          acc[i][c].w = fmaf(p, vv[c].w, acc[i][c].w);
+        }
+      }
+    }
+    __syncthreads();  // stage is refilled, and P rewritten, in the next tile
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const size_t row = bh * sq + (size_t)qi * BQ + 4 * ty + i;
+    if (n_chunks == 1) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      float* orow = o + row * D + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < C::TC; ++c)
+        *reinterpret_cast<float4*>(orow + 32 * c) =
+            make_float4(acc[i][c].x / denom, acc[i][c].y / denom, acc[i][c].z / denom,
+                        acc[i][c].w / denom);
+      if (tx == 0) lse[row] = ((m[i] == -INFINITY) ? 0.f : m[i]) + logf(denom);
+    } else {
+      const size_t prow = (size_t)ci * gridDim.y * sq + row;
+      float* arow = part_acc + prow * D + 4 * tx;
+#pragma unroll
+      for (int c = 0; c < C::TC; ++c) *reinterpret_cast<float4*>(arow + 32 * c) = acc[i][c];
+      if (tx == 0) part_ml[prow] = make_float2(m[i], l[i]);
+    }
+  }
+}
+
+// one thread a float4 of the output: the chunks' partial (acc, m, l) of its
+// row joined as the online softmax joins tiles
+template <int D>
+__global__ void flash_fwd_merge_kernel(const float* __restrict__ part_acc,
+                                       const float2* __restrict__ part_ml,
+                                       float* __restrict__ o, float* __restrict__ lse, int bh,
+                                       int sq, int skv, int causal, int chunk) {
+  constexpr int C4 = D / 4;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t rows = (size_t)bh * sq;
+  if (idx >= rows * C4) return;
+  const size_t row = idx / C4;
+  const int c4 = (int)(idx % C4) * 4;
+  const int nch = (kv_tiles<Fp32Fwd<D>::BKF>((int)(row % sq) / BQ, skv, causal) + chunk - 1) /
+                  chunk;
+  float m = -INFINITY;
+  for (int c = 0; c < nch; ++c) m = fmaxf(m, part_ml[c * rows + row].x);
+  const float safe = (m == -INFINITY) ? 0.f : m;
+  float l = 0.f;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nch; ++c) {
+    const float2 ml = part_ml[c * rows + row];
+    const float w = (ml.x == -INFINITY) ? 0.f : expf(ml.x - safe);
+    const float4 x = *reinterpret_cast<const float4*>(part_acc + (c * rows + row) * D + c4);
+    l += w * ml.y;
+    a.x += w * x.x;
+    a.y += w * x.y;
+    a.z += w * x.z;
+    a.w += w * x.w;
+  }
+  const float denom = fmaxf(l, 1e-30f);
+  *reinterpret_cast<float4*>(o + row * D + c4) =
+      make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+  if (c4 == 0) lse[row] = safe + logf(denom);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1001,21 +1170,39 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                int sq, int skv, float scale, int causal, cudaStream_t st) {
+                int sq, int skv, float scale, int causal, int kv_chunk, float* part,
+                cudaStream_t st) {
+  if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
     const size_t smem = 1024 + 5 * BQ * D * sizeof(T);
     cudaError_t e = prepare(flash_fwd_wgmma_kernel<D>, smem);
     if (e != cudaSuccess) return e;
     flash_fwd_wgmma_kernel<D><<<dim3(sq / BQ, bh), WG, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, scale, causal);
   } else {
-    const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-    cudaError_t e = prepare(flash_fwd_kernel<D>, smem);
+    using C = Fp32Fwd<D>;
+    const int nkb = skv / C::BKF;
+    int chunk = nkb, n_chunks = 1;
+    if (kv_chunk > 0 && kv_chunk / C::BKF < nkb) {
+      if (kv_chunk % C::BKF || !part || (uintptr_t)part % 16) return cudaErrorInvalidValue;
+      chunk = kv_chunk / C::BKF;
+      n_chunks = (nkb + chunk - 1) / chunk;
+    }
+    cudaError_t e = prepare(flash_fwd_fp32_kernel<D>, C::SMEM);
     if (e != cudaSuccess) return e;
-    flash_fwd_kernel<D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, sq, skv, scale,
-        causal);
+    float* part_acc = n_chunks > 1 ? part : nullptr;
+    float2* part_ml =
+        n_chunks > 1 ? (float2*)(part + (size_t)n_chunks * bh * sq * D) : nullptr;
+    flash_fwd_fp32_kernel<D><<<dim3((sq / BQ) * n_chunks, bh), FT, C::SMEM, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, part_acc, part_ml,
+        sq, skv, scale, causal, chunk, n_chunks);
+    if (n_chunks > 1) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      const size_t threads = (size_t)bh * sq * (D / 4);
+      flash_fwd_merge_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+          part_acc, part_ml, (float*)o, lse, bh, sq, skv, causal, chunk);
+    }
   }
   return cudaGetLastError();
 }
@@ -1081,12 +1268,17 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
   if (dtype == 1 && d == 128) return (int)CALL(__nv_bfloat16, 128);       \
   return (int)cudaErrorInvalidValue;
 
+// kv_chunk (fp32 only): keys a CTA of the forward takes, a multiple of 64,
+// with part float32 scratch [n_chunks * bh * sq * (D + 2)] for the chunks'
+// partial sums (n_chunks = ceil(skv / kv_chunk)); 0 takes every kv tile of
+// a q tile in one CTA.
 extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int skv, float scale, int causal,
-                         void* stream) {
+                         int kv_chunk, void* part, void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
-#define CALL(T, D) \
-  fwd<T, D>(q, k, v, o, (float*)lse, bh, sq, skv, scale, causal, (cudaStream_t)stream)
+#define CALL(T, D)                                                                      \
+  fwd<T, D>(q, k, v, o, (float*)lse, bh, sq, skv, scale, causal, kv_chunk, (float*)part, \
+            (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }

@@ -31,7 +31,8 @@ programs whose leading axis is the candidate batch:
   — the replays' values are order-independent max/+ algebra, so one
   pass over a cached topological order reproduces them bit-for-bit),
   optionally folded on the card by a CUDA kernel (``fold_schedule``,
-  ``csrc/fold.cu``, one thread a candidate, float64) that is
+  ``csrc/fold.cu``, one warp a candidate walking the op table a
+  dependence level at a time, float64) that is
   **bit-identical** to the numpy fold — the numpy path remains the
   no-card fallback.
 
@@ -60,7 +61,8 @@ changed and these differences:
   JAX package's jitted ``lax.scan`` folds (``_jit_fold_1f1b``,
   ``_jit_fold_interleaved``) become one host function,
   :func:`_fold_members_cuda`, around the CUDA kernel, with each shape's
-  op table (:func:`fold_table`) kept on the card; ``JIT_GROUP_MIN`` and
+  op table (:func:`fold_table`) sorted by dependence level
+  (:func:`fold_levels`) and kept on the card; ``JIT_GROUP_MIN`` and
   ``FOLD_BATCH_JIT_MIN`` keep their values and names;
 * :class:`BatchedScorer` takes ``device`` (``"cuda"`` by default):
   ``"cuda"`` and ``"auto"`` launch the kernel and refuse to start without
@@ -454,9 +456,9 @@ def fold_interleaved(pp: int, vp: int, mbc: int, group: int,
 #: and the numpy fold (bit-identical — tested) stays faster
 JIT_GROUP_MIN = 256
 
-#: a shape's op table, kept per (pp, vp, mbc, group, device): shapes
-#: recur across a sweep's layouts, so each table serves every family
-#: sharing it
+#: a shape's level-ordered op table, kept per (pp, vp, mbc, group,
+#: device): shapes recur across a sweep's layouts, so each table serves
+#: every family sharing it
 _FOLD_TABLES: Dict[tuple, object] = {}
 _FOLD_TABLES_MAX = 256
 
@@ -526,15 +528,52 @@ def fold_table(pp: int, vp: int, mbc: int, group: int):
     return ops
 
 
+#: bits of a level-ordered table's first field below the offset of the
+#: next level (stage 0-7, blocking 8, backward 9)
+LEVEL_SHIFT = 10
+
+
+def fold_levels(ops):
+    """Sort a :func:`fold_table` by dependence level: an op's level is
+    one more than that of the previous op on its stage and one more than
+    that of the op that wrote the slot it waits on (0 with neither), so
+    the ops of one level lie on distinct stages and depend only on ops
+    of earlier levels. Returns ``(table, offsets)``: the ops in level
+    order, by stage within a level, each record's first field also
+    holding the offset of the next level's first op from bit
+    :data:`LEVEL_SHIFT` up (what the kernel walks by), and the level
+    offsets, int64 ``[levels + 1]``, ``offsets[-1] == len(ops)``."""
+    ops = np.asarray(ops, dtype=np.int32)
+    n_ops = len(ops)
+    if n_ops >= 1 << (31 - LEVEL_SHIFT):
+        raise ValueError(f"fold_levels: {n_ops} ops; a level-ordered table takes fewer than "
+                         f"{1 << (31 - LEVEL_SHIFT)}")
+    level = np.empty(n_ops, dtype=np.int64)
+    stage_level: Dict[int, int] = {}
+    slot_level: Dict[int, int] = {}
+    for k, (code, _row, slot, dep) in enumerate(ops.tolist()):
+        s = code & 0xFF
+        lev = stage_level.get(s, -1) + 1
+        if dep >= 0:
+            lev = max(lev, slot_level[dep] + 1)
+        level[k] = stage_level[s] = slot_level[slot] = lev
+    order = np.lexsort((ops[:, 0] & 0xFF, level))
+    offsets = np.searchsorted(level[order], np.arange(int(level.max(initial=-1)) + 2))
+    table = ops[order].copy()
+    table[:, 0] |= (offsets[level[order] + 1] << LEVEL_SHIFT).astype(np.int32)
+    return table, offsets
+
+
 def _fold_ops(pp: int, vp: int, mbc: int, group: int, device: str):
-    """:func:`fold_table` as a tensor on ``device``, built and copied
-    once per shape."""
+    """:func:`fold_levels` of :func:`fold_table` as a tensor on
+    ``device``, built and copied once per shape (its records carry the
+    level offsets the kernel walks by)."""
     import torch
 
     key = (pp, vp, mbc, group if vp > 1 else 0, device)
     got = _FOLD_TABLES.get(key)
     if got is None:
-        got = torch.from_numpy(fold_table(pp, vp, mbc, group)).to(device)
+        got = torch.from_numpy(fold_levels(fold_table(pp, vp, mbc, group))[0]).to(device)
         if len(_FOLD_TABLES) >= _FOLD_TABLES_MAX:
             _FOLD_TABLES.clear()
         _FOLD_TABLES[key] = got

@@ -229,6 +229,19 @@ def fold_bound(ops, fwd, out):
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes")
 
 
+#: the latency floor of one fold level: a shared-memory round trip, about
+#: 30 clocks on Hopper (published microbenchmarks), at the H100 SXM's
+#: 1.98 GHz boost clock (data sheet)
+SMEM_ROUND_TRIP_S = 30 / 1.98e9
+
+
+def fold_floor(levels, launch_ms):
+    """Latency floor of one fold call (ms): its levels, each at least one
+    shared-memory round trip, and one launch (``launch_ms``, an empty
+    kernel's time measured as the fold's is)."""
+    return levels * SMEM_ROUND_TRIP_S * 1e3 + launch_ms
+
+
 def host_split(members, pp, vp, mbc, group):
     """Host ms of one kernel fold of a shape group, in its parts:
     packing the buffer, the copy to the card, the launch (the wrapper's
@@ -351,14 +364,19 @@ def run_kernel_bench(spec, n_cands, device="cuda"):
     finally:
         B._fold_members_cuda = orig
     per_call = []
+    launch_ms = event_ms(lambda: torch.cuda._sleep(0))
     for ops, fwd, bwd, p2p, blk, res in calls:
         ms = event_ms(lambda: K.fold_schedule(ops, fwd, bwd, p2p, blk))
         plain_ms = event_ms(
             lambda: K.fold_schedule_plain(ops, fwd, bwd, p2p, blk), reps=1)
         bound_s, bound_by = fold_bound(ops, fwd, res)
-        per_call.append({"n": fwd.shape[2], "n_ops": ops.shape[0],
-                         "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_s * 1e3, "bound_by": bound_by})
+        levels = len(K.fold_level_spans(ops))
+        per_call.append({"n": fwd.shape[2], "n_ops": ops.shape[0], "levels": levels,
+                         "ms": ms, "us_per_level": ms / levels * 1e3,
+                         "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
+                         "bound_by": bound_by,
+                         "floor_ms": fold_floor(levels, launch_ms)})
+    out["launch_ms"] = launch_ms
     splits = [host_split(*g) for g in groups]
     out["kernel_calls"] = per_call
     out["kernel_ms_per_call"] = statistics.mean(c["ms"] for c in per_call)

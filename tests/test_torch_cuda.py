@@ -94,6 +94,33 @@ def test_bf16_wgmma_kernels_match_plain_versions(card, b, sq, skv, h, d, causal)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,causal", [
+    (1, 1024, 1024, 2, 64, True),    # split: 8 chunks of 128 keys, most above the diagonal
+    (2, 320, 320, 3, 128, True),     # split into a ragged last chunk
+    (1, 512, 512, 2, 128, False),    # split, non-causal
+    (4, 2048, 2048, 16, 64, True),   # one CTA a q tile
+    (1, 128, 320, 2, 64, True),      # more keys than queries
+    (2, 320, 128, 2, 128, True),     # more queries than keys
+])
+def test_fp32_forward_matches_its_plain_versions(card, b, sq, skv, h, d, causal):
+    """The fp32 forward (split over kv chunks and merged where
+    ``flash_fwd_kv_chunk`` says) against the whole-row plain version and
+    the plain version of the same split, 1e-4 * (|plain| + rms(plain)),
+    in one counted launch."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(b, sq, h, d, generator=gen, device=card)
+    k, v = (torch.randn(b, skv, h, d, generator=gen, device=card) for _ in range(2))
+    K.reset_launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal)
+    assert K.launch_counts()["flash_fwd"] == 1
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    chunk = K.flash_fwd_kv_chunk(b * h, sq, skv, sms) or None
+    for ref_o, ref_lse in (K.flash_fwd_plain(q, k, v, causal),
+                           K.flash_fwd_plain(q, k, v, causal, chunk)):
+        assert _within(o, ref_o, 1e-4) and _within(lse, ref_lse, 1e-4)
+
+
+@pytest.mark.cuda
 def test_bf16_kernels_take_a_tensor_that_is_not_16_byte_aligned(card):
     # one head: the [b*h, s, d] operand is a view of the input, which here
     # starts 2 bytes into its storage; the wrapper copies it to an aligned one
@@ -843,7 +870,7 @@ def _fold_inputs(pp, vp, mbc, group, n, seed, device):
     fwd, bwd = gen.uniform(0.01, 5.0, (2, pp, vp, n))
     p2p = gen.uniform(0.0, 2.0, n)
     blocking = np.where(gen.random(n) < 0.5, 0.0, p2p)
-    ops = torch.from_numpy(tb.fold_table(pp, vp, mbc, group)).to(device)
+    ops = torch.from_numpy(tb.fold_levels(tb.fold_table(pp, vp, mbc, group))[0]).to(device)
     return (ops, *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                    for a in (fwd, bwd, p2p, blocking)))
 
@@ -867,6 +894,34 @@ def test_fold_kernel_is_bit_identical_to_its_plain_version(card, pp, vp, mbc, gr
     assert counts[key] == 1 and sum(counts.values()) == 1
     assert torch.equal(got, K.fold_schedule_plain(*args))
     assert torch.equal(got.cpu(), K.fold_schedule(*(a.cpu() for a in args)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pp,vp,mbc,n", [(2, 1, 2048, 3), (4, 1, 2048, 5), (2, 1, 8192, 2)])
+def test_fold_kernel_walks_tables_that_do_not_fit_in_shared_memory(card, pp, vp, mbc, n):
+    """8192 ops: one candidate a block, table and state in shared memory;
+    16384: the state in shared memory, the table read from global memory;
+    32768: both in global memory. Bit for bit the plain version."""
+    args = _fold_inputs(pp, vp, mbc, 0, n, mbc + n, card)
+    layout = K.fold_layout(args[0].shape[0], pp, vp)
+    assert layout[1:3] == {8192: (True, True), 16384: (False, True),
+                           32768: (False, False)}[args[0].shape[0]]
+    assert torch.equal(K.fold_schedule(*args), K.fold_schedule_plain(*args))
+
+
+@pytest.mark.cuda
+def test_fold_kernel_refuses_a_table_out_of_level_order(card):
+    """The flat table (no level offsets) gives NaN ends and totals on the
+    card; its plain version raises."""
+    from simumax_tpu_torch.search import batched as tb
+
+    ops, *rest = _fold_inputs(4, 1, 8, 0, 7, 5, card)
+    flat = torch.from_numpy(tb.fold_table(4, 1, 8, 0)).to(card)
+    out = K.fold_schedule(flat, *rest)
+    assert out.shape == (5, 7) and bool(out.isnan().all())
+    assert not bool(K.fold_schedule(ops, *rest).isnan().any())
+    with pytest.raises(K.KernelError, match="level-ordered"):
+        K.fold_schedule_plain(flat, *rest)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
 """The pipeline-schedule folds of the port's batched search
-(``search/batched.py``: ``fold_table``, ``_fold_members_cuda``) and the
+(``search/batched.py``: ``fold_table``, ``fold_levels``,
+``_fold_members_cuda``) and the
 plain version of their CUDA kernel (``torchref/kernels.py``:
 ``fold_schedule_plain``), held against the JAX package's numpy folds.
 
@@ -59,7 +60,7 @@ def _fuzz_cases(seed, count):
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])
 def test_plain_fold_is_the_numpy_fold_bit_for_bit(seed):
     for pp, vp, mbc, group, fwd, bwd, p2p, asy in _fuzz_cases(seed, 12):
-        ops = torch.from_numpy(tb.fold_table(pp, vp, mbc, group))
+        ops = torch.from_numpy(tb.fold_levels(tb.fold_table(pp, vp, mbc, group))[0])
         assert ops.shape == (2 * pp * vp * mbc, 4)
         out = K.fold_schedule(
             ops, torch.tensor(fwd, dtype=torch.float64),
