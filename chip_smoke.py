@@ -11,7 +11,8 @@ Phases, each fatal on failure:
    with nvcc, one process per source, all started together; log the
    replay kernel's registers and spills; log each flash kernel's
    registers and spills (ptxas), failing unless there are six wgmma
-   kernels (bf16 forward, dq and dk/dv at d = 64 and 128) with no spill,
+   kernels (bf16 forward, dq and dk/dv at d = 64 and 128) and four fp32
+   backward kernels (dq and dk/dv at d = 64 and 128) with no spill,
    and, where ``cuobjdump`` sits beside nvcc, the count of HGMMA (wgmma)
    instructions in each; bf16 flash runs on the tensor cores, fp32 on
    the CUDA cores; log each q8 kernel's registers, shared memory and
@@ -21,10 +22,13 @@ Phases, each fatal on failure:
    at the slice shapes (b=1, s=2048, h=16, d=128, bf16, causal) and at
    five extra cases (non-causal; bf16 at d=64; bf16 at s = 320, which is
    64 mod 128; fp32 with 16 kv blocks at b=1, s=1024, h=2, d=64, where
-   the forward splits each q tile's keys across CTAs and merges them;
-   fp32 at the slice shapes, where it does not), and time the kernel (its
-   own device time under ``torch.profiler``; the fp32 forward's with its
-   merge kernel), its plain version and the PyTorch library call that
+   the forward splits each q tile's keys across CTAs and merges them, and
+   dq and dk/dv split their streamed tiles and sum the chunks; fp32 at the
+   slice shapes, where none of them does: the profiler must show each
+   fp32 merge or sum kernel in the case that splits and not in the other),
+   and time the kernel (its own device time under ``torch.profiler``; an
+   fp32 kernel's with its merge or sum kernel), its plain version and the
+   PyTorch library call that
    computes the same function (``scaled_dot_product_attention``: a
    yardstick the port never calls) in three alternating turns, logging
    the library's spread and the SDPA backend its kernel names show: the
@@ -64,7 +68,9 @@ Phases, each fatal on failure:
    with the same tables and a provenance stamp naming this card;
 7. time the flash row's ``sdp_bwd`` key and the ``permute_fwd`` class
    from CUDA graphs, plain and with a thread that spins in Python and
-   holds the interpreter lock: the two readings must agree within 5%;
+   holds the interpreter lock, in alternating turns after a warm-up
+   reading, each logged with the SM clock sampled while it ran: the
+   medians of the plain and the slowed readings must agree within 5%;
    the eager readings (back-to-back Python calls) are logged beside them;
 8. run one full-width step of the MoE row's model under
    ``torch.cuda.set_sync_debug_mode("error")``: its dispatch has static
@@ -210,12 +216,16 @@ SWIGLU = ("swiglu_fwd", "swiglu_bwd")
 BF16_FUNCTIONS = {"flash_fwd": "flash_fwd_wgmma_kernel",
                   "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
                   "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel"}
-#: ... and for fp32 inputs (CUDA cores; the forward's merge kernel runs where
-#: it splits a q tile's keys); they are timed at FP32_CASES
+#: ... and for fp32 inputs (CUDA cores; the second kernel of each, the
+#: merge or the sum of the chunks, runs where it splits its streamed
+#: tiles); they are timed at FP32_CASES
 FP32_FUNCTIONS = {"flash_fwd": ("flash_fwd_fp32_kernel", "flash_fwd_merge_kernel"),
-                  "flash_bwd_dq": "flash_bwd_dq_kernel",
-                  "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+                  "flash_bwd_dq": ("flash_bwd_dq_fp32_kernel", "flash_bwd_dq_sum_kernel"),
+                  "flash_bwd_dkv": ("flash_bwd_dkv_fp32_kernel", "flash_bwd_dkv_sum_kernel")}
 FP32_CASES = ("fp32, 16 kv blocks", "fp32 full width")
+#: phase 7's graph readings in turns: plain (False) and with the host
+#: slowed (True), each side compared by its median
+HOST_SLOWED_TURNS = (False, True, True, False, False, True)
 TURNS = 3  # alternating timing turns at the slice shapes
 Q8 = ("q8_amax", "q8_quantize", "q8_quantize_cols_tma", "q8_quantize_both_tma")
 #: quantize orders: (column_major, both) as the wrapper takes them, and the
@@ -412,6 +422,7 @@ def check_kernels(K, time_fn):
         if name in FP32_CASES:
             fp32[name] = time_slice(K, time_fn, c, q, k, v, do, lse_ref, delta, FP32_FUNCTIONS,
                                     name)
+            check_fp32_split(K, torch, c, name, fp32[name])
             for kernel, rec in fp32[name].items():
                 rec["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
                                          for _o, a, b, _d in outputs[kernel])
@@ -424,16 +435,47 @@ def check_kernels(K, time_fn):
     return table, fp32
 
 
+def check_fp32_split(K, torch, c, name, timings):
+    """The fp32 kernels split where ``kernels.flash_fwd_kv_chunk`` and
+    ``flash_bwd_chunks`` say, and only there: the profiler saw each
+    second kernel (the merge, the sums of the chunks) in the timed calls
+    if and only if its kernel splits at this case."""
+    bh, s = c["b"] * c["h"], c["s"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dq_chunk, dkv_chunk = K.flash_bwd_chunks(bh, s, s, sms)
+    chunks = {"flash_fwd": K.flash_fwd_kv_chunk(bh, s, s, sms), "flash_bwd_dq": dq_chunk,
+              "flash_bwd_dkv": dkv_chunk}
+    for kernel, chunk in chunks.items():
+        second = FP32_FUNCTIONS[kernel][1]
+        seen = timings[kernel]["launches"][second]
+        log(f"fp32 split [{name}] {kernel}: {chunk or 'no'} streamed rows a CTA; {second} "
+            f"seen {seen} times under the profiler")
+        if bool(seen) != bool(chunk):
+            raise AssertionError(f"{kernel} [{name}]: chunk {chunk}, but {second} ran {seen} "
+                                 f"times")
+        timings[kernel]["chunk"] = chunk
+
+
 def median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1] + xs[len(xs) // 2]) / 2
 
 
 def prime_profiler(torch):
-    """A first launch for a fresh profiler window, which may miss the first
-    launches it sees: a one-element fill (~2 µs), then wait for it."""
-    torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
+    """The lead of a profiler window, which may drop the launches it sees
+    first (the first dozens in a process that has run for minutes):
+    ``tools/attribute_step.open_window``'s fills, pause and spin kernel.
+    None of them has the name of a kernel that is read from the window."""
+    from simumax_tpu_torch.tools.attribute_step import open_window
+
+    open_window()
+
+
+def close_profiler():
+    """Wait for the card and pause before a profiler window closes."""
+    from simumax_tpu_torch.tools.attribute_step import close_window
+
+    close_window()
 
 
 def device_ms(torch, calls, functions, reps=10):
@@ -443,7 +485,8 @@ def device_ms(torch, calls, functions, reps=10):
     launches each function once. The profiler may miss the first launches
     of its window, so each symbol's mean is over the launches it recorded
     (at least one, at most ``reps``, of the first symbol; a later one may
-    launch in no call), and a call's time is the sum of its symbols'."""
+    launch in no call), and a call's time is the sum of its symbols'.
+    Returns ({name: ms}, {symbol: launches the profiler recorded})."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -451,22 +494,22 @@ def device_ms(torch, calls, functions, reps=10):
         for _ in range(reps):
             for call in calls:
                 call()
-        torch.cuda.synchronize()
+        close_profiler()
     events = prof.key_averages()
-    out = {}
+    out, launches = {}, {}
     for name, symbols in functions.items():
         symbols = (symbols,) if isinstance(symbols, str) else symbols
         out[name] = 0.0
         for i, symbol in enumerate(symbols):
             hits = [e for e in events
                     if f"::{symbol}<" in e.key and e.self_device_time_total > 0]
-            count = sum(e.count for e in hits)
+            count = launches[symbol] = sum(e.count for e in hits)
             if not (0 if i else 1) <= count <= reps:
                 raise AssertionError(f"{symbol}: {count} launches under the profiler in "
                                      f"{reps} rounds")
             if count:
                 out[name] += sum(e.self_device_time_total for e in hits) / count / 1e3
-    return out
+    return out, launches
 
 
 def sdpa_backend(names):
@@ -517,15 +560,20 @@ def time_slice(K, time_fn, c, q, k, v, do, lse, delta, functions=BF16_FUNCTIONS,
 
     samples = {name: {"ms": [], "call_ms": [], "plain_ms": []} for name in calls}
     lib = {name: [] for name in library}
+    seen = {}
     for _turn in range(TURNS):
-        dev = device_ms(torch, [fn for fn, _ in calls.values()],
-                        {name: functions[name] for name in calls})
+        dev, launches = device_ms(torch, [fn for fn, _ in calls.values()],
+                                  {name: functions[name] for name in calls})
+        for symbol, n in launches.items():
+            seen[symbol] = seen.get(symbol, 0) + n
         for name, (fn, plain) in calls.items():
             samples[name]["ms"].append(dev[name])
             samples[name]["call_ms"].append(ms(fn))
             samples[name]["plain_ms"].append(ms(plain))
         for name, fn in library.items():
             lib[name].append(ms(fn, grad=name == "backward"))
+
+    from simumax_tpu_torch.tools import attribute_step as A
 
     names, lib_device = set(), {}
     for name, fn in library.items():
@@ -534,10 +582,12 @@ def time_slice(K, time_fn, c, q, k, v, do, lse, delta, functions=BF16_FUNCTIONS,
             prime_profiler(torch)
             for _ in range(10):
                 fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        names.update(e.key for e in events)
-        lib_device[name] = sum(e.self_device_time_total for e in events) / 10 / 1e3
+            close_profiler()
+        # the device events after the lead's mark: the library's own
+        slug = "".join(ch if ch.isalnum() else "_" for ch in f"sdpa_{name}_{label}")
+        events = A.device_events(A.after_mark(A._trace(prof, slug)))
+        names.update(e["name"] for e in events)
+        lib_device[name] = sum(e.get("dur", 0.0) for e in events) / 10 / 1e3
     backend = sdpa_backend(sorted(names))
     log(f"scaled_dot_product_attention backend: {backend}; kernels: "
         + "; ".join(n[:100] for n in sorted(names)))
@@ -551,7 +601,9 @@ def time_slice(K, time_fn, c, q, k, v, do, lse, delta, functions=BF16_FUNCTIONS,
         b_s, b_by, flops, nbytes = bound(name, c)
         rec = {key: median(xs) for key, xs in s.items()}
         lib_key = "flash_fwd" if name == "flash_fwd" else "backward"
+        symbols = (functions[name],) if isinstance(functions[name], str) else functions[name]
         rec.update(bound_ms=b_s * 1e3, bound_by=b_by, samples=s, sdpa_backend=backend,
+                   launches={symbol: seen[symbol] for symbol in symbols},
                    library_device_ms=lib_device[lib_key],
                    library_ms=median(lib["flash_fwd" if name == "flash_fwd" else "backward"]),
                    library_samples=lib["flash_fwd" if name == "flash_fwd" else "backward"])
@@ -581,7 +633,8 @@ def kernel_label(mangled):
 
 def check_build(K, reports):
     """Phase 1 checks: each flash kernel's registers and spills from the
-    ptxas report (fails on a spill in a wgmma kernel) and, where cuobjdump
+    ptxas report (fails on a spill in a wgmma kernel or an fp32 backward
+    kernel) and, where cuobjdump
     sits beside nvcc, its count of HGMMA (wgmma) instructions (fails on a
     wgmma kernel with none). Returns {kernel: record}."""
     info, label = {}, None
@@ -607,7 +660,12 @@ def check_build(K, reports):
     wgmma = [label for label in info if "wgmma" in label]
     if len(wgmma) != 6:
         raise AssertionError(f"expected 6 wgmma kernels in the ptxas report, found {wgmma}")
-    spilled = [label for label in wgmma if info[label].get("spill_store_bytes") != 0
+    fp32_bwd = [label for label in info if label.startswith("flash_bwd_")
+                and "_fp32_kernel" in label]
+    if len(fp32_bwd) != 4:
+        raise AssertionError(f"expected 4 fp32 backward kernels in the ptxas report, found "
+                             f"{fp32_bwd}")
+    spilled = [label for label in wgmma + fp32_bwd if info[label].get("spill_store_bytes") != 0
                or info[label].get("spill_load_bytes") != 0]
     if spilled:
         raise AssertionError(f"ptxas reports spills (or no spill line) for {spilled}")
@@ -1274,10 +1332,15 @@ def check_bandwidth_classes(torch, bench, autocal):
 
 def check_host_slowed(torch, bench, autocal, time_fn):
     """Phase 7: the flash row's ``sdp_bwd`` key and the ``permute_fwd``
-    class, each timed from CUDA graphs and then eagerly, each once plain
-    and once with ``timing.host_slowed``. The graph readings must agree
-    within 5%; the eager ones are logged beside them. Returns {name:
-    {reading: efficiency}}."""
+    class, each timed from CUDA graphs, first once to warm the key up
+    (logged only), then in :data:`HOST_SLOWED_TURNS`, plain and with
+    ``timing.host_slowed``, each reading logged with the SM clock sampled
+    while it ran; the medians of the plain and the slowed readings must
+    agree within 5%. A single reading of each side is not enough: the
+    plain ``sdp_bwd`` reading, the difference of two timed graphs, once
+    came out 18% low on its own. The eager readings (once plain, once
+    slowed) are logged beside them. Returns {name: {reading: efficiency,
+    "turns": [each graph turn with its clock]}}."""
     from simumax_tpu_torch.calibration.timing import host_slowed
     from simumax_tpu_torch.core.config import get_system_config
 
@@ -1287,23 +1350,42 @@ def check_host_slowed(torch, bench, autocal, time_fn):
     gbps = system.accelerator.bandwidth["permute_fwd"].gbps
     reads = {"sdp_bwd": lambda: autocal.calibrate_key("sdp_bwd", key, system),
              "permute_fwd": lambda: autocal.measure_bandwidth_efficiency("permute_fwd", gbps)}
+
+    def reading(read, slowed, eager=False):
+        timing_ctx = eager_timing(autocal, time_fn) if eager else contextlib.nullcontext()
+        with timing_ctx, host_slowed() if slowed else contextlib.nullcontext(), \
+                autocal.sm_clock_samples() as clock:
+            value = read()
+        return value, autocal.clock_summary(clock)
+
+    def clock_text(clock):
+        if not clock.get("samples"):
+            return "SM clock not sampled"
+        return (f"SM clock {clock['median_mhz']:.0f} MHz ({clock['min_mhz']}-"
+                f"{clock['max_mhz']}, {clock['samples']} samples)")
+
     out = {}
     for name, read in reads.items():
-        rec = {}
-        for timer in ("graph", "eager"):
-            for slowed in (False, True):
-                timing_ctx = eager_timing(autocal, time_fn) if timer == "eager" \
-                    else contextlib.nullcontext()
-                with timing_ctx, host_slowed() if slowed else contextlib.nullcontext():
-                    rec[timer + (" slowed" if slowed else "")] = read()
+        label = name + (f" [{key}]" if name == "sdp_bwd" else "")
+        warm, clock = reading(read, False)
+        log(f"host-slowed check {label}: warm-up {warm:.4f}, {clock_text(clock)}")
+        turns, sides = [], {False: [], True: []}
+        for slowed in HOST_SLOWED_TURNS:
+            value, clock = reading(read, slowed)
+            sides[slowed].append(value)
+            turns.append({"slowed": slowed, "reading": value, "sm_clock": clock})
+            log(f"  turn {len(turns)} ({'host slowed' if slowed else 'plain'}): {value:.4f}, "
+                f"{clock_text(clock)}")
+        rec = {"warm_up": warm, "graph": median(sides[False]), "graph slowed": median(sides[True]),
+               "eager": reading(read, False, eager=True)[0],
+               "eager slowed": reading(read, True, eager=True)[0], "turns": turns}
         gap = abs(rec["graph slowed"] - rec["graph"]) / rec["graph"]
-        log(f"host-slowed check {name}{' [' + key + ']' if name == 'sdp_bwd' else ''}: "
-            f"graph {rec['graph']:.4f}, with the host slowed {rec['graph slowed']:.4f} "
-            f"({gap:.2%} apart, limit 5%); eager {rec['eager']:.4f}, with the host slowed "
-            f"{rec['eager slowed']:.4f}")
+        log(f"host-slowed check {label}: graph median {rec['graph']:.4f}, with the host slowed "
+            f"{rec['graph slowed']:.4f} ({gap:.2%} apart, limit 5%); eager {rec['eager']:.4f}, "
+            f"with the host slowed {rec['eager slowed']:.4f}")
         if not gap <= 0.05:
-            raise AssertionError(f"{name}: the graph timer read {gap:.2%} apart with the host "
-                                 f"slowed")
+            raise AssertionError(f"{name}: the graph timer's medians read {gap:.2%} apart with "
+                                 f"the host slowed")
         out[name] = rec
     return out
 

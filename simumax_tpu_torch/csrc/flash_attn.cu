@@ -34,16 +34,16 @@
 //     bf16 for dV += P^T.dO and dK += dS^T.Q. Scores are Q.K^T (or K.Q^T)
 //     in fp32, times sm_scale; dQ and dK are scaled by sm_scale at the end.
 //   * fp32 (flash_fwd_fp32_kernel with flash_fwd_merge_kernel,
-//     flash_bwd_dq_kernel, flash_bwd_dkv_kernel): every product an fp32
-//     FMA on the CUDA cores, the TPU kernels' arithmetic: q scaled by
-//     sm_scale before Q.K^T in fwd and dq, (q * sm_scale).K^T and
-//     dk += (dS^T.Q) * sm_scale in dkv. The fp32 rate (67 TFLOP/s) caps
-//     them; the tensor cores have no fp32 path without TF32 rounding,
-//     which the fp32 tolerances do not allow. The forward streams K and V
-//     through a cp.async ring into a 4 x 8 register tile a thread and may
-//     split a q tile's keys across CTAs (its section says how); dq and
-//     dk/dv copy tiles with scalar loads into padded shared memory, each
-//     thread a 4 x 4 register tile of the score block.
+//     flash_bwd_dq_fp32_kernel with flash_bwd_dq_sum_kernel,
+//     flash_bwd_dkv_fp32_kernel with flash_bwd_dkv_sum_kernel): every
+//     product an fp32 FMA on the CUDA cores, the TPU kernels' arithmetic:
+//     q scaled by sm_scale before Q.K^T (or K.Q^T), dq and dk scaled by
+//     sm_scale at the end. The fp32 rate (67 TFLOP/s) caps them; the
+//     tensor cores have no fp32 path without TF32 rounding, which the fp32
+//     tolerances do not allow. Each streams its other operands through a
+//     cp.async ring into register tiles fed by float4 reads, and may split
+//     the streamed dimension across CTAs, joined by its second kernel
+//     (their sections say how).
 //
 // Each extern "C" entry point launches on the given stream, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -61,276 +61,6 @@ namespace {
 
 constexpr int BQ = 64;   // query rows per tile
 constexpr int BK = 64;   // key rows per tile
-constexpr int NT = 256;  // threads: a 16 x 16 grid, ty = tid / 16, tx = tid % 16
-
-// rows [row0, row0 + 64) of a [s, D] matrix -> shared tile with row stride
-// ld, each value multiplied by scale (1.0f leaves it exact)
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int row0,
-                                          float scale) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, c = idx % D;
-    dst[r * ld + c] = src[(size_t)(row0 + r) * D + c] * scale;
-  }
-}
-
-// sum / max over the 16 threads that share a row (one half of a warp)
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// dq: one CTA per (q tile, b*h), streaming K/V tiles; thread (ty, tx) owns
-// query rows ty + 16 i (i < 4), key columns tx + 16 j of each score tile,
-// and dq columns tx + 16 c (c < D / 16)
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int skv, float sm_scale, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int PLD = BK + 1;
-  constexpr int CJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Gs = Qs + BQ * LD;  // dO
-  float* Ks = Gs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ss = Vs + BK * LD;  // dS
-
-  const int nqb = sq / BQ;
-  const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const size_t bh = blockIdx.y;
-  const float* kb = k + bh * skv * D;
-  const float* vb = v + bh * skv * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<D>(Qs, LD, q + bh * sq * D, qi * BQ, sm_scale);
-  load_tile<D>(Gs, LD, dout + bh * sq * D, qi * BQ, 1.f);
-  float lse_r[4], dl_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = bh * sq + qi * BQ + ty + 16 * i;
-    lse_r[i] = lse[row];
-    dl_r[i] = delta[row];
-  }
-  int nkb = skv / BK;
-  if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
-
-  float acc[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) acc[i][c] = 0.f;
-
-  for (int kt = 0; kt < nkb; ++kt) {
-    __syncthreads();
-    load_tile<D>(Ks, LD, kb, kt * BK, 1.f);
-    load_tile<D>(Vs, LD, vb, kt * BK, 1.f);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Qs[(ty + 16 * i) * LD + d];
-        g[i] = Gs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = Ks[(tx + 16 * j) * LD + d];
-        w[j] = Vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = qi * BQ + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = kt * BK + tx + 16 * j;
-        const float sv = (causal && kpos > qpos) ? -INFINITY : s[i][j];
-        const float p = expf(sv - lse_r[i]);
-        Ss[(ty + 16 * i) * PLD + tx + 16 * j] = p * (dp[i][j] - dl_r[i]);
-      }
-    }
-    __syncthreads();
-
-    for (int kk = 0; kk < BK; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = Ss[(ty + 16 * i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const float kv = Ks[kk * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kv, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = dq + (bh * sq + qi * BQ + ty + 16 * i) * D;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) row[tx + 16 * c] = acc[i][c] * sm_scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// dk/dv: one CTA per (kv tile, b*h), streaming Q/dO tiles from the causal
-// start block; thread (ty, tx) owns key rows ty + 16 i, query columns
-// tx + 16 j of each (transposed) score tile, and output columns tx + 16 c
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
-                     float sm_scale, int causal) {
-  constexpr int LD = D + 1;
-  constexpr int PLD = BQ + 1;
-  constexpr int CJ = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;   // raw q (unscaled)
-  float* Gs = Qs + BQ * LD;   // dO
-  float* Pt = Gs + BQ * LD;   // P^T  [key row][query row]
-  float* St = Pt + BK * PLD;  // dS^T
-  float* Ls = St + BK * PLD;  // lse of the query tile
-  float* Dl = Ls + BQ;        // delta of the query tile
-
-  const int ki = blockIdx.x;  // causal: low ki walks the most q tiles
-  const size_t bh = blockIdx.y;
-  const float* qb = q + bh * sq * D;
-  const float* gb = dout + bh * sq * D;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-
-  load_tile<D>(Ks, LD, k + bh * skv * D, ki * BK, 1.f);
-  load_tile<D>(Vs, LD, v + bh * skv * D, ki * BK, 1.f);
-  const int nqb = sq / BQ;
-  const int start = causal ? (ki * BK) / BQ : 0;
-
-  float gk[4][CJ], gv[4][CJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) gk[i][c] = gv[i][c] = 0.f;
-
-  for (int qt = start; qt < nqb; ++qt) {
-    __syncthreads();
-    load_tile<D>(Qs, LD, qb, qt * BQ, 1.f);
-    load_tile<D>(Gs, LD, gb, qt * BQ, 1.f);
-    if (threadIdx.x < BQ) {
-      const size_t row = bh * sq + qt * BQ + threadIdx.x;
-      Ls[threadIdx.x] = lse[row];
-      Dl[threadIdx.x] = delta[row];
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float kc[4], vc[4], qr[4], gr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kc[i] = Ks[(ty + 16 * i) * LD + d];
-        vc[i] = Vs[(ty + 16 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qr[j] = Qs[(tx + 16 * j) * LD + d] * sm_scale;
-        gr[j] = Gs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qr[j], kc[i], s[i][j]);
-          dp[i][j] = fmaf(gr[j], vc[i], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kpos = ki * BK + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const int qpos = qt * BQ + r;
-        const float sv = (causal && kpos > qpos) ? -INFINITY : s[i][j];
-        const float p = expf(sv - Ls[r]);
-        Pt[(ty + 16 * i) * PLD + r] = p;
-        St[(ty + 16 * i) * PLD + r] = p * (dp[i][j] - Dl[r]);
-      }
-    }
-    __syncthreads();
-
-    float tk[4][CJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) tk[i][c] = 0.f;
-    for (int r = 0; r < BQ; ++r) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = Pt[(ty + 16 * i) * PLD + r];
-        ds[i] = St[(ty + 16 * i) * PLD + r];
-      }
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) {
-        const float g = Gs[r * LD + tx + 16 * c];
-        const float qq = Qs[r * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          gv[i][c] = fmaf(p[i], g, gv[i][c]);
-          tk[i][c] = fmaf(ds[i], qq, tk[i][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < CJ; ++c) gk[i][c] = fmaf(tk[i][c], sm_scale, gk[i][c]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t row = bh * skv + ki * BK + ty + 16 * i;
-#pragma unroll
-    for (int c = 0; c < CJ; ++c) {
-      dk[row * D + tx + 16 * c] = gk[i][c];
-      dv[row * D + tx + 16 * c] = gv[i][c];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 kernels on the tensor cores: wgmma products fed by cp.async
@@ -1149,6 +879,411 @@ __global__ void flash_fwd_merge_kernel(const float* __restrict__ part_acc,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 backward on the CUDA cores: flash_bwd_dq_fp32_kernel and
+// flash_bwd_dkv_fp32_kernel, and flash_bwd_dq_sum_kernel and
+// flash_bwd_dkv_sum_kernel, which add up the chunks of a split launch.
+//
+// What bounds them. As the fp32 forward: every product is an fp32 FMA, so
+// the card's 67 TFLOP/s FP32 rate; dq does three products of a 64 x 64 x D
+// tile pair (Q.K^T, dO.V^T, dS.K), dk/dv four (K.Q^T, V.dO^T, P^T.dO,
+// dS^T.Q). An SM issues 128 FMAs a clock and reads 128 bytes of shared
+// memory a clock, so each operand is read as a float4 that feeds several
+// FMAs, and every copy overlaps a product.
+//
+// The design. 256 threads, 8 warps, one CTA an SM (215 KB of shared memory
+// at D = 128): 8 warps hide the latency that one warp a scheduler leaves
+// bare. Each CTA owns a 64-row output tile (q rows in dq, key rows in
+// dk/dv); warp w owns rows 8 w .. 8 w + 7 of it, and thread (w, h, x),
+// h = lane / 16, x = lane % 16, rows r0 + i = 8 w + 4 h + i (i < 4).
+//   * Scores: a 4 x 4 register tile of S and one of dP a thread, columns
+//     x + 16 j (j < 4) of the streamed 64-row tile, fed by float4 reads
+//     along d: for each 4 d, 4 float4 of the thread's own rows (two
+//     addresses a warp) and 4 of the streamed rows (16 addresses) a
+//     product, for 64 FMAs. Every [64, D] tile is row-major with rows
+//     padded to D + 4 floats: the two row groups of a warp and the 16 rows
+//     of a half-warp fall in distinct banks, and cp.async lands a streamed
+//     tile as it is.
+//   * Outputs: in registers, 4 rows x D / 16 columns a thread (4 x + 64 c,
+//     float4s), one accumulator in dq and two in dk/dv (64 registers at
+//     D = 128). P and dS go to shared-memory rows that only their own warp
+//     reads, after __syncwarp, and are read back as float4 along the
+//     streamed dimension beside float4 rows of the streamed tile: for each
+//     4 streamed rows, 4 + 4 D / 64 reads for 16 D / 16 FMAs.
+//   * The streamed tiles (K and V in dq; Q, dO, lse and delta in dk/dv)
+//     come through a two-stage cp.async ring: tile t + 1 is copied while
+//     tile t is computed.
+//   * The grid fills the card at small b*h: where the output tiles give
+//     fewer than two CTAs an SM (torchref/kernels.py flash_bwd_chunks), the
+//     streamed tiles are split into chunks of `chunk` tiles, aligned to
+//     multiples of it, a CTA each. A CTA writes its partial fp32 sum and the
+//     sum kernel adds a row's chunks in chunk order: no atomics, so the
+//     result does not depend on the order the CTAs ran in. Causal chunks
+//     wholly past the diagonal (dq) or before the start block (dk/dv) read
+//     and write nothing. Causal tiles run heaviest first.
+// The TPU kernels' arithmetic is kept: q * sm_scale before Q.K^T (dq scales
+// its Q tile once; dk/dv scales each q float4 of K.Q^T as it reads it, and
+// keeps q unscaled for dS^T.Q), the top-left causal mask and its block
+// skip, the dk/dv start block (ki * BK) / BQ, dq and dk times sm_scale at
+// the end.
+// ---------------------------------------------------------------------------
+
+constexpr int BT = 256;  // threads of the fp32 backward kernels
+static_assert(BQ == BK, "the fp32 backward pairs 64-row tiles of both operands");
+
+template <int D>
+struct Fp32Bwd {
+  static constexpr int LD = D + 4;    // row stride of a [64, D] tile
+  static constexpr int PLD = BK + 4;  // row stride of the P / dS tile
+  static constexpr int TC = D / 64;   // float4 output columns a thread, a row
+  static constexpr int T_F = BQ * LD, P_F = BQ * PLD;
+  // six [64, D] tiles (dq: Q, dO, two stages of K and V; dk/dv: K, V, two
+  // stages of Q and dO), P / dS, two stages of a q tile's lse and delta
+  static constexpr size_t SMEM = sizeof(float) * (6 * T_F + P_F + 4 * BQ);
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  return fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y, fmaf(a.x, b.x, acc))));
+}
+__device__ __forceinline__ float elem(float4 a, int e) {
+  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
+}
+
+// rows [0, 64) of a row-major [*, D] matrix -> a tile with rows padded to
+// D + 4, 16 bytes a copy (not committed)
+template <int D>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int it = 0; it < BQ * C4 / BT; ++it) {
+    const int c = it * BT + tid, r = c / C4, c4 = (c % C4) * 4;
+    cp_async16(smem_u32(dst + r * (D + 4) + c4), src + (size_t)r * D + c4);
+  }
+}
+
+// the thread's two score tiles over a pair of tiles: s[i][j] = A_i . B_j
+// (each B float4 times `scale` first where SCALE_B) and dp[i][j] = G_i . W_j,
+// A and G at the thread's row r0, B and W at its column x; row i is i rows
+// on, column j 16 rows on
+template <int D, bool SCALE_B>
+__device__ __forceinline__ void score_tiles(const float* A, const float* B, const float* G,
+                                            const float* W, float scale, float (&s)[4][4],
+                                            float (&dp)[4][4]) {
+  constexpr int LD = D + 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[i] = ld4(A + i * LD + d);
+      g[i] = ld4(G + i * LD + d);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float4 b = ld4(B + 16 * j * LD + d);
+      const float4 w = ld4(W + 16 * j * LD + d);
+      if (SCALE_B) b = make_float4(b.x * scale, b.y * scale, b.z * scale, b.w * scale);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = dot4(a[i], b, s[i][j]);
+        dp[i][j] = dot4(g[i], w, dp[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][c] += sum_k P[i][k] X[k][64 c .. 64 c + 3] over the 64 rows k of a
+// streamed tile: P at the thread's row of the P / dS tile, X at its float4
+// column 4 x of the [64, D] tile
+template <int D>
+__device__ __forceinline__ void accumulate(float4 (&acc)[4][D / 64], const float* P,
+                                           const float* X) {
+  constexpr int LD = D + 4, PLD = BK + 4;
+#pragma unroll 2
+  for (int k = 0; k < BK; k += 4) {
+    float4 p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = ld4(P + i * PLD + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        const float4 xv = ld4(X + (k + e) * LD + 64 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = elem(p[i], e);
+          acc[i][c].x = fmaf(pe, xv.x, acc[i][c].x);
+          acc[i][c].y = fmaf(pe, xv.y, acc[i][c].y);
+          acc[i][c].z = fmaf(pe, xv.z, acc[i][c].z);
+          acc[i][c].w = fmaf(pe, xv.w, acc[i][c].w);
+        }
+      }
+  }
+}
+
+// the thread's 4 x D / 16 share of an output tile, times `scale`, at the
+// rows `row` .. row + 3 of a [*, D] matrix
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, size_t row, int x,
+                                           const float4 (&acc)[4][D / 64], float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c)
+      *reinterpret_cast<float4*>(out + (row + i) * D + 4 * x + 64 * c) =
+          make_float4(acc[i][c].x * scale, acc[i][c].y * scale, acc[i][c].z * scale,
+                      acc[i][c].w * scale);
+}
+
+// grid (n_q_tiles * n_chunks, b*h); chunk: kv tiles a CTA (all of them when
+// n_chunks == 1, which writes dq; else the CTA writes its partial sum, not
+// yet times sm_scale, into part [n_chunks, bh, sq, D])
+template <int D>
+__global__ void __launch_bounds__(BT)
+flash_bwd_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dq, float* __restrict__ part, int sq, int skv,
+                         float sm_scale, int causal, int chunk, int n_chunks) {
+  using C = Fp32Bwd<D>;
+  extern __shared__ __align__(16) float bsm[];
+  float* Qs = bsm;              // q * sm_scale
+  float* Gs = Qs + C::T_F;      // dO
+  float* Ks = Gs + C::T_F;      // two stages
+  float* Vs = Ks + 2 * C::T_F;  // two stages
+  float* Ss = Vs + 2 * C::T_F;  // dS, each warp's own rows
+
+  const int nqb = sq / BQ;
+  const int qi = causal ? nqb - 1 - (int)blockIdx.x / n_chunks : (int)blockIdx.x / n_chunks;
+  const int ci = (int)blockIdx.x % n_chunks;
+  const size_t bh = blockIdx.y;
+  const int t0 = ci * chunk;
+  const int t1 = min(t0 + chunk, kv_tiles<BK>(qi, skv, causal));
+  if (t0 >= t1) return;  // a chunk past the causal diagonal
+  const int tid = threadIdx.x, x = tid % 16, r0 = 8 * (tid / 32) + 4 * (tid / 16 % 2);
+  const float* kb = k + bh * skv * D;
+  const float* vb = v + bh * skv * D;
+  const size_t qrow = bh * sq + (size_t)qi * BQ;
+
+  auto issue = [&](int t, int stage) {
+    cp_rows<D>(Ks + stage * C::T_F, kb + (size_t)t * BK * D, tid);
+    cp_rows<D>(Vs + stage * C::T_F, vb + (size_t)t * BK * D, tid);
+    cp_async_commit();
+  };
+  cp_rows<D>(Gs, dout + qrow * D, tid);  // lands with tile t0
+  issue(t0, 0);
+  for (int c = tid; c < BQ * D / 4; c += BT) {
+    const int r = c / (D / 4), c4 = (c % (D / 4)) * 4;
+    const float4 a = ld4(q + (qrow + r) * D + c4);
+    *reinterpret_cast<float4*>(Qs + r * C::LD + c4) =
+        make_float4(a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale);
+  }
+  float lse_r[4], dl_r[4];
+  float4 acc[4][C::TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lse_r[i] = lse[qrow + r0 + i];
+    dl_r[i] = delta[qrow + r0 + i];
+#pragma unroll
+    for (int c = 0; c < C::TC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = t0; t < t1; ++t) {
+    const int stage = (t - t0) & 1;
+    if (t + 1 < t1) {
+      issue(t + 1, stage ^ 1);
+      cp_async_wait<1>();  // tile t has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + stage * C::T_F;
+    const float* Vt = Vs + stage * C::T_F;
+
+    float s[4][4], dp[4][4];
+    score_tiles<D, false>(Qs + r0 * C::LD, Kt + x * C::LD, Gs + r0 * C::LD, Vt + x * C::LD,
+                          1.f, s, dp);
+    const bool diagonal = causal && t * BK + BK - 1 > qi * BQ;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = qi * BQ + r0 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float sv = (diagonal && t * BK + x + 16 * j > qpos) ? -INFINITY : s[i][j];
+        const float p = expf(sv - lse_r[i]);
+        Ss[(r0 + i) * C::PLD + x + 16 * j] = p * (dp[i][j] - dl_r[i]);
+      }
+    }
+    __syncwarp();  // the warp's dS rows are written; only this warp reads them
+    accumulate<D>(acc, Ss + r0 * C::PLD, Kt + 4 * x);
+    __syncthreads();  // the stage is refilled, and dS rewritten, in the next tile
+  }
+
+  if (n_chunks == 1)
+    store_rows<D>(dq, qrow + r0, x, acc, sm_scale);
+  else
+    store_rows<D>(part, (size_t)ci * gridDim.y * sq + qrow + r0, x, acc, 1.f);
+}
+
+// one thread a float4 of dq: the chunks' partial sums of its row, added in
+// chunk order, times sm_scale
+template <int D>
+__global__ void flash_bwd_dq_sum_kernel(const float* __restrict__ part, float* __restrict__ dq,
+                                        int bh, int sq, int skv, float sm_scale, int causal,
+                                        int chunk) {
+  constexpr int C4 = D / 4;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t rows = (size_t)bh * sq;
+  if (idx >= rows * C4) return;
+  const size_t row = idx / C4;
+  const int c4 = (int)(idx % C4) * 4;
+  const int nch = (kv_tiles<BK>((int)(row % sq) / BQ, skv, causal) + chunk - 1) / chunk;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nch; ++c) {
+    const float4 x = ld4(part + (c * rows + row) * D + c4);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+  }
+  *reinterpret_cast<float4*>(dq + row * D + c4) =
+      make_float4(a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale);
+}
+
+// grid (n_kv_tiles * n_chunks, b*h); chunk: q tiles a CTA (all of them when
+// n_chunks == 1, which writes dk and dv; else the CTA writes its partial
+// sums, dk's not yet times sm_scale, into part [2, n_chunks, bh, skv, D])
+template <int D>
+__global__ void __launch_bounds__(BT)
+flash_bwd_dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          float* __restrict__ part, int sq, int skv, float sm_scale, int causal,
+                          int chunk, int n_chunks) {
+  using C = Fp32Bwd<D>;
+  extern __shared__ __align__(16) float bsm[];
+  float* Ks = bsm;
+  float* Vs = Ks + C::T_F;
+  float* Qs = Vs + C::T_F;      // two stages, q unscaled
+  float* Gs = Qs + 2 * C::T_F;  // two stages of dO
+  float* Ps = Gs + 2 * C::T_F;  // P^T, then dS^T, each warp's own rows
+  float* Ls = Ps + C::P_F;      // two stages of [lse, delta] of the q tile
+
+  const int nqb = sq / BQ;
+  const int ki = (int)blockIdx.x / n_chunks;  // causal: low ki walks the most q tiles
+  const int ci = (int)blockIdx.x % n_chunks;
+  const size_t bh = blockIdx.y;
+  const int t0 = max(ci * chunk, causal ? (ki * BK) / BQ : 0);
+  const int t1 = min(ci * chunk + chunk, nqb);
+  if (t0 >= t1 && n_chunks > 1) return;  // a chunk before the causal start block
+  const int tid = threadIdx.x, x = tid % 16, r0 = 8 * (tid / 32) + 4 * (tid / 16 % 2);
+  const float* qb = q + bh * sq * D;
+  const float* gb = dout + bh * sq * D;
+  const size_t krow = bh * skv + (size_t)ki * BK;
+
+  auto issue = [&](int t, int stage) {
+    cp_rows<D>(Qs + stage * C::T_F, qb + (size_t)t * BQ * D, tid);
+    cp_rows<D>(Gs + stage * C::T_F, gb + (size_t)t * BQ * D, tid);
+    if (tid < BQ / 2)  // 16 copies of lse, 16 of delta
+      cp_async16(smem_u32(Ls + stage * 2 * BQ + 4 * tid),
+                 (tid < BQ / 4 ? lse : delta) + bh * sq + t * BQ + 4 * (tid % (BQ / 4)));
+    cp_async_commit();
+  };
+  if (t0 < t1) {
+    cp_rows<D>(Ks, k + krow * D, tid);  // land with tile t0
+    cp_rows<D>(Vs, v + krow * D, tid);
+    issue(t0, 0);
+  }
+  float4 gk[4][C::TC], gv[4][C::TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < C::TC; ++c) gk[i][c] = gv[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int t = t0; t < t1; ++t) {
+    const int stage = (t - t0) & 1;
+    if (t + 1 < t1) {
+      issue(t + 1, stage ^ 1);
+      cp_async_wait<1>();  // tile t has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Qt = Qs + stage * C::T_F;
+    const float* Gt = Gs + stage * C::T_F;
+    const float* Lt = Ls + stage * 2 * BQ;  // lse, then delta
+
+    float s[4][4], dp[4][4];
+    score_tiles<D, true>(Ks + r0 * C::LD, Qt + x * C::LD, Vs + r0 * C::LD, Gt + x * C::LD,
+                         sm_scale, s, dp);
+    const bool diagonal = causal && ki * BK + BK - 1 > t * BQ;
+    float* prow = Ps + r0 * C::PLD + x;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kpos = ki * BK + r0 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = x + 16 * j;
+        const float sv = (diagonal && kpos > t * BQ + col) ? -INFINITY : s[i][j];
+        const float p = expf(sv - Lt[col]);
+        dp[i][j] = p * (dp[i][j] - Lt[BQ + col]);
+        prow[i * C::PLD + 16 * j] = p;
+      }
+    }
+    __syncwarp();  // the warp's P^T rows are written; only this warp reads them
+    accumulate<D>(gv, Ps + r0 * C::PLD, Gt + 4 * x);
+    __syncwarp();  // ... and read: dS^T takes their place
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) prow[i * C::PLD + 16 * j] = dp[i][j];
+    __syncwarp();
+    accumulate<D>(gk, Ps + r0 * C::PLD, Qt + 4 * x);
+    __syncthreads();  // the stage is refilled, and P^T rewritten, in the next tile
+  }
+
+  if (n_chunks == 1) {
+    store_rows<D>(dk, krow + r0, x, gk, sm_scale);
+    store_rows<D>(dv, krow + r0, x, gv, 1.f);
+  } else {
+    const size_t prow0 = (size_t)ci * gridDim.y * skv + krow + r0;
+    store_rows<D>(part, prow0, x, gk, 1.f);
+    store_rows<D>(part, (size_t)n_chunks * gridDim.y * skv + prow0, x, gv, 1.f);
+  }
+}
+
+// one thread a float4 of dk and of dv: the chunks' partial sums of its row,
+// from the chunk of the causal start block on, added in chunk order; dk
+// times sm_scale
+template <int D>
+__global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ part, float* __restrict__ dk,
+                                         float* __restrict__ dv, int bh, int sq, int skv,
+                                         float sm_scale, int causal, int chunk) {
+  constexpr int C4 = D / 4;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t rows = (size_t)bh * skv;
+  if (idx >= rows * C4) return;
+  const size_t row = idx / C4;
+  const int c4 = (int)(idx % C4) * 4;
+  const int nqb = sq / BQ, n_chunks = (nqb + chunk - 1) / chunk;
+  const int start = causal ? ((int)(row % skv) / BK * BK) / BQ : 0;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+  for (int c = start < nqb ? start / chunk : n_chunks; c < n_chunks; ++c) {
+    const float4 x = ld4(part + (c * rows + row) * D + c4);
+    const float4 y = ld4(part + ((n_chunks + c) * rows + row) * D + c4);
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+    b = make_float4(b.x + y.x, b.y + y.y, b.z + y.z, b.w + y.w);
+  }
+  *reinterpret_cast<float4*>(dk + row * D + c4) =
+      make_float4(a.x * sm_scale, a.y * sm_scale, a.z * sm_scale, a.w * sm_scale);
+  *reinterpret_cast<float4*>(dv + row * D + c4) = b;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1161,10 +1296,22 @@ bool shapes_ok(int bh, int sq, int skv) {
   return bh > 0 && bh <= 65535 && sq > 0 && skv > 0 && sq % BQ == 0 && skv % BK == 0;
 }
 
-// the bf16 kernels copy 16 bytes at a time
+// the kernels copy 16 bytes at a time
 bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if ((uintptr_t)p % 16) return false;
+  return true;
+}
+
+// the split of a streamed dimension of n tiles into chunks of `rows` rows
+// (0: no split); false for a chunk the fp32 kernels cannot take
+bool split(int rows, int n, const float* part, int* chunk, int* n_chunks) {
+  *chunk = n;
+  *n_chunks = 1;
+  if (rows <= 0 || rows / BQ >= n) return true;
+  if (rows % BQ || !part || (uintptr_t)part % 16) return false;
+  *chunk = rows / BQ;
+  *n_chunks = (n + *chunk - 1) / *chunk;
   return true;
 }
 
@@ -1181,13 +1328,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, scale, causal);
   } else {
     using C = Fp32Fwd<D>;
-    const int nkb = skv / C::BKF;
-    int chunk = nkb, n_chunks = 1;
-    if (kv_chunk > 0 && kv_chunk / C::BKF < nkb) {
-      if (kv_chunk % C::BKF || !part || (uintptr_t)part % 16) return cudaErrorInvalidValue;
-      chunk = kv_chunk / C::BKF;
-      n_chunks = (nkb + chunk - 1) / chunk;
-    }
+    static_assert(C::BKF == BQ, "split() counts 64-row tiles");
+    int chunk, n_chunks;
+    if (!split(kv_chunk, skv / C::BKF, part, &chunk, &n_chunks)) return cudaErrorInvalidValue;
     cudaError_t e = prepare(flash_fwd_fp32_kernel<D>, C::SMEM);
     if (e != cudaSuccess) return e;
     float* part_acc = n_chunks > 1 ? part : nullptr;
@@ -1210,9 +1353,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int skv,
-                   float scale, int causal, cudaStream_t st) {
+                   float scale, int causal, int kv_chunk, float* part, cudaStream_t st) {
+  if (!aligned16({q, k, v, g, dq})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (!aligned16({q, k, v, g, dq})) return cudaErrorMisalignedAddress;
     const size_t smem = 1024 + 6 * BQ * D * sizeof(T);
     cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D>, smem);
     if (e != cudaSuccess) return e;
@@ -1220,12 +1363,20 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
         (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dq, sq, skv, scale,
         causal);
   } else {
-    const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
-    cudaError_t e = prepare(flash_bwd_dq_kernel<D>, smem);
+    int chunk, n_chunks;
+    if (!split(kv_chunk, skv / BK, part, &chunk, &n_chunks)) return cudaErrorInvalidValue;
+    cudaError_t e = prepare(flash_bwd_dq_fp32_kernel<D>, Fp32Bwd<D>::SMEM);
     if (e != cudaSuccess) return e;
-    flash_bwd_dq_kernel<D><<<dim3(sq / BQ, bh), NT, smem, st>>>(
+    flash_bwd_dq_fp32_kernel<D><<<dim3((sq / BQ) * n_chunks, bh), BT, Fp32Bwd<D>::SMEM, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
-        (float*)dq, sq, skv, scale, causal);
+        (float*)dq, part, sq, skv, scale, causal, chunk, n_chunks);
+    if (n_chunks > 1) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      const size_t threads = (size_t)bh * sq * (D / 4);
+      flash_bwd_dq_sum_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+          part, (float*)dq, bh, sq, skv, scale, causal, chunk);
+    }
   }
   return cudaGetLastError();
 }
@@ -1233,9 +1384,10 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                     const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
-                    int skv, float scale, int causal, cudaStream_t st) {
+                    int skv, float scale, int causal, int q_chunk, float* part,
+                    cudaStream_t st) {
+  if (!aligned16({q, k, v, g, dk, dv})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (!aligned16({q, k, v, g, dk, dv})) return cudaErrorMisalignedAddress;
     constexpr int QT = D == 128 ? 32 : 64;
     const size_t smem = 1024 + 2 * BK * D * sizeof(T) + 4 * QT * D * sizeof(T) + 4 * QT * 4;
     cudaError_t e = prepare(flash_bwd_dkv_wgmma_kernel<D, QT>, smem);
@@ -1244,13 +1396,22 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
         (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dk, (T*)dv, sq,
         skv, scale, causal);
   } else {
-    const size_t smem = sizeof(float) *
-                        (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
-    cudaError_t e = prepare(flash_bwd_dkv_kernel<D>, smem);
+    if (!aligned16({lse, delta})) return cudaErrorMisalignedAddress;
+    int chunk, n_chunks;
+    if (!split(q_chunk, sq / BQ, part, &chunk, &n_chunks)) return cudaErrorInvalidValue;
+    cudaError_t e = prepare(flash_bwd_dkv_fp32_kernel<D>, Fp32Bwd<D>::SMEM);
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_kernel<D><<<dim3(skv / BK, bh), NT, smem, st>>>(
+    flash_bwd_dkv_fp32_kernel<D><<<dim3((skv / BK) * n_chunks, bh), BT, Fp32Bwd<D>::SMEM,
+                                   st>>>(
         (const float*)q, (const float*)k, (const float*)v, (const float*)g, lse, delta,
-        (float*)dk, (float*)dv, sq, skv, scale, causal);
+        (float*)dk, (float*)dv, part, sq, skv, scale, causal, chunk, n_chunks);
+    if (n_chunks > 1) {
+      e = cudaGetLastError();
+      if (e != cudaSuccess) return e;
+      const size_t threads = (size_t)bh * skv * (D / 4);
+      flash_bwd_dkv_sum_kernel<D><<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+          part, (float*)dk, (float*)dv, bh, sq, skv, scale, causal, chunk);
+    }
   }
   return cudaGetLastError();
 }
@@ -1259,8 +1420,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 
 // dtype: 0 = float32, 1 = bfloat16; d: 64 or 128. Anything else returns
 // cudaErrorInvalidValue without launching. fp32 takes the CUDA-core kernels;
-// bf16 takes the wgmma kernels (and returns cudaErrorMisalignedAddress for a
-// tensor that is not 16-byte aligned).
+// bf16 takes the wgmma kernels. Either returns cudaErrorMisalignedAddress for
+// a tensor that is not 16-byte aligned.
 #define FLASH_DISPATCH(CALL)                                              \
   if (dtype == 0 && d == 64) return (int)CALL(float, 64);                 \
   if (dtype == 0 && d == 128) return (int)CALL(float, 128);               \
@@ -1283,13 +1444,19 @@ extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const v
 #undef CALL
 }
 
+// kv_chunk (dq) and q_chunk (dk/dv), fp32 only: the streamed rows a CTA
+// takes, a multiple of 64, with part float32 scratch for the chunks' partial
+// sums, [n_chunks * bh * sq * D] for dq (n_chunks = ceil(skv / kv_chunk)) and
+// [2 * n_chunks * bh * skv * D] for dk/dv (n_chunks = ceil(sq / q_chunk));
+// 0 streams every tile through one CTA. bf16 ignores both.
 extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
                             const void* g, const void* lse, const void* delta, void* dq, int bh,
-                            int sq, int skv, float scale, int causal, void* stream) {
+                            int sq, int skv, float scale, int causal, int kv_chunk, void* part,
+                            void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
 #define CALL(T, D)                                                                      \
   bwd_dq<T, D>(q, k, v, g, (const float*)lse, (const float*)delta, dq, bh, sq, skv, scale, \
-               causal, (cudaStream_t)stream)
+               causal, kv_chunk, (float*)part, (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }
@@ -1297,11 +1464,11 @@ extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k, cons
 extern "C" int flash_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
                              const void* g, const void* lse, const void* delta, void* dk,
                              void* dv, int bh, int sq, int skv, float scale, int causal,
-                             void* stream) {
+                             int q_chunk, void* part, void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
 #define CALL(T, D)                                                                     \
   bwd_dkv<T, D>(q, k, v, g, (const float*)lse, (const float*)delta, dk, dv, bh, sq, skv, \
-                scale, causal, (cudaStream_t)stream)
+                scale, causal, q_chunk, (float*)part, (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }

@@ -19,7 +19,12 @@ of the forward op that created the node, found by the node's sequence
 number. What runs in no range is elementwise work. Then the step is
 captured in a CUDA graph (``calibration.timing.capture_step``) and a few
 replays are profiled, of which the one with the most device events is
-kept (a profiler window can drop launches): a replay launches the eager
+kept. A profiler window can drop the launches it sees first: the first
+one in a fresh process, the first dozen or more in one that has run for
+minutes. So each window opens with :data:`LEAD_LAUNCHES` launches for it
+to drop and a pause, then a spin kernel that marks where the profiled
+work starts, and closes after another pause; only the device events
+after the mark are read (:func:`after_mark`). A replay launches the eager
 step's kernels in the same order, so each replayed kernel takes the
 family of the eager kernel at its position (or, should the two lists differ, the families of the
 eager kernels of its name, in their proportions). The graph replay's
@@ -36,6 +41,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import time
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
@@ -57,6 +63,12 @@ _BACKWARD = "autograd::engine::evaluate_function: "
 #: profiled graph replays of a row, of which the one with the most
 #: device events is used
 REPLAY_WINDOWS = 3
+#: launches that open each profiler window, for it to drop
+LEAD_LAUNCHES = 64
+#: host seconds a window waits after its lead launches and before it closes
+WINDOW_PAD_S = 0.05
+#: the spin kernel (``torch.cuda._sleep``) that marks the end of the lead
+MARK = "spin_kernel"
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "attribution")
 
@@ -229,6 +241,34 @@ def replay_families(eager: List[Tuple[str, float, str]], events: List[dict]
     return out, False
 
 
+def open_window(device="cuda"):
+    """The lead of a profiler window: :data:`LEAD_LAUNCHES` one-element
+    fills, a wait for them and a pause of :data:`WINDOW_PAD_S`, then the
+    mark, a spin kernel of a thousand cycles."""
+    for _ in range(LEAD_LAUNCHES):
+        torch.zeros(1, device=device)
+    torch.cuda.synchronize()
+    time.sleep(WINDOW_PAD_S)
+    torch.cuda._sleep(1000)
+
+
+def close_window():
+    """Wait for the card, then pause :data:`WINDOW_PAD_S` before the window
+    closes."""
+    torch.cuda.synchronize()
+    time.sleep(WINDOW_PAD_S)
+
+
+def after_mark(events: List[dict]) -> List[dict]:
+    """The trace's events without its device events up to and including
+    the last mark (:func:`open_window`); without any device event if the
+    window dropped its mark."""
+    marks = [e["ts"] for e in device_events(events) if MARK in e["name"]]
+    end = marks[-1] if marks else float("inf")
+    return [e for e in events
+            if not (e.get("ph") == "X" and e.get("cat") in DEVICE_CATS and e["ts"] <= end)]
+
+
 def _trace(prof, name: str) -> List[dict]:
     os.makedirs(TRACE_DIR, exist_ok=True)
     path = os.path.join(TRACE_DIR, f"{name}.json")
@@ -253,31 +293,24 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     from simumax_tpu_torch.calibration.timing import capture_step
     from simumax_tpu_torch.torchref.rows import make_row_step
 
-    def prime():
-        # a fresh profiler window may miss the first launches it sees
-        torch.zeros(1, device=device)
-        torch.cuda.synchronize()
-
     step = make_row_step(kind, mc, seq, mbs, layers, remat, device=device)
     graph, _out, _warm, _captured = capture_step(step)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prime()
+        open_window(device)
         step()
-        torch.cuda.synchronize()
+        close_window()
     slug = "".join(c if c.isalnum() else "_" for c in label)
-    eager, untied = eager_kernel_families(_trace(prof, f"{slug}_eager"))
+    eager, untied = eager_kernel_families(after_mark(_trace(prof, f"{slug}_eager")))
     graph.replay()
     torch.cuda.synchronize()
-    # a window can drop launches anywhere in the replay (one q8_amax of
-    # 2260 once, 20 of 1624 another time), so the fullest of a few is kept
     windows = []
     for i in range(REPLAY_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            prime()
+            open_window(device)
             graph.replay()
-            torch.cuda.synchronize()
-        events = _trace(prof, f"{slug}_graph{i}")
+            close_window()
+        events = after_mark(_trace(prof, f"{slug}_graph{i}"))
         windows.append((len(device_events(events)), events))
     replay_events = max(windows, key=lambda w: w[0])[1]
     graph_ms, matched = replay_families(eager, replay_events)

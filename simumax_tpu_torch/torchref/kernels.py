@@ -6,9 +6,11 @@ TPU kernels becomes a CUDA C++ kernel for Hopper:
 * ``_flash_fwd_kernel`` (kernels.py:78) -> ``flash_fwd_fp32_kernel``
   (with ``flash_fwd_merge_kernel`` where it splits a q tile's keys across
   CTAs, :func:`flash_fwd_kv_chunk`), wrapped by :func:`flash_fwd`;
-* ``_flash_bwd_dq_kernel`` (kernels.py:180) -> ``flash_bwd_dq_kernel``,
-  wrapped by :func:`flash_bwd_dq`;
-* ``_flash_bwd_dkv_kernel`` (kernels.py:220) -> ``flash_bwd_dkv_kernel``,
+* ``_flash_bwd_dq_kernel`` (kernels.py:180) -> ``flash_bwd_dq_fp32_kernel``
+  (with ``flash_bwd_dq_sum_kernel`` where it splits a q tile's keys
+  across CTAs, :func:`flash_bwd_chunks`), wrapped by :func:`flash_bwd_dq`;
+* ``_flash_bwd_dkv_kernel`` (kernels.py:220) -> ``flash_bwd_dkv_fp32_kernel``
+  (with ``flash_bwd_dkv_sum_kernel`` where it splits a kv tile's queries),
   wrapped by :func:`flash_bwd_dkv`;
 
   all three in ``csrc/flash_attn.cu``, bound by operations on this card
@@ -101,8 +103,8 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _ENTRY_POINTS = {
     "flash_attn": {
         "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P],
-        "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-        "flash_bwd_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+        "flash_bwd_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P, _P],
+        "flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P, _P],
     },
     "swiglu": {
         "swiglu_fwd": [_I, _P, _P, _L, _I, _P],
@@ -251,10 +253,15 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _to_bh(x: torch.Tensor) -> torch.Tensor:
-    """[b, s, h, d] -> [b*h, s, d] contiguous, 16-byte aligned (the bf16
+    """[b, s, h, d] -> [b*h, s, d] contiguous, 16-byte aligned (the
     kernels copy 16 bytes at a time)."""
     b, s, h, d = x.shape
-    y = x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+    return _aligned(x.transpose(1, 2).reshape(b * h, s, d))
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, at a 16-byte aligned address."""
+    y = x.contiguous()
     return y if y.data_ptr() % 16 == 0 else y.clone()
 
 
@@ -415,6 +422,21 @@ def _bwd_common_plain_bh(q, k, v, do, lse, delta, causal, scale_q=True):
     return p, ds
 
 
+def _check_chunk(name, q, arg, chunk):
+    if chunk is not None and (_on_tensor_cores(q) or chunk < 1):
+        raise ValueError(f"{name}: {arg} {chunk} takes fp32 inputs and a positive chunk, "
+                         f"got {q.dtype}")
+
+
+def _chunked(a, b, chunk):
+    """a @ b as the split launches sum it: the partial products of
+    ``chunk`` columns of a (rows of b) at a time, added in chunk order."""
+    acc = torch.zeros((*a.shape[:-1], b.shape[-1]), device=a.device)
+    for c0 in range(0, a.shape[-1], chunk):
+        acc = acc + a[..., c0:c0 + chunk] @ b[..., c0:c0 + chunk, :]
+    return acc
+
+
 def flash_fwd_plain(q, k, v, causal: bool = True, kv_chunk: Optional[int] = None):
     """Plain PyTorch version of :func:`flash_fwd`. fp32: the CUDA-core
     kernel's arithmetic, all in fp32, in whole-row form (its online
@@ -426,64 +448,108 @@ def flash_fwd_plain(q, k, v, causal: bool = True, kv_chunk: Optional[int] = None
     (:func:`_fwd_online_plain_bh`), since where P is rounded to bf16
     depends on the running max."""
     _check("flash_fwd_plain", q, k, v)
-    if kv_chunk is not None and (_on_tensor_cores(q) or kv_chunk < 1):
-        raise ValueError(f"flash_fwd_plain: kv_chunk {kv_chunk} takes fp32 inputs and a "
-                         f"positive chunk, got {q.dtype}")
+    _check_chunk("flash_fwd_plain", q, "kv_chunk", kv_chunk)
     b, _s, h, _d = q.shape
     o, lse = _fwd_plain_bh(_to_bh(q), _to_bh(k), _to_bh(v), causal, kv_chunk)
     return _from_bh(o, b, h), lse.reshape(b, h, -1)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True):
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                       kv_chunk: Optional[int] = None):
     """Plain PyTorch version of :func:`flash_bwd_dq`. fp32: all in fp32
-    (the CUDA-core kernel's arithmetic). bf16: the wgmma kernel's rounding,
-    dS = P (dP - delta) computed in fp32 and rounded to bf16 for dS @ K,
-    dq scaled by sm_scale in fp32."""
+    (the CUDA-core kernel's arithmetic), dS @ K in whole rows, or with
+    ``kv_chunk`` the split launch's: the partial dS @ K of each chunk of
+    ``kv_chunk`` keys, added in chunk order (:func:`flash_bwd_chunks` says
+    where the kernel splits); dq times sm_scale at the end. bf16: the
+    wgmma kernel's rounding, dS = P (dP - delta) computed in fp32 and
+    rounded to bf16 for dS @ K, dq scaled by sm_scale in fp32."""
     _check_bwd("flash_bwd_dq_plain", q, k, v, do, lse, delta)
+    _check_chunk("flash_bwd_dq_plain", q, "kv_chunk", kv_chunk)
     b, sq, h, d = q.shape
     kb = _to_bh(k)
     tc = _on_tensor_cores(q)
     _p, ds = _bwd_common_plain_bh(_to_bh(q), kb, _to_bh(v), _to_bh(do),
                                   lse.reshape(b * h, sq), delta.reshape(b * h, sq), causal,
                                   scale_q=not tc)
-    dq = (_operand(ds, tc) @ kb.float()) * _sm_scale(d)
-    return _from_bh(dq.to(q.dtype), b, h)
+    if kv_chunk is None:
+        dq = _operand(ds, tc) @ kb.float()
+    else:
+        dq = _chunked(ds, kb, kv_chunk)
+    return _from_bh((dq * _sm_scale(d)).to(q.dtype), b, h)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True):
-    """Plain PyTorch version of :func:`flash_bwd_dkv`. fp32: all in fp32.
-    bf16: the wgmma kernel's rounding, P^T and dS^T = P^T (dP^T - delta)
-    computed in fp32 and rounded to bf16 for P^T @ dO and dS^T @ Q, dk
-    scaled by sm_scale in fp32."""
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                        q_chunk: Optional[int] = None):
+    """Plain PyTorch version of :func:`flash_bwd_dkv`. fp32: all in fp32,
+    P^T @ dO and dS^T @ Q in whole rows, or with ``q_chunk`` the split
+    launch's: the partial products of each chunk of ``q_chunk`` queries,
+    added in chunk order; dk times sm_scale at the end. bf16: the wgmma
+    kernel's rounding, P^T and dS^T = P^T (dP^T - delta) computed in fp32
+    and rounded to bf16 for P^T @ dO and dS^T @ Q, dk scaled by sm_scale
+    in fp32."""
     _check_bwd("flash_bwd_dkv_plain", q, k, v, do, lse, delta)
+    _check_chunk("flash_bwd_dkv_plain", q, "q_chunk", q_chunk)
     b, sq, h, d = q.shape
     qb, dob = _to_bh(q), _to_bh(do)
     tc = _on_tensor_cores(q)
     p, ds = _bwd_common_plain_bh(qb, _to_bh(k), _to_bh(v), dob, lse.reshape(b * h, sq),
                                  delta.reshape(b * h, sq), causal, scale_q=not tc)
-    dv = _operand(p, tc).transpose(-1, -2) @ dob.float()
-    dk = (_operand(ds, tc).transpose(-1, -2) @ qb.float()) * _sm_scale(d)
-    return _from_bh(dk.to(k.dtype), b, h), _from_bh(dv.to(v.dtype), b, h)
+    pt, dst = _operand(p, tc).transpose(-1, -2), _operand(ds, tc).transpose(-1, -2)
+    if q_chunk is None:
+        dv, dk = pt @ dob.float(), dst @ qb.float()
+    else:
+        dv, dk = _chunked(pt, dob.float(), q_chunk), _chunked(dst, qb.float(), q_chunk)
+    return _from_bh((dk * _sm_scale(d)).to(k.dtype), b, h), _from_bh(dv.to(v.dtype), b, h)
 
 
 # -- wrappers -----------------------------------------------------------------
 
 
-#: query rows and keys a tile of the fp32 forward (``BQ``, ``Fp32Fwd::BKF``
-#: in csrc/flash_attn.cu)
-_FP32_Q_TILE = _FP32_KV_TILE = 64
+#: rows of a tile of the fp32 kernels, queries and keys alike (``BQ``,
+#: ``BK``, ``Fp32Fwd::BKF`` in csrc/flash_attn.cu)
+_FP32_TILE = 64
+
+
+def _split_chunk(out_tiles: int, streamed_tiles: int, sms: int) -> int:
+    """Streamed rows a CTA of an fp32 flash kernel takes (0: all of its
+    output tile's): where the ``out_tiles`` output tiles, a CTA each, give
+    fewer than two CTAs an SM of the card's ``sms``, each tile's
+    ``streamed_tiles`` are split into chunks of at least two tiles,
+    enough of them for two CTAs an SM."""
+    if out_tiles >= 2 * sms:
+        return 0
+    tiles = max(2, -(-streamed_tiles // -(-2 * sms // out_tiles)))
+    return 0 if tiles >= streamed_tiles else tiles * _FP32_TILE
 
 
 def flash_fwd_kv_chunk(bh: int, sq: int, skv: int, sms: int) -> int:
-    """Keys a CTA of the fp32 forward takes (0: all of its q tile's):
-    where the b*h x (sq / 64) q tiles give fewer than two CTAs an SM of
-    the card's ``sms``, each q tile's keys are split into chunks of at
-    least two 64-key tiles, enough of them for two CTAs an SM."""
-    q_tiles, kv_tiles = bh * (sq // _FP32_Q_TILE), skv // _FP32_KV_TILE
-    if q_tiles >= 2 * sms:
-        return 0
-    tiles = max(2, -(-kv_tiles // -(-2 * sms // q_tiles)))
-    return 0 if tiles >= kv_tiles else tiles * _FP32_KV_TILE
+    """Keys a CTA of the fp32 forward takes (0: all of its q tile's), by
+    :func:`_split_chunk` over the b*h x (sq / 64) q tiles."""
+    return _split_chunk(bh * (sq // _FP32_TILE), skv // _FP32_TILE, sms)
+
+
+def flash_bwd_chunks(bh: int, sq: int, skv: int, sms: int) -> Tuple[int, int]:
+    """(keys a CTA of the fp32 dq takes, queries a CTA of the fp32 dk/dv
+    takes); 0: all of them. dq splits as the forward does; dk/dv over
+    its b*h x (skv / 64) kv tiles."""
+    return (flash_fwd_kv_chunk(bh, sq, skv, sms),
+            _split_chunk(bh * (skv // _FP32_TILE), sq // _FP32_TILE, sms))
+
+
+def _sms(t: torch.Tensor) -> int:
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
+def _scratch(chunk: int, streamed: int, floats: int, device) -> Optional[torch.Tensor]:
+    """The fp32 scratch of a split launch: ``floats`` for each chunk of
+    ``chunk`` of the ``streamed`` rows; None where ``chunk`` is 0."""
+    if not chunk:
+        return None
+    return torch.empty(-(-streamed // chunk) * floats, dtype=torch.float32, device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def flash_fwd(q, k, v, causal: bool = True):
@@ -503,19 +569,13 @@ def flash_fwd(q, k, v, causal: bool = True):
     code, d, bh, sq = _launch_args("flash_fwd", q, skv, (qb, kb, vb))
     o = torch.empty_like(qb)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    chunk, part = 0, None
-    if not _on_tensor_cores(q):
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        chunk = flash_fwd_kv_chunk(bh, sq, skv, sms)
-        if chunk:
-            part = torch.empty(-(-skv // chunk) * bh * sq * (d + 2), dtype=torch.float32,
-                               device=q.device)
+    chunk = 0 if _on_tensor_cores(q) else flash_fwd_kv_chunk(bh, sq, skv, _sms(q))
+    part = _scratch(chunk, skv, bh * sq * (d + 2), q.device)
     lib = _lib("flash_attn")
     with torch.cuda.device(q.device):
         rc = lib.flash_fwd(code, d, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                            o.data_ptr(), lse.data_ptr(), bh, sq, skv, _sm_scale(d),
-                           int(causal), chunk, 0 if part is None else part.data_ptr(),
-                           _stream(q))
+                           int(causal), chunk, _ptr(part), _stream(q))
     _raise_on("flash_fwd", rc)
     LAUNCHES["flash_fwd"] += 1
     return _from_bh(o, b, h), lse.reshape(b, h, sq)
@@ -525,13 +585,17 @@ def _bwd_operands(name, q, k, v, do, lse, delta):
     _check_bwd(name, q, k, v, do, lse, delta)
     b, sq, h, _d = q.shape
     ops = (_to_bh(q), _to_bh(k), _to_bh(v), _to_bh(do),
-           lse.reshape(b * h, sq).contiguous(), delta.reshape(b * h, sq).contiguous())
+           _aligned(lse.reshape(b * h, sq)), _aligned(delta.reshape(b * h, sq)))
     return ops, _launch_args(name, q, k.shape[1], ops)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     """dq of flash attention: q, k, v, do [b, s, h, d], lse and
-    delta = rowsum(do * o) float32 [b, h, sq] -> dq [b, s, h, d]."""
+    delta = rowsum(do * o) float32 [b, h, sq] -> dq [b, s, h, d].
+    Launches the CUDA kernel for CUDA tensors (fp32: split over kv chunks
+    where :func:`flash_bwd_chunks` says, the chunks summed by a second
+    kernel of the same launch); runs :func:`flash_bwd_dq_plain` for CPU
+    tensors."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     if q.device.type != "cuda":
@@ -539,18 +603,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True):
     (qb, kb, vb, gb, lb, db), (code, d, bh, sq) = _bwd_operands(
         "flash_bwd_dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(qb)
+    chunk = 0 if _on_tensor_cores(q) else flash_bwd_chunks(bh, sq, k.shape[1], _sms(q))[0]
+    part = _scratch(chunk, k.shape[1], bh * sq * d, q.device)
     lib = _lib("flash_attn")
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dq(code, d, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                               gb.data_ptr(), lb.data_ptr(), db.data_ptr(), dq.data_ptr(),
-                              bh, sq, k.shape[1], _sm_scale(d), int(causal), _stream(q))
+                              bh, sq, k.shape[1], _sm_scale(d), int(causal), chunk,
+                              _ptr(part), _stream(q))
     _raise_on("flash_bwd_dq", rc)
     LAUNCHES["flash_bwd_dq"] += 1
     return _from_bh(dq, q.shape[0], q.shape[2])
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
-    """dk, dv of flash attention (arguments as :func:`flash_bwd_dq`)."""
+    """dk, dv of flash attention (arguments as :func:`flash_bwd_dq`; fp32
+    split over q chunks where :func:`flash_bwd_chunks` says)."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     if q.device.type != "cuda":
@@ -558,12 +626,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True):
     (qb, kb, vb, gb, lb, db), (code, d, bh, sq) = _bwd_operands(
         "flash_bwd_dkv", q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(kb), torch.empty_like(vb)
+    chunk = 0 if _on_tensor_cores(q) else flash_bwd_chunks(bh, sq, k.shape[1], _sms(q))[1]
+    part = _scratch(chunk, sq, 2 * bh * k.shape[1] * d, q.device)
     lib = _lib("flash_attn")
     with torch.cuda.device(q.device):
         rc = lib.flash_bwd_dkv(code, d, qb.data_ptr(), kb.data_ptr(), vb.data_ptr(),
                                gb.data_ptr(), lb.data_ptr(), db.data_ptr(), dk.data_ptr(),
                                dv.data_ptr(), bh, sq, k.shape[1], _sm_scale(d),
-                               int(causal), _stream(q))
+                               int(causal), chunk, _ptr(part), _stream(q))
     _raise_on("flash_bwd_dkv", rc)
     LAUNCHES["flash_bwd_dkv"] += 1
     b, h = q.shape[0], q.shape[2]

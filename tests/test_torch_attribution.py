@@ -138,3 +138,21 @@ def test_replayed_kernels_take_the_families_of_the_eager_kernels():
         {"ph": "X", "cat": "kernel", "name": "flash_fwd_wgmma_kernel", "ts": 5, "dur": 500.0}])
     assert not matched
     assert out["GEMM"] == 0.5 and out["attention"] == 0.5 + 0.5
+
+
+def test_a_window_is_read_from_its_mark_on():
+    def kernel(name, ts):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 1.0}
+
+    host = {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": 0.5}
+    lead = [kernel("fill", t) for t in (1, 2)]
+    mark = kernel("at::cuda::(anonymous namespace)::spin_kernel(long)", 3)
+    step = [kernel("gemm", 5), {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy", "ts": 6},
+            kernel("fill", 7)]
+    # the lead's launches and the mark go, the step's stay, host events too
+    assert A.after_mark([host] + lead + [mark] + step) == [host] + step
+    assert A.after_mark(lead[1:] + [mark] + step) == step  # a window that dropped launches
+    # out of order in the trace: read by time
+    assert A.after_mark(step[::-1] + [mark] + lead) == step[::-1]
+    # a window that dropped its mark gives no device event: it is not read
+    assert A.after_mark([host] + step) == [host]

@@ -121,6 +121,45 @@ def test_fp32_forward_matches_its_plain_versions(card, b, sq, skv, h, d, causal)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,d,causal", [
+    (1, 1024, 1024, 2, 64, True),    # both split into chunks of 128, many past the diagonal
+    (2, 320, 320, 3, 128, True),     # split into a ragged last chunk
+    (1, 512, 512, 2, 128, False),    # split, non-causal
+    (1, 512, 512, 2, 64, False),
+    (4, 2048, 2048, 16, 64, True),   # one CTA an output tile
+    (2, 2048, 2048, 8, 128, False),
+    (1, 128, 320, 2, 64, True),      # more keys than queries: kv tiles past every query
+    (1, 192, 1024, 1, 64, True),     # ... with dk/dv split: chunks before every start block
+    (2, 320, 128, 2, 128, True),     # more queries than keys
+])
+def test_fp32_backward_matches_its_plain_versions(card, b, sq, skv, h, d, causal):
+    """The fp32 dq and dk/dv (split over their streamed tiles and summed
+    where ``flash_bwd_chunks`` says) against the whole-row plain versions
+    and the plain versions of the same split, 1e-4 * (|plain| +
+    rms(plain)), in one counted launch of each wrapper."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    q, do = (torch.randn(b, sq, h, d, generator=gen, device=card) for _ in range(2))
+    k, v = (torch.randn(b, skv, h, d, generator=gen, device=card) for _ in range(2))
+    o, lse = K.flash_fwd_plain(q, k, v, causal)
+    delta = K.flash_delta(o, do)
+    K.reset_launch_counts()
+    dq = K.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 1
+    assert sum(counts.values()) == 2
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    kv_chunk, q_chunk = K.flash_bwd_chunks(b * h, sq, skv, sms)
+    for kv_c, q_c in ((None, None), (kv_chunk or None, q_chunk or None)):
+        dq_ref = K.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, kv_c)
+        dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, q_c)
+        for got, ref in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            assert _within(got, ref, 1e-4)
+
+
+@pytest.mark.cuda
 def test_bf16_kernels_take_a_tensor_that_is_not_16_byte_aligned(card):
     # one head: the [b*h, s, d] operand is a view of the input, which here
     # starts 2 bytes into its storage; the wrapper copies it to an aligned one
