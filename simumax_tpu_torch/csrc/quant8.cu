@@ -54,9 +54,39 @@
 //   They take x with rows and cols multiples of 16 and a 16-byte aligned
 //   base (TMA's stride and alignment rules); the Python wrapper chooses
 //   them by shape, dtype and alignment alone.
-// * q8_quantize_cols_kernel: column-major q for every other shape (ragged
-//   or misaligned): a 64 x 64 tile through shared memory, one element a
-//   thread at a time.
+// * q8_quantize_ragged_kernel<T, BOTH>: column-major q, or (BOTH) both
+//   orders from one read of x, for every shape and base the TMA kernels
+//   do not take: any rows and cols >= 1, any element-aligned base. Bound
+//   by the same bytes, so the same shape of design, without TMA:
+//   - a persistent grid walking the row-major order of TR x TC tiles
+//     together (block b takes tiles b, b + G, ...: the G blocks work on
+//     neighbouring tiles of one row band at a time), and a ring
+//     of shared-memory stages filled by 16-byte cp.async copies, one
+//     thread per 16-byte chunk of a tile row (so a warp copies whole
+//     rows: 256 contiguous bytes a half-warp in bf16): tile k + 1 (and,
+//     in bf16, k + 2) loads while tile k is quantized. On the H100 both
+//     choices measured faster than four threads a row and a contiguous
+//     range of tiles a block, most in the both mode. Where
+//     a row's byte pitch is not a multiple of 16, each tile row starts at
+//     another alignment: a stage row holds the 16-byte chunks that cover
+//     the tile row, at the row's own shift, so every copy is aligned. The
+//     bytes a chunk holds beside the tile row are x's own (its
+//     neighbours'); only x's first and last chunk may reach outside x,
+//     and those are read element by element, so no element outside x is
+//     read;
+//   - each thread quantizes two adjacent columns of 16 rows (one shared
+//     load a row pair where the pair is aligned, else one an element),
+//     packs each column's 16 bytes into a uint4 of a column-major staging
+//     tile of TC lines of TR bytes (each line's 16-byte chunks permuted
+//     by an XOR, and the two lines stored in an order that alternates
+//     with the column pair, against bank conflicts) and, with BOTH,
+//     writes the pair into a row-major staging tile of TR lines of TC
+//     bytes; one staging tile of each order, two block barriers a tile;
+//   - then the block writes whole lines: a group of lanes a line, each
+//     lane a piece as wide as the line's address allows (16 bytes where
+//     it is 16-byte aligned, which is every column-major line when rows
+//     % 16 == 0; else 8, 4 or 1), consecutive lanes on consecutive
+//     pieces. Only the tiles at x's last row band or column band mask.
 //
 // Each extern "C" entry point launches on the given stream, allocates and
 // synchronises nothing, and returns cudaGetLastError() (0 on success), or
@@ -76,7 +106,6 @@ namespace {
 
 constexpr int G = 8;      // elements per thread and vector (16 bytes of bf16)
 constexpr int NT = 256;   // threads per block
-constexpr int TILE = 64;  // column-major tile: TILE x TILE elements
 constexpr int MAX_AMAX_BLOCKS = 132 * 8;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -163,35 +192,6 @@ q8_quantize_rows_kernel(const T* __restrict__ x, const float* __restrict__ amax,
 #pragma unroll
     for (int j = 0; j < G; ++j)
       if (i * G + j < n) q[i * G + j] = quantize(v[j], scale);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// column-major quantize: block b owns one TILE x TILE tile of x [rows, cols];
-// it reads the tile's rows (consecutive threads, consecutive columns) into
-// shared memory as int8 and writes its columns (consecutive threads,
-// consecutive rows) to q[c * rows + r]
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(NT)
-q8_quantize_cols_kernel(const T* __restrict__ x, const float* __restrict__ amax,
-                        int8_t* __restrict__ q, float* __restrict__ scale_out, long long rows,
-                        long long cols) {
-  __shared__ int8_t tile[TILE][TILE + 4];
-  const float scale = scale_of(__ldg(amax));
-  const long long col_tiles = (cols + TILE - 1) / TILE;
-  const long long r0 = (long long)(blockIdx.x / col_tiles) * TILE;
-  const long long c0 = (long long)(blockIdx.x % col_tiles) * TILE;
-  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
-  const int lane = threadIdx.x % TILE, step = NT / TILE;
-  for (int i = threadIdx.x / TILE; i < TILE; i += step) {
-    const long long r = r0 + i, c = c0 + lane;
-    if (r < rows && c < cols) tile[i][lane] = quantize(to_f(x[r * cols + c]), scale);
-  }
-  __syncthreads();
-  for (int j = threadIdx.x / TILE; j < TILE; j += step) {
-    const long long c = c0 + j, r = r0 + lane;
-    if (r < rows && c < cols) q[c * rows + r] = tile[lane][j];
   }
 }
 
@@ -415,6 +415,204 @@ q8_quantize_both_tma_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
+// column-major (and both-order) quantize for the shapes and bases TMA does
+// not take: cp.async tiles through a ring of shared-memory stages, a
+// persistent grid, line stores as wide as each line's address allows
+// ---------------------------------------------------------------------------
+
+template <typename T, bool BOTH>
+struct RaggedSmem {
+  static constexpr int STAGES = sizeof(T) == 2 ? 3 : 2;  // input tiles in flight or in use
+  static constexpr int ROW = TC * (int)sizeof(T) + 16;  // a stage row: a tile row's chunks
+  static constexpr int IN = TR * ROW;                    // one input stage
+  static constexpr int OUT = TR * TC;                    // one staged int8 tile
+  static constexpr int BYTES = 16 /* alignment */ + STAGES * IN + OUT * (BOTH ? 2 : 1);
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group of this thread's copies but the newest N has landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the tile at (r0, c0) into a stage: a group of LT threads a tile row
+// (one thread per 16-byte chunk of a full row: a half-warp in bf16, a
+// warp in fp32), the groups taking rows i, i + NQ / LT, ... Stage row i
+// holds the 16-byte chunks of x that cover the row's TC (or, at the last
+// column band, fewer) elements, its first element at byte (its address %
+// 16) of the row
+template <typename T, bool BOTH>
+__device__ __forceinline__ void ragged_load(unsigned char* stage, const T* x, long long rows,
+                                            long long cols, long long r0, long long c0,
+                                            uintptr_t xb, uintptr_t xe) {
+  constexpr int LT = TC * (int)sizeof(T) / 16;
+  const uintptr_t width = (uintptr_t)min((long long)TC, cols - c0) * sizeof(T);
+  for (int i = threadIdx.x / LT; i < TR && r0 + i < rows; i += NQ / LT) {
+    const uintptr_t g = reinterpret_cast<uintptr_t>(x + (r0 + i) * cols + c0);
+    const uintptr_t first = g & ~(uintptr_t)15;
+    const int chunks = (int)((g + width - first + 15) >> 4);
+    unsigned char* dst = stage + i * RaggedSmem<T, BOTH>::ROW;
+    for (int m = threadIdx.x % LT; m < chunks; m += LT) {
+      const uintptr_t src = first + 16 * m;
+      if (src >= xb && src + 16 <= xe) {
+        cp_async16(dst + 16 * m, reinterpret_cast<const void*>(src));
+      } else {  // x's first or last chunk: only its elements inside x
+        for (int b = 0; b < 16; b += (int)sizeof(T))
+          if (src + b >= xb && src + b < xe)
+            *reinterpret_cast<T*>(dst + 16 * m + b) = *reinterpret_cast<const T*>(src + b);
+      }
+    }
+  }
+}
+
+// byte offset of 16-byte chunk k of column-major staging line `line`
+// (TR bytes): the chunks XOR (line / 4) % 4, so the eight lanes of a
+// quarter-warp, which write lines 2p + (p & 1) of eight consecutive
+// column pairs p, fall on eight different bank groups
+__device__ __forceinline__ int cols_chunk(int line, int k) {
+  return line * TR + ((k ^ ((line >> 2) & 3)) << 4);
+}
+
+// unit u of a tile in a stage whose row 0 starts at byte sh0 and whose
+// rows shift by pitch16 bytes (mod 16) each: columns 2p and 2p + 1, rows
+// 16k .. 16k + 15. PAIRS: every element pair is 2 * sizeof(T) aligned
+template <typename T, bool BOTH, bool PAIRS>
+__device__ __forceinline__ void ragged_unit(const unsigned char* stage, int sh0, int pitch16,
+                                            int8_t* cols_out, int8_t* rows_out, float scale) {
+  const int u = threadIdx.x, p = u % (TC / 2), k = u / (TC / 2);
+  uint32_t c0[4] = {0u, 0u, 0u, 0u}, c1[4] = {0u, 0u, 0u, 0u};
+  int sh = sh0;  // row 16k's shift: 16 rows of any pitch move it by 0 mod 16
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int r = 16 * k + i;
+    const unsigned char* e =
+        stage + r * RaggedSmem<T, BOTH>::ROW + sh + 2 * p * (int)sizeof(T);
+    float a, b;
+    if constexpr (PAIRS) {
+      load_pair(reinterpret_cast<const T*>(e), a, b);
+    } else {
+      a = to_f(*reinterpret_cast<const T*>(e));
+      b = to_f(*reinterpret_cast<const T*>(e + sizeof(T)));
+    }
+    const uint32_t qa = (uint8_t)quantize(a, scale), qb = (uint8_t)quantize(b, scale);
+    c0[i / 4] |= qa << (8 * (i % 4));
+    c1[i / 4] |= qb << (8 * (i % 4));
+    if constexpr (BOTH)
+      *reinterpret_cast<uint16_t*>(rows_out + r * TC + 2 * p) = (uint16_t)(qa | (qb << 8));
+    sh = (sh + pitch16) & 15;
+  }
+  const uint4 v0 = make_uint4(c0[0], c0[1], c0[2], c0[3]);
+  const uint4 v1 = make_uint4(c1[0], c1[1], c1[2], c1[3]);
+  const bool odd = p & 1;
+  *reinterpret_cast<uint4*>(cols_out + cols_chunk(2 * p + odd, k)) = odd ? v1 : v0;
+  *reinterpret_cast<uint4*>(cols_out + cols_chunk(2 * p + !odd, k)) = odd ? v0 : v1;
+}
+
+// n bytes of a staged line (its chunk k at src + ((k ^ swz) << 4)) to dst,
+// by `lanes` lanes of which this is `lane`: consecutive lanes store
+// consecutive pieces as wide as dst's alignment allows (16, 8, 4 or 1
+// bytes), then the bytes after the last whole piece
+__device__ __forceinline__ void store_line(int8_t* dst, const int8_t* src, int swz, int n,
+                                           int lane, int lanes) {
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(dst);
+  const int lg = (a & 15) == 0 ? 4 : (a & 7) == 0 ? 3 : (a & 3) == 0 ? 2 : 0;
+  const int whole = n >> lg;
+  for (int m = lane; m < whole; m += lanes) {
+    const int o = m << lg;
+    const int8_t* s = src + ((((o >> 4) ^ swz) << 4) | (o & 15));
+    if (lg == 4)
+      *reinterpret_cast<uint4*>(dst + o) = *reinterpret_cast<const uint4*>(s);
+    else if (lg == 3)
+      *reinterpret_cast<uint2*>(dst + o) = *reinterpret_cast<const uint2*>(s);
+    else if (lg == 2)
+      *reinterpret_cast<uint32_t*>(dst + o) = *reinterpret_cast<const uint32_t*>(s);
+    else
+      dst[o] = *s;
+  }
+  for (int o = (whole << lg) + lane; o < n; o += lanes)
+    dst[o] = src[(((o >> 4) ^ swz) << 4) | (o & 15)];
+}
+
+// x [rows, cols] -> q_cols (q_cols[c * rows + r]) and, with BOTH, q_rows
+// [rows, cols]. pairs: x's element pairs are aligned (see ragged_unit);
+// cols_lanes_lg, rows_lanes_lg: log2 of the lanes that store one line of
+// each order (the host's lanes_lg)
+template <typename T, bool BOTH>
+__global__ void __launch_bounds__(NQ)
+q8_quantize_ragged_kernel(const T* __restrict__ x, const float* __restrict__ amax,
+                          int8_t* __restrict__ q_rows, int8_t* __restrict__ q_cols,
+                          float* __restrict__ scale_out, long long rows, long long cols,
+                          int pairs, int cols_lanes_lg, int rows_lanes_lg) {
+  using S = RaggedSmem<T, BOTH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = smem_raw + ((16 - (smem_u32(smem_raw) & 15)) & 15);
+  int8_t* cols_out = reinterpret_cast<int8_t*>(stages + S::STAGES * S::IN);
+  int8_t* rows_out = cols_out + S::OUT;
+
+  const float scale = scale_of(__ldg(amax));
+  if (blockIdx.x == 0 && threadIdx.x == 0) *scale_out = scale;
+  const long long tiles_c = (cols + TC - 1) / TC;
+  const long long tiles = ((rows + TR - 1) / TR) * tiles_c;
+  const uintptr_t xb = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t xe = reinterpret_cast<uintptr_t>(x + rows * cols);
+  const int pitch16 = (int)((cols * (long long)sizeof(T)) & 15);
+
+  // block b takes tiles b, b + G, b + 2G, ... (G blocks): the blocks walk
+  // the row bands together, on neighbouring tiles
+  for (int s = 0; s < S::STAGES - 1; ++s) {
+    const long long t = blockIdx.x + (long long)s * gridDim.x;
+    if (t < tiles) ragged_load<T, BOTH>(stages + s * S::IN, x, rows, cols, (t / tiles_c) * TR,
+                                        (t % tiles_c) * TC, xb, xe);
+    cp_async_commit();
+  }
+  const int cl = 1 << cols_lanes_lg, rl = 1 << rows_lanes_lg;
+  for (int j = 0;; ++j) {
+    const long long t = blockIdx.x + (long long)j * gridDim.x;
+    if (t >= tiles) break;
+    cp_async_wait<S::STAGES - 2>();
+    // tile t is in its stage for every thread, and every thread is done
+    // with the tile before: its stage (refilled next) and the staging tiles
+    __syncthreads();
+    const long long next = t + (long long)(S::STAGES - 1) * gridDim.x;
+    if (next < tiles)
+      ragged_load<T, BOTH>(stages + ((j + S::STAGES - 1) % S::STAGES) * S::IN, x, rows, cols,
+                           (next / tiles_c) * TR, (next % tiles_c) * TC, xb, xe);
+    cp_async_commit();
+
+    const long long r0 = (t / tiles_c) * TR, c0 = (t % tiles_c) * TC;
+    const unsigned char* in = stages + (j % S::STAGES) * S::IN;
+    const int sh0 = (int)(reinterpret_cast<uintptr_t>(x + r0 * cols + c0) & 15);
+    if (pairs)
+      ragged_unit<T, BOTH, true>(in, sh0, pitch16, cols_out, rows_out, scale);
+    else
+      ragged_unit<T, BOTH, false>(in, sh0, pitch16, cols_out, rows_out, scale);
+    __syncthreads();
+
+    const int n_cols = (int)min((long long)TR, rows - r0);  // bytes of a column-major line
+    for (int line = threadIdx.x >> cols_lanes_lg; line < TC && c0 + line < cols;
+         line += NQ >> cols_lanes_lg)
+      store_line(q_cols + (c0 + line) * rows + r0, cols_out + line * TR, (line >> 2) & 3, n_cols,
+                 threadIdx.x & (cl - 1), cl);
+    if constexpr (BOTH) {
+      const int n_rows = (int)min((long long)TC, cols - c0);  // bytes of a row-major line
+      for (int line = threadIdx.x >> rows_lanes_lg; line < TR && r0 + line < rows;
+           line += NQ >> rows_lanes_lg)
+        store_line(q_rows + (r0 + line) * cols + c0, rows_out + line * TC, 0, n_rows,
+                   threadIdx.x & (rl - 1), rl);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -445,15 +643,6 @@ cudaError_t quantize_rows(const void* x, const void* am, void* q, void* scale, l
   else
     q8_quantize_rows_kernel<T, false><<<nb, NT, 0, st>>>((const T*)x, (const float*)am,
                                                          (int8_t*)q, (float*)scale, n);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t quantize_cols(const void* x, const void* am, void* q, void* scale, long long rows,
-                          long long cols, cudaStream_t st) {
-  const long long nb = ((rows + TILE - 1) / TILE) * ((cols + TILE - 1) / TILE);
-  q8_quantize_cols_kernel<T><<<(unsigned int)nb, NT, 0, st>>>(
-      (const T*)x, (const float*)am, (int8_t*)q, (float*)scale, rows, cols);
   return cudaGetLastError();
 }
 
@@ -515,9 +704,22 @@ cudaError_t tma_occupancy(int* smem, int* per_sm) {
     return tma_occupancy<T, BOTH>(q8_quantize_cols_tma_kernel<T>, smem, per_sm);
 }
 
-// the persistent grid of a TMA kernel: as many blocks as fit on the card
-// at once (found at the first launch on each device), at most one a tile
+// the same for the ragged quantize kernel
 template <typename T, bool BOTH>
+cudaError_t ragged_occupancy(int* smem, int* per_sm) {
+  *smem = RaggedSmem<T, BOTH>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(q8_quantize_ragged_kernel<T, BOTH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, q8_quantize_ragged_kernel<T, BOTH>,
+                                                        NQ, *smem);
+  return err;
+}
+
+// the persistent grid of a TMA (or, !TMA, the ragged) quantize kernel: as
+// many blocks as fit on the card at once (found at the first launch on
+// each device), at most one a tile
+template <typename T, bool BOTH, bool TMA>
 cudaError_t persistent_grid(long long tiles, unsigned int* grid) {
   constexpr int MAX_DEVICES = 64;
   static int resident[MAX_DEVICES] = {};
@@ -528,7 +730,8 @@ cudaError_t persistent_grid(long long tiles, unsigned int* grid) {
   if (resident[dev] == 0) {
     int sms = 0, smem = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = tma_occupancy<T, BOTH>(&smem, &per_sm);
+    if (err == cudaSuccess)
+      err = TMA ? tma_occupancy<T, BOTH>(&smem, &per_sm) : ragged_occupancy<T, BOTH>(&smem, &per_sm);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident[dev] = sms * per_sm;
@@ -561,7 +764,7 @@ cudaError_t quantize_cols_tma(const void* x, const void* am, void* q_rows, void*
   const int smem = TmaSmem<T, BOTH>::BYTES;
   const long long tiles = ((rows + TR - 1) / TR) * ((cols + TC - 1) / TC);
   unsigned int grid = 0;
-  const cudaError_t err = persistent_grid<T, BOTH>(tiles, &grid);
+  const cudaError_t err = persistent_grid<T, BOTH, true>(tiles, &grid);
   if (err != cudaSuccess) return err;
   if constexpr (BOTH)
     q8_quantize_both_tma_kernel<T><<<grid, NQ, smem, st>>>(
@@ -572,11 +775,48 @@ cudaError_t quantize_cols_tma(const void* x, const void* am, void* q_rows, void*
   return cudaGetLastError();
 }
 
-// the grid of every launch must fit 2^31 - 1 blocks
+// log2 of the lanes that store one line of `line` bytes at q + i * pitch:
+// the line's bytes over the narrowest piece a line may take (the largest
+// power of two up to 16 that divides q and pitch), 4 to 32 lanes
+int lanes_lg(const void* q, long long pitch, int line) {
+  int piece = 16;
+  while (piece > 1 && ((reinterpret_cast<uintptr_t>(q) | (uintptr_t)pitch) & (piece - 1)))
+    piece >>= 1;
+  int lg = 0;
+  while ((1 << lg) < std::min(line / piece, 32)) ++lg;
+  return lg;
+}
+
+template <typename T>
+cudaError_t quantize_ragged(const void* x, const void* am, void* q_rows, void* q_cols,
+                            void* scale, long long rows, long long cols, cudaStream_t st) {
+  if (!q_cols || !aligned(x, sizeof(T))) return cudaErrorInvalidValue;
+  const long long tiles = ((rows + TR - 1) / TR) * ((cols + TC - 1) / TC);
+  const int pairs = aligned(x, 2 * sizeof(T)) && cols % 2 == 0;
+  const int cl = lanes_lg(q_cols, rows, TR), rl = q_rows ? lanes_lg(q_rows, cols, TC) : 0;
+  unsigned int grid = 0;
+  cudaError_t err;
+  if (q_rows) {
+    err = persistent_grid<T, true, false>(tiles, &grid);
+    if (err != cudaSuccess) return err;
+    q8_quantize_ragged_kernel<T, true><<<grid, NQ, RaggedSmem<T, true>::BYTES, st>>>(
+        (const T*)x, (const float*)am, (int8_t*)q_rows, (int8_t*)q_cols, (float*)scale, rows,
+        cols, pairs, cl, rl);
+  } else {
+    err = persistent_grid<T, false, false>(tiles, &grid);
+    if (err != cudaSuccess) return err;
+    q8_quantize_ragged_kernel<T, false><<<grid, NQ, RaggedSmem<T, false>::BYTES, st>>>(
+        (const T*)x, (const float*)am, nullptr, (int8_t*)q_cols, (float*)scale, rows, cols,
+        pairs, cl, rl);
+  }
+  return cudaGetLastError();
+}
+
+// x has 1 to 2^40 elements, and the row-major kernel's grid fits 2^31 - 1
+// blocks
 bool shapes_ok(long long rows, long long cols) {
   if (rows <= 0 || cols <= 0 || rows > (1LL << 40) / cols) return false;
-  const long long tiles = ((rows + TILE - 1) / TILE) * ((cols + TILE - 1) / TILE);
-  return tiles <= 2147483647LL && (rows * cols + G * NT - 1) / (G * NT) <= 2147483647LL;
+  return (rows * cols + G * NT - 1) / (G * NT) <= 2147483647LL;
 }
 
 template <typename T>
@@ -584,7 +824,7 @@ cudaError_t launch_quantize(int kernel, const void* x, const void* am, void* q_r
                      void* scale, long long rows, long long cols, cudaStream_t st) {
   switch (kernel) {
     case 0: return quantize_rows<T>(x, am, q_rows, scale, rows * cols, st);
-    case 1: return quantize_cols<T>(x, am, q_cols, scale, rows, cols, st);
+    case 1: return quantize_ragged<T>(x, am, q_rows, q_cols, scale, rows, cols, st);
     case 2: return quantize_cols_tma<T, false>(x, am, q_rows, q_cols, scale, rows, cols, st);
     case 3: return quantize_cols_tma<T, true>(x, am, q_rows, q_cols, scale, rows, cols, st);
     default: return cudaErrorInvalidValue;
@@ -606,8 +846,9 @@ extern "C" int q8_amax(int dtype, const void* x, long long rows, long long cols,
 }
 
 // kernel: 0 q8_quantize_rows_kernel (q_rows [rows, cols] row-major),
-// 1 q8_quantize_cols_kernel (q_cols column-major, i.e. [cols, rows]
-// row-major), 2 q8_quantize_cols_tma_kernel (q_cols), 3
+// 1 q8_quantize_ragged_kernel (q_cols column-major, i.e. [cols, rows]
+// row-major, and q_rows too where it is not null: both orders from one
+// read), 2 q8_quantize_cols_tma_kernel (q_cols), 3
 // q8_quantize_both_tma_kernel (q_rows and q_cols). A pointer the kernel
 // does not write may be null.
 extern "C" int q8_quantize(int dtype, const void* x, const void* amax, void* q_rows,
@@ -633,5 +874,18 @@ extern "C" int q8_tma_occupancy(int dtype, int both, int* smem_bytes, int* block
   if (dtype == 1)
     return (int)(both ? tma_occupancy<__nv_bfloat16, true>(smem_bytes, blocks_per_sm)
                       : tma_occupancy<__nv_bfloat16, false>(smem_bytes, blocks_per_sm));
+  return (int)cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory of the ragged quantize kernel for dtype
+// (column-major, or both orders with both != 0) and how many of its
+// blocks fit on one SM of the current device
+extern "C" int q8_ragged_occupancy(int dtype, int both, int* smem_bytes, int* blocks_per_sm) {
+  if (dtype == 0)
+    return (int)(both ? ragged_occupancy<float, true>(smem_bytes, blocks_per_sm)
+                      : ragged_occupancy<float, false>(smem_bytes, blocks_per_sm));
+  if (dtype == 1)
+    return (int)(both ? ragged_occupancy<__nv_bfloat16, true>(smem_bytes, blocks_per_sm)
+                      : ragged_occupancy<__nv_bfloat16, false>(smem_bytes, blocks_per_sm));
   return (int)cudaErrorInvalidValue;
 }

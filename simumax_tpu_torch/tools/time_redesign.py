@@ -1,9 +1,12 @@
-"""The fp32 flash-attention kernels against another commit's, on the same
-calls.
+"""The fp32 flash-attention kernels, or the ragged int8 quantize, against
+another commit's, on the same calls.
 
-The baseline is the source ``csrc/flash_attn.cu`` of another commit,
+The baseline is the source ``csrc/flash_attn.cu`` (``--kernels flash``,
+the default) or ``csrc/quant8.cu`` (``--kernels q8``) of another commit,
 built here with the port's nvcc flags into ``build/baseline/`` and loaded
-beside the current kernels. Its entry points are those of commit 2f9d7b8:
+beside the current kernels.
+
+Flash: the baseline's entry points are those of commit 2f9d7b8:
 ``flash_fwd`` with the kv split (dtype, d, q, k, v, o, lse, b*h, sq, skv,
 scale, causal, kv_chunk, part, stream), as now, and ``flash_bwd_dq`` and
 ``flash_bwd_dkv`` without a split (dtype, d, q, k, v, dO, lse, delta, dq
@@ -20,11 +23,25 @@ forwards take the same split: where the forward did not change, its row
 is the method's own spread), and their outputs held within ``RTOL``
 (1e-4 * (|baseline| + rms(baseline))) of the baseline's.
 
+q8: the baseline's ``q8_quantize`` entry point is the current one's (that
+of commit f51bffb), whose kernel 1 was the tiled column-major kernel
+(``q8_quantize_cols_kernel``) and is now ``q8_quantize_ragged_kernel``.
+At ``Q8_CASES`` (Aquila2's LM head [2048, 100008] in bf16 and fp32, and
+[2048, 32000] in bf16, a shape the route gives the TMA kernels, forced
+here through kernel 1), on the same x and amax, the column-major quantize
+(the current kernel 1 against the baseline's) and both orders (the
+current kernel 1 in its both mode, one launch, against the baseline's
+row-major kernel and then its kernel 1) are timed in the same turns, and
+their outputs must be equal bit for bit.
+
 Usage. Write the baseline's source where git is (the card's machine has
 no repository), then run on the card::
 
     python -m simumax_tpu_torch.tools.time_redesign --extract 2f9d7b8
     python -m simumax_tpu_torch.tools.time_redesign --baseline build/baseline/2f9d7b8
+    python -m simumax_tpu_torch.tools.time_redesign --kernels q8 --extract f51bffb
+    python -m simumax_tpu_torch.tools.time_redesign --kernels q8 \\
+        --baseline build/baseline/f51bffb
 
 Prints one JSON object and writes it to ``--out`` when given.
 """
@@ -42,43 +59,55 @@ import torch
 
 from simumax_tpu_torch.torchref import kernels as K
 
-SOURCE = "flash_attn.cu"
+SOURCES = {"flash": "flash_attn.cu", "q8": "quant8.cu"}
 FP32_CASES = {"fp32, 16 kv blocks": dict(b=1, s=1024, h=2, d=64, causal=True),
               "fp32 full width": dict(b=1, s=2048, h=16, d=128, causal=True)}
 RTOL = 1e-4
 SPIN_CYCLES = 2 * 10 ** 6
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: the baseline's entry points (2f9d7b8)
+#: (case, rows, cols, dtype) of the q8 rows
+Q8_CASES = [("Aquila2 LM head", 2048, 100008, torch.bfloat16),
+            ("Aquila2 LM head", 2048, 100008, torch.float32),
+            ("LM head", 2048, 32000, torch.bfloat16)]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+#: the baseline's entry points: the flash kernels' of 2f9d7b8, the
+#: quantize's of f51bffb
 BASELINE_ARGTYPES = {
-    "flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P, _P],
-    "flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 3 + [_F, _I, _P],
-    "flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    "flash": {
+        "flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P, _P],
+        "flash_bwd_dq": [_I, _I] + [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+        "flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    },
+    "q8": {"q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P]},
 }
 
 
-def extract(commit: str) -> str:
-    """Write ``commit``'s kernel source into ``build/baseline/<commit>``
-    (needs git and the repository); returns the directory."""
+def extract(commit: str, kernels: str = "flash") -> str:
+    """Write ``commit``'s source of ``kernels`` (a key of :data:`SOURCES`)
+    into ``build/baseline/<commit>`` (needs git and the repository);
+    returns the directory."""
+    source = SOURCES[kernels]
     out = os.path.join(os.path.dirname(K.build_dir()), "baseline", commit)
     os.makedirs(out, exist_ok=True)
-    src = subprocess.run(["git", "show", f"{commit}:simumax_tpu_torch/csrc/{SOURCE}"],
+    src = subprocess.run(["git", "show", f"{commit}:simumax_tpu_torch/csrc/{source}"],
                          capture_output=True, text=True, check=True).stdout
-    with open(os.path.join(out, SOURCE), "w") as f:
+    with open(os.path.join(out, source), "w") as f:
         f.write(src)
     return out
 
 
-def build_baseline(directory: str) -> ctypes.CDLL:
-    """The baseline's library, built with the port's nvcc flags, with its
-    entry points' argument types."""
-    lib = os.path.join(directory, SOURCE.replace(".cu", ".so"))
-    proc = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-o", lib, os.path.join(directory, SOURCE)],
+def build_baseline(directory: str, kernels: str = "flash") -> ctypes.CDLL:
+    """The baseline's library of ``kernels``, built with the port's nvcc
+    flags, with its entry points' argument types."""
+    source = SOURCES[kernels]
+    lib = os.path.join(directory, source.replace(".cu", ".so"))
+    proc = subprocess.run([K._nvcc(), *K.NVCC_FLAGS, "-o", lib, os.path.join(directory, source)],
                           capture_output=True, text=True)
     if proc.returncode:
-        raise RuntimeError(f"baseline {SOURCE}: nvcc exited {proc.returncode}\n"
+        raise RuntimeError(f"baseline {source}: nvcc exited {proc.returncode}\n"
                            f"{proc.stdout}{proc.stderr}")
     cdll = ctypes.CDLL(lib)
-    for fn, argtypes in BASELINE_ARGTYPES.items():
+    for fn, argtypes in BASELINE_ARGTYPES[kernels].items():
         getattr(cdll, fn).argtypes = argtypes
         getattr(cdll, fn).restype = ctypes.c_int
     return cdll
@@ -181,15 +210,68 @@ def flash_rows(lib) -> dict:
     return rows
 
 
+def q8_rows(lib) -> dict:
+    """The column-major and both-order quantize at :data:`Q8_CASES`, the
+    current kernel 1 against the baseline's (and, for both orders, the
+    baseline's row-major kernel and its kernel 1), on the same x and
+    amax."""
+    rows_out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    new_lib = K._lib("quant8")
+    for label, rows, cols, dtype in Q8_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(99)
+        x = (torch.randn(rows, cols, generator=gen, device="cuda") * 2).to(dtype)
+        amax = K.q8_amax(x)
+        code = K._DTYPE_CODES[dtype]
+        outs = {w: (torch.empty(rows, cols, dtype=torch.int8, device="cuda"),
+                    torch.empty(cols, rows, dtype=torch.int8, device="cuda"),
+                    torch.empty((), device="cuda")) for w in "nb"}
+
+        def launch(which, kernel, q_rows):
+            qr, qc, scale = outs[which]
+            lib_ = new_lib if which == "n" else lib
+            checked(f"{which} kernel {kernel}", lib_.q8_quantize(
+                code, x.data_ptr(), amax.data_ptr(), qr.data_ptr() if q_rows else None,
+                qc.data_ptr(), scale.data_ptr(), rows, cols, kernel, stream))
+
+        calls = {"column-major": (lambda: launch("n", 1, False), lambda: launch("b", 1, False)),
+                 "both": (lambda: launch("n", 1, True),
+                          lambda: (launch("b", 0, True), launch("b", 1, False)))}
+        n = rows * cols
+        for order, (new, old) in calls.items():
+            for w in "nb":
+                for t in outs[w]:
+                    t.fill_(0)
+            new()
+            old()
+            torch.cuda.synchronize()
+            compared = outs["n"][1:] + ((outs["n"][0],) if order == "both" else ())
+            against = outs["b"][1:] + ((outs["b"][0],) if order == "both" else ())
+            if not all(torch.equal(a, b) for a, b in zip(compared, against)):
+                raise AssertionError(f"{label} {dtype} {order}: the kernels' outputs differ")
+            nbytes = n * x.element_size() + 4 + n * (2 if order == "both" else 1) + 4
+            rec = {"rows": rows, "cols": cols, "dtype": str(dtype).replace("torch.", ""),
+                   "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   **turns(new, old)}
+            rec.update(new_share=rec["bound_ms"] / rec["new_ms"],
+                       baseline_share=rec["bound_ms"] / rec["baseline_ms"])
+            rows_out[f"{label} {rec['dtype']}: {order}"] = rec
+        del x, outs
+        torch.cuda.empty_cache()
+    return rows_out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", choices=sorted(SOURCES), default="flash",
+                    help="which kernels to hold against the baseline's")
     ap.add_argument("--extract", metavar="COMMIT",
-                    help="write COMMIT's flash_attn.cu into build/baseline/COMMIT and stop")
-    ap.add_argument("--baseline", help="directory holding the baseline's flash_attn.cu")
+                    help="write COMMIT's source of --kernels into build/baseline/COMMIT and stop")
+    ap.add_argument("--baseline", help="directory holding the baseline's source")
     ap.add_argument("--out", help="also write the JSON here")
     args = ap.parse_args(argv)
     if args.extract:
-        print(extract(args.extract))
+        print(extract(args.extract, args.kernels))
         return {}
     if not args.baseline:
         raise SystemExit("time_redesign: give --baseline DIR (or --extract COMMIT first)")
@@ -197,10 +279,13 @@ def main(argv=None) -> dict:
         raise SystemExit("time_redesign: needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout
-    lib = build_baseline(args.baseline)
+    lib = build_baseline(args.baseline, args.kernels)
     K.build()
-    result = {"card": card.strip(), "baseline": os.path.abspath(args.baseline),
-              "flash_fp32": flash_rows(lib)}
+    result = {"card": card.strip(), "baseline": os.path.abspath(args.baseline)}
+    if args.kernels == "flash":
+        result["flash_fp32"] = flash_rows(lib)
+    else:
+        result["q8"] = q8_rows(lib)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -35,7 +35,8 @@ column-major order or both, and the scale), wrapped by
 (:func:`q8_route`): ``q8_quantize_rows_kernel`` row-major,
 ``q8_quantize_cols_tma_kernel`` and ``q8_quantize_both_tma_kernel``
 column-major and both orders from one read where TMA takes the tensor,
-``q8_quantize_cols_kernel`` column-major where it does not. All in
+``q8_quantize_ragged_kernel`` column-major and both orders from one read
+where it does not. All in
 ``csrc/quant8.cu``, bound by HBM bytes, and bit-identical to their plain
 versions.
 
@@ -114,6 +115,7 @@ _ENTRY_POINTS = {
         "q8_amax": [_I, _P, _L, _L, _P, _P],
         "q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P],
         "q8_tma_occupancy": [_I, _I, _P, _P],
+        "q8_ragged_occupancy": [_I, _I, _P, _P],
     },
     "replay": {
         "replay_levels": [_I] * 17 + [_P] * 15,
@@ -125,11 +127,12 @@ _ENTRY_POINTS = {
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
 #: a wrapper adds one where it launches its kernel and nowhere else.
-#: ``q8_quantize`` counts the row-major quantize kernel and the tiled
-#: column-major one; the TMA quantize kernels count on their own keys
+#: ``q8_quantize`` counts the row-major quantize kernel; the TMA and the
+#: ragged quantize kernels count on their own keys (:data:`Q8_KERNELS`)
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                             "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0, "q8_quantize": 0,
                             "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
+                            "q8_quantize_ragged": 0,
                             "replay_solve": 0, "fold_1f1b": 0, "fold_interleaved": 0}
 
 _lock = threading.Lock()
@@ -887,10 +890,11 @@ def q8_amax(x):
 
 
 #: each quantize kernel of ``csrc/quant8.cu``: the id its entry point
-#: takes, and the :data:`LAUNCHES` key it counts on
+#: takes, and the :data:`LAUNCHES` key it counts on. The ragged kernel
+#: writes both orders where it is given a row-major output too
 Q8_KERNELS = {
     "q8_quantize_rows_kernel": (0, "q8_quantize"),
-    "q8_quantize_cols_kernel": (1, "q8_quantize"),
+    "q8_quantize_ragged_kernel": (1, "q8_quantize_ragged"),
     "q8_quantize_cols_tma_kernel": (2, "q8_quantize_cols_tma"),
     "q8_quantize_both_tma_kernel": (3, "q8_quantize_both_tma"),
 }
@@ -914,20 +918,19 @@ def q8_route(rows: int, cols: int, dtype: torch.dtype, data_ptr: int,
     and alignment alone: row-major q from ``q8_quantize_rows_kernel``;
     column-major q, or both orders from one read of x (``both``), from the
     TMA kernels where :func:`q8_tma_takes` says so, else from
-    ``q8_quantize_cols_kernel`` (after the row-major kernel for both)."""
+    ``q8_quantize_ragged_kernel``. One launch each."""
     if not (column_major or both):
         return ("q8_quantize_rows_kernel",)
     if q8_tma_takes(rows, cols, dtype, data_ptr):
         return ("q8_quantize_both_tma_kernel",) if both else ("q8_quantize_cols_tma_kernel",)
-    if both:
-        return ("q8_quantize_rows_kernel", "q8_quantize_cols_kernel")
-    return ("q8_quantize_cols_kernel",)
+    return ("q8_quantize_ragged_kernel",)
 
 
 def _q8_launch(kernel: str, x, amax, q_rows, q_cols, scale) -> None:
     """Launch one quantize kernel (a key of :data:`Q8_KERNELS`) on x's
     stream; q_rows [rows, cols] and q_cols (a transposed view of a
-    contiguous [cols, rows] tensor) may be None where it writes none."""
+    contiguous [cols, rows] tensor) may be None where it writes none (the
+    ragged kernel writes q_rows where it is given one)."""
     code = _q8_launch_args(kernel, x)
     kernel_id, key = Q8_KERNELS[kernel]
     rows, cols = x.shape
@@ -947,9 +950,8 @@ def q8_quantize(x, amax, column_major: bool = False, both: bool = False):
     -127, 127). q is row-major, or column-major (a transposed view of a
     contiguous [cols, rows] tensor) with ``column_major``, the order
     ``torch._int_mm`` takes its second operand in at full rate. With
-    ``both`` -> (q row-major, q column-major, scale), from one read of x
-    where the TMA kernel takes it. The kernels are chosen by
-    :func:`q8_route`."""
+    ``both`` -> (q row-major, q column-major, scale), from one read of x.
+    The kernel is chosen by :func:`q8_route`."""
     _check_q8("q8_quantize", x)
     if amax.shape != () or amax.dtype != torch.float32 or amax.device != x.device:
         raise ValueError(f"q8_quantize: amax must be a float32 scalar tensor on {x.device}, got "

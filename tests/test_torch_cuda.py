@@ -55,7 +55,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
     assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
                                  "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
                                  "q8_quantize": 0, "q8_quantize_cols_tma": 0,
-                                 "q8_quantize_both_tma": 0, "replay_solve": 0,
+                                 "q8_quantize_both_tma": 0, "q8_quantize_ragged": 0,
+                                 "replay_solve": 0,
                                  "fold_1f1b": 0, "fold_interleaved": 0}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
@@ -236,7 +237,8 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
     assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                       "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0,
                       "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
-                      "replay_solve": 0, "fold_1f1b": 0, "fold_interleaved": 0}
+                      "q8_quantize_ragged": 0, "replay_solve": 0, "fold_1f1b": 0,
+                      "fold_interleaved": 0}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -584,6 +586,8 @@ def _q8_launches(kernels):
 @pytest.mark.parametrize("rows,cols", [
     (2048, 2048), (2048, 5504), (2048, 4096), (2048, 11008), (5504, 2048), (2048, 32000),
     (21, 100), (64, 8), (130, 70), (1, 9), (17, 32), (16, 16), (48, 16), (80, 272),
+    # cols 8 mod 16 (Aquila2's LM head among them), rows not a multiple of 16
+    (2048, 100008), (2048, 2056), (64, 136), (100, 264), (37, 136), (131, 1000), (3, 257),
 ])
 def test_q8_kernels_are_bit_identical_to_their_plain_versions(card, dtype, rows, cols):
     """amax and every quantize order (row-major, column-major, both from
@@ -637,6 +641,39 @@ def test_q8_tma_kernels_replay_from_a_cuda_graph(card, both):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = K.q8_quantize(x, K.q8_amax(x), column_major=True, both=both)
+    for seed in (1, 2):
+        gen = torch.Generator(device=card).manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=gen, device=card) * seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = K.q8_quantize_plain(x, K.q8_amax_plain(x), column_major=True, both=both)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("both", [False, True])
+@pytest.mark.parametrize("rows,cols,offset", [(256, 392, 0), (100, 264, 1)])
+def test_q8_ragged_kernel_replays_from_a_cuda_graph(card, both, rows, cols, offset):
+    """The ragged quantize kernel, column-major and both orders, at a
+    shape TMA refuses (cols 8 mod 16) and at a base 1 element off,
+    allocates and synchronises nothing: a capture of amax and quantize
+    replays on new values of the same input buffer, bit for bit as the
+    plain versions."""
+    buf = torch.empty(rows * cols + offset, dtype=torch.bfloat16, device=card)
+    x = buf[offset:].view(rows, cols)
+    x.copy_(_q8_inputs(rows, cols, torch.bfloat16, card))
+    assert K.q8_route(rows, cols, x.dtype, x.data_ptr(), True, both) == (
+        "q8_quantize_ragged_kernel",)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        K.q8_quantize(x, K.q8_amax(x), column_major=True, both=both)  # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out = K.q8_quantize(x, K.q8_amax(x), column_major=True, both=both)
+    assert K.launch_counts()["q8_quantize_ragged"] == 1
     for seed in (1, 2):
         gen = torch.Generator(device=card).manual_seed(seed)
         x.copy_(torch.randn(x.shape, generator=gen, device=card) * seed)

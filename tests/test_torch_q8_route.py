@@ -8,7 +8,10 @@ kernels, on the CPU.
   alone: every column-major and both-order quantize of the int8 row's 25
   linear layers (6 layers of qkv, out, up and down, and the LM head, at
   2048 tokens) goes to the TMA kernels, in bf16 and fp32; ragged or
-  misaligned tensors go to the tiled column-major kernel.
+  misaligned tensors go to the ragged kernel, one launch for the
+  column-major order and one for both orders. With Aquila2's vocabulary
+  (100008, 8 mod 16) only the LM head's w (column-major) and g (both
+  orders) leave TMA.
 * The int8 backward quantizes the output's gradient once, in both
   orders, from one amax.
 """
@@ -28,12 +31,15 @@ from simumax_tpu_torch.torchref import quantized as TQ  # noqa: E402
 DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16), "fp32": (torch.float32, jnp.float32)}
 #: the int8 row's quantized shapes scaled down 16 times in each dim
 #: (hidden 128, qkv 256, ffn 344, up 688, vocab 2000, 128 tokens), and
-#: ragged ones the TMA kernels do not take
+#: ragged ones the TMA kernels do not take, among them cols 8 mod 16 (a
+#: vocabulary of 2008) and rows that are not a multiple of 16
 SHAPES = [(128, 128), (128, 344), (128, 256), (128, 688), (344, 128), (128, 2000),
-          (21, 100), (130, 70), (1, 9), (64, 8), (17, 32)]
+          (21, 100), (130, 70), (1, 9), (64, 8), (17, 32),
+          (128, 2008), (37, 136), (100, 264), (131, 24)]
 TMA = {"cols": ("q8_quantize_cols_tma_kernel",), "both": ("q8_quantize_both_tma_kernel",)}
-TILED = {"cols": ("q8_quantize_cols_kernel",),
-         "both": ("q8_quantize_rows_kernel", "q8_quantize_cols_kernel")}
+RAGGED = {"cols": ("q8_quantize_ragged_kernel",), "both": ("q8_quantize_ragged_kernel",)}
+#: Aquila2's vocabulary (configs/models/aquila2-*.json)
+AQUILA2_VOCAB = 100008
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -54,14 +60,18 @@ def test_both_orders_equal_the_single_order_calls_and_jax(dtype, rows, cols):
     assert np.array_equal(np.asarray(qj), q_cols.numpy()) and float(sj) == float(scale)
 
 
-def _int8_row_operands():
+def _int8_row_operands(vocab=None):
     """(name, rows, cols, order) of every column-major and both-order
-    quantize a step of the int8 row runs: per int8 linear layer x [m, k]
-    @ w [k, n], w in the forward and x in the backward column-major, the
-    output's gradient g [m, n] in both orders."""
+    quantize a step of the int8 row runs (with ``vocab`` in place of its
+    vocabulary where given): per int8 linear layer x [m, k] @ w [k, n], w
+    in the forward and x in the backward column-major, the output's
+    gradient g [m, n] in both orders."""
     _label, kind, seq, mbs, layers, _remat = next(r for r in bench.ROWS if r[1] == "int8")
-    cfg = TM.LlamaConfig.from_model_config(bench.build_model(kind), layer_num=layers,
-                                           use_int8=True)
+    mc = bench.build_model(kind)
+    if vocab is not None:  # unpadded (Megatron's padding would make it 100096)
+        mc.vocab_size, mc.make_vocab_size_divisible_by = vocab, 1
+        mc.maybe_pad_vocab_size(1)
+    cfg = TM.LlamaConfig.from_model_config(mc, layer_num=layers, use_int8=True)
     h, d, f = cfg.hidden_size, cfg.head_size, cfg.intermediate_size
     block = {"qkv": (h, (cfg.head_num + 2 * cfg.kv_head_num) * d),
              "out": (cfg.head_num * d, h), "up": (h, 2 * f), "down": (f, h)}
@@ -90,18 +100,42 @@ def test_every_int8_row_quantize_takes_the_tma_kernel(dtype):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+def test_the_aquila2_vocabulary_sends_only_the_lm_head_to_the_ragged_kernel(dtype):
+    """The int8 row's step at Aquila2's vocabulary: the LM head's w
+    (column-major) and g (both orders) take the ragged kernel, one launch
+    each; every other operand the TMA kernel it takes at vocab 32000."""
+    tdt = DTYPES[dtype][0]
+    ops = _int8_row_operands(AQUILA2_VOCAB)
+    assert AQUILA2_VOCAB % 16 == 8 and AQUILA2_VOCAB % 8 == 0  # torch._int_mm takes it
+    ragged = []
+    for name, rows, cols, order in ops:
+        got = K.q8_route(rows, cols, tdt, 256, column_major=order == "cols",
+                         both=order == "both")
+        if got == RAGGED[order]:
+            ragged.append((name, rows, cols, order))
+        else:
+            assert got == TMA[order], (name, rows, cols, order, got)
+    assert ragged == [("lm_head w", 2048, AQUILA2_VOCAB, "cols"),
+                      ("lm_head g", 2048, AQUILA2_VOCAB, "both")]
+    assert all(K.Q8_KERNELS[k][1] == "q8_quantize_ragged" for k in RAGGED["both"])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("rows,cols,offset", [
     (21, 100, 0), (130, 70, 0), (1, 9, 0), (64, 8, 0), (17, 32, 0), (2048, 2056, 0),
     (2048, 2048, 2), (2048, 2048, 4), (2048, 2048, 8),  # 16-byte-misaligned bases
+    (2048, 100008, 0), (37, 136, 0), (100, 264, 0), (2048, 100008, 2),
 ])
 def test_ragged_or_misaligned_tensors_take_the_tiled_kernel(dtype, rows, cols, offset):
+    """Every shape or base the TMA kernels refuse takes the ragged kernel
+    (which replaced the tiled one), one launch for either order."""
     tdt = DTYPES[dtype][0]
     assert not K.q8_tma_takes(rows, cols, tdt, 256 + offset)
     for order in ("cols", "both"):
         got = K.q8_route(rows, cols, tdt, 256 + offset, column_major=order == "cols",
                          both=order == "both")
-        assert got == TILED[order]
-        assert all(K.Q8_KERNELS[k][1] == "q8_quantize" for k in got)
+        assert got == RAGGED[order]
+        assert all(K.Q8_KERNELS[k][1] == "q8_quantize_ragged" for k in got)
 
 
 def test_the_aligned_cases_and_other_dtypes():

@@ -7,7 +7,9 @@ same fp32 scales, so they must be equal. ``int8_matmul``'s output and its
 two gradients are rounded from the same fp32 values: within one bf16 ulp
 of JAX's (they are equal here). A small int8 Llama step's loss agrees
 within 2e-3 (bf16 logits; the rest of the model rounds some products at
-other points, as ``tests/test_torch_model.py`` says).
+other points, as ``tests/test_torch_model.py`` says). Each also runs at a
+width that is 8 mod 16, which the TMA quantize kernels refuse on the card
+(the ragged kernel's; here the plain versions run).
 """
 
 import jax
@@ -25,6 +27,9 @@ from simumax_tpu_torch.torchref import quantized as TQ  # noqa: E402
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 #: (b, tokens, k, n): x [b, tokens, k] @ w [k, n]
 SHAPE = (2, 48, 64, 40)
+#: an output width 8 mod 16 as Aquila2's vocabulary (100008) is, over
+#: tokens that are not a multiple of 16
+WIDE = (1, 40, 64, 2008)
 
 
 def _np(x):
@@ -38,9 +43,9 @@ def _within_one_bf16_ulp(ref, got):
     return bool((np.abs(ref - got) <= ulp).all())
 
 
-def _inputs(dtype):
+def _inputs(dtype, shape=SHAPE):
     jdt, tdt = DTYPES[dtype]
-    b, t, k, n = SHAPE
+    b, t, k, n = shape
     rs = np.random.RandomState(0)
     x = rs.randn(b, t, k).astype(np.float32)
     w = (rs.randn(k, n) * 0.1).astype(np.float32)
@@ -74,9 +79,12 @@ def test_quantized_operands_and_int32_products_equal_jax(dtype):
             TQ._mm(q[a][1][not orders[0]], q[b][1][orders[1]], ta=ta, tb=tb)
 
 
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_int8_matmul_and_its_gradients_match_jax(dtype):
-    (jx, jw, jg), (tx, tw, tg) = _inputs(dtype)
+@pytest.mark.parametrize("dtype,shape", [
+    *(pytest.param(d, SHAPE, id=d) for d in DTYPES),
+    *(pytest.param(d, WIDE, id=f"{d}-n{WIDE[3]}") for d in DTYPES),
+])
+def test_int8_matmul_and_its_gradients_match_jax(dtype, shape):
+    (jx, jw, jg), (tx, tw, tg) = _inputs(dtype, shape)
     y_ref, vjp = jax.vjp(JQ.int8_matmul, jx, jw)
     dx_ref, dw_ref = vjp(jg)
     tx.requires_grad_(True)
@@ -98,8 +106,9 @@ def test_int_mm_shape_rules_raise_on_every_device():
             TQ._mm(a, b)
 
 
-def test_int8_llama_step_matches_jax():
-    sizes = dict(vocab_size=512, hidden_size=256, head_num=2, kv_head_num=1, head_size=128,
+@pytest.mark.parametrize("vocab", [512, 2008])  # 2008: 8 mod 16, as Aquila2's 100008
+def test_int8_llama_step_matches_jax(vocab):
+    sizes = dict(vocab_size=vocab, hidden_size=256, head_num=2, kv_head_num=1, head_size=128,
                  intermediate_size=512, layer_num=2)
     jc = JM.LlamaConfig(dtype=jnp.bfloat16, use_int8=True, **sizes)
     tc = TM.LlamaConfig(dtype=torch.bfloat16, use_int8=True, **sizes)
