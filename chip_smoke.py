@@ -141,8 +141,8 @@ Phases, each fatal on failure:
        levels and widest level, the wall time of the analyses, the
        fallbacks by reason and the miss-batch sizes are logged;
     d. the strategy search on the JAX package's TPU system config
-       ``tpu_v5p_256`` (world 64, gbs 64; no H100 config places groups
-       larger than one card yet): the guided Mixtral-8x7B sweep
+       ``tpu_v5p_256`` (world 64, gbs 64; phase f runs the guided sweep
+       on an H100 system): the guided Mixtral-8x7B sweep
        (``ep4_pp2_dp4_mbs1``, tp x pp x ep {1,2,4,8} x ZeRO {0..3} x three
        recompute families) through ``search_best_parallel_strategy`` with
        the defaults (``backend="auto"``, ``device="cuda"``): the fold
@@ -173,7 +173,21 @@ Phases, each fatal on failure:
        TMA); eager steps and, from the same seed, a captured step's
        replays, their losses within :data:`LOSS_RTOL` step by step; then
        one graph replay under ``torch.profiler`` (marked windows): the q8
-       kernels' device ms a step by function.
+       kernels' device ms a step by function;
+    f. the H100 network (after d, whose top 5 it prints beside its own):
+       the JAX builder's six multi-card members estimated on the H100
+       systems with a network (world 8 on ``h100_sxm_8x``, one NVSwitch
+       node; the rest on ``h100_sxm_256``, 32 nodes joined by
+       InfiniBand), each with its step ms, MFU, peak GiB, each dim's
+       placement and its collective ms, Llama3-70B's tp 8 on one NVLink
+       span and its dp group across nodes on an ``ib`` span; phase c's
+       strategy, model and scenarios on ``h100_sxm_256`` (256 ranks):
+       ``analyze_faults`` with ``replay_backend="cuda"`` equal as JSON to
+       the scalar engine's and every member the kernel solved equal to
+       the scalar engine's replay; phase d's guided Mixtral-8x7B sweep
+       on ``h100_sxm_256``: the fold kernel launched once for each shape
+       group, the rows equal as JSON to the numpy fold's, the top 5 the
+       batched grid sweep's.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -215,6 +229,11 @@ SEARCH_VPP = [dict(pp_size=2, interleaving_size=2), dict(pp_size=2, interleaving
               dict(pp_size=4, tp_size=2, interleaving_size=2),
               dict(pp_size=2, interleaving_size=2, pp_comm_async=False)]
 SEARCH_BENCH = 4096
+#: phase 10f: the H100 system of 32 NVSwitch nodes joined by InfiniBand
+#: that the fault analysis and the guided sweep run on, and the member
+#: of the multi-card family whose tp and dp placements are checked
+H100_NETWORK_SYSTEM = "h100_sxm_256"
+H100_TP8_MEMBER = "llama3-70b tp8 selective"
 SLICE = dict(b=1, s=2048, h=16, d=128, dtype="bfloat16", causal=True)
 CASES = [
     ("slice", SLICE),
@@ -1979,10 +1998,35 @@ def check_faults(torch, K):
     return row, record, launches["replay_solve"]
 
 
+def moe_sweep(torch, base, model, system, mode, numpy_fold=False):
+    """One :data:`SEARCH_MOE` sweep of ``base`` (gbs :data:`SEARCH_GBS`,
+    the top 5) in ``mode`` with the batched engine's defaults, or with
+    its numpy fold: (rows, diagnostics, seconds)."""
+    import copy
+
+    from simumax_tpu_torch.core.records import Diagnostics
+    from simumax_tpu_torch.search import batched as B
+    from simumax_tpu_torch.search import executor as E
+    from simumax_tpu_torch.search import search_best_parallel_strategy
+
+    orig_scorer = E._batched_scorer
+    if numpy_fold:
+        E._batched_scorer = lambda m, s, device="cuda": B.BatchedScorer(m, s, backend="numpy")
+    try:
+        diag = Diagnostics()
+        t0 = time.perf_counter()
+        rows = search_best_parallel_strategy(copy.deepcopy(base), model, system, SEARCH_GBS,
+                                             topk=5, diagnostics=diag, engine="batched",
+                                             search_mode=mode, **SEARCH_MOE[2])
+        torch.cuda.synchronize()
+    finally:
+        E._batched_scorer = orig_scorer
+    return rows, diag, time.perf_counter() - t0
+
+
 def search_inputs(model, strategy, world):
     """A search's base strategy (``world`` cards), model and system, on
-    the JAX package's TPU system config (used as data: no H100 config
-    places groups larger than one card yet)."""
+    the JAX package's TPU system config (used as data)."""
     from simumax_tpu_torch.core import config as C
 
     base = C.get_strategy_config(strategy)
@@ -2026,13 +2070,10 @@ def check_search(torch, K):
     every call of (a)-(d) held bit for bit against the plain version on
     the card. Returns (the two kernel-table rows, the phase's record,
     the launches of the main paths)."""
-    import copy
     import dataclasses
 
-    from simumax_tpu_torch.core.records import Diagnostics
     from simumax_tpu_torch.search import batched as B
     from simumax_tpu_torch.search import executor as E
-    from simumax_tpu_torch.search import search_best_parallel_strategy
     from simumax_tpu_torch.search.prune import enumerate_cells, make_cell_strategy
     from simumax_tpu_torch.tools import bench_sweep as BS
 
@@ -2053,14 +2094,8 @@ def check_search(torch, K):
     model_name, strategy, lists = SEARCH_MOE
     base, model, system = search_inputs(model_name, strategy, SEARCH_WORLD)
 
-    def sweep(mode):
-        diag = Diagnostics()
-        t0 = time.perf_counter()
-        rows = search_best_parallel_strategy(copy.deepcopy(base), model, system, SEARCH_GBS,
-                                             topk=5, diagnostics=diag, engine="batched",
-                                             search_mode=mode, **lists)
-        torch.cuda.synchronize()
-        return rows, diag, time.perf_counter() - t0
+    def sweep(mode, numpy_fold=False):
+        return moe_sweep(torch, base, model, system, mode, numpy_fold)
 
     E._SCORERS.clear()
     K.reset_launch_counts()
@@ -2076,12 +2111,7 @@ def check_search(torch, K):
     if errors or len(guided) != 5:
         raise AssertionError(f"guided sweep: {errors} status=error cells, {len(guided)} rows")
     grid, grid_diag, grid_s = sweep("grid")
-    orig_scorer = E._batched_scorer
-    E._batched_scorer = lambda m, s, device="cuda": B.BatchedScorer(m, s, backend="numpy")
-    try:
-        numpy_guided, _d, numpy_s = sweep("guided")
-    finally:
-        E._batched_scorer = orig_scorer
+    numpy_guided, _d, numpy_s = sweep("guided", numpy_fold=True)
     if json.dumps(guided, sort_keys=True) != json.dumps(numpy_guided, sort_keys=True):
         raise AssertionError("guided sweep: the kernel's rows differ from the numpy fold's")
     if json.dumps(guided, sort_keys=True) != json.dumps(grid, sort_keys=True):
@@ -2250,6 +2280,178 @@ def check_search(torch, K):
     return rows, record, launches
 
 
+def estimate_h100_members():
+    """Phase 10f (a): the JAX builder's six multi-card members on the H100
+    systems with a network; returns their records."""
+    from simumax_tpu_torch import PerfLLM
+    from simumax_tpu_torch.tools import build_system_config as BSC
+
+    out = []
+    for label, st, model in BSC.multi_card_perfs():
+        system = BSC.multi_card_system(st.world_size)
+        t0 = time.perf_counter()
+        perf = PerfLLM().configure(st, model, system)
+        perf.run_estimate()
+        cost, mem = perf.analysis_cost(), perf.analysis_mem()
+        spans = perf.ledger().collective_spans
+        paths = {d: p for d, p in perf.ctx.paths.items() if p.spans}
+        rec = {"label": label, "system": system, "world": st.world_size,
+               "step_ms": cost["iter_time_ms"], "mfu": cost["mfu"],
+               "peak_gib": mem["max_peak_gib"],
+               "placement": {d: p.describe() for d, p in paths.items()},
+               "collective_ms": sum(c.time for c in spans) * 1e3,
+               "collective_exposed_ms": sum(c.exposed_time for c in spans) * 1e3,
+               "dp_comm_ms": cost["dp_comm"]["total"] * 1e3,
+               "estimate_s": time.perf_counter() - t0}
+        kinds = {s.kind for p in paths.values() for s in p.spans}
+        if not (kinds <= {"nvlink", "ib"} and all(
+                math.isfinite(rec[k]) and rec[k] > 0 for k in ("step_ms", "mfu", "peak_gib"))):
+            raise AssertionError(f"{label} on {system}: {rec}")
+        if label == H100_TP8_MEMBER:
+            tp, dp = perf.ctx.paths["tp"], perf.ctx.paths["dp"]
+            if [(s.kind, s.extent) for s in tp.spans] != [("nvlink", 8)] or \
+                    dp.spans[-1].kind != "ib":
+                raise AssertionError(f"{label}: {tp.describe()}, {dp.describe()}")
+        log(f"H100 network (a) {label} on {system} (world {st.world_size}): step "
+            f"{rec['step_ms']:.3f} ms, MFU {rec['mfu']:.4f}, peak {rec['peak_gib']:.3f} GiB; "
+            f"collectives {rec['collective_ms']:.3f} ms a micro-batch's leaves "
+            f"({rec['collective_exposed_ms']:.3f} exposed), DP {rec['dp_comm_ms']:.3f} ms; "
+            + "; ".join(rec["placement"].values()))
+        out.append(rec)
+    return out
+
+
+def check_h100_network(torch, K, tpu_top):
+    """Phase 10f: the H100 network. (a) the six multi-card members'
+    estimates; (b) phase 10c's strategy, model and scenarios on
+    :data:`H100_NETWORK_SYSTEM`: ``analyze_faults`` with the replay kernel
+    equal as JSON to the scalar engine's, and every member of every group
+    the kernel solved equal to the scalar engine's replay; (c) phase 10d's
+    guided Mixtral-8x7B sweep there: one fold launch a shape group, the
+    rows equal as JSON to the numpy fold's, the top 5 the batched grid's,
+    printed beside ``tpu_top``, 10d's top 5 on ``tpu_v5p_256``. The launch
+    counts are set to 0 just before (b) and (c) and read just after.
+    Returns (the phase's record, its launches)."""
+    from simumax_tpu_torch import PerfLLM
+    from simumax_tpu_torch.core import config as C
+    from simumax_tpu_torch.search import executor as E
+    from simumax_tpu_torch.simulator import batched_replay as br
+    from simumax_tpu_torch.simulator import faults as F
+
+    t_phase = time.perf_counter()
+    members = estimate_h100_members()
+
+    # b. the fault analysis on 256 GPUs
+    perf = PerfLLM().configure(*FAULT_CONFIG[:2], H100_NETWORK_SYSTEM)
+    perf.run_estimate()
+    report = perf.predict_goodput(F.FaultScenario.from_json(os.path.join(ROOT, FAULT_SCENARIO)))
+    groups = []
+    orig = (F.ReplayContext._solve_groups, br.solve_batch)
+
+    def solve_groups(ctx, grp, outs):
+        for fam, prog, members_ in grp.values():
+            groups.append({"ctx": ctx, "fam": fam, "subs": [it[1] for it, _m in members_]})
+        return orig[0](ctx, grp, outs)
+
+    def solve_batch(prog, models, device="cuda"):
+        raws = orig[1](prog, models, device=device)
+        next(g for g in groups if "raws" not in g)["raws"] = raws
+        return raws
+
+    spec = F.CheckpointSpec(interval_steps=FAULT_INTERVAL)
+    F.ReplayContext._solve_groups, br.solve_batch = solve_groups, solve_batch
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        on_card = perf.analyze_faults(spec=spec, options=F.ReplayOptions(replay_backend="cuda"),
+                                      **FAULT_ANALYSIS)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+    finally:
+        F.ReplayContext._solve_groups, br.solve_batch = orig
+    t0 = time.perf_counter()
+    scalar = perf.analyze_faults(spec=spec, options=F.ReplayOptions(replay_backend="numpy"),
+                                 **FAULT_ANALYSIS)
+    numpy_s = time.perf_counter() - t0
+    if json.dumps(on_card, sort_keys=True) != json.dumps(scalar, sort_keys=True):
+        raise AssertionError("H100 fault analysis: the cuda backend's analysis differs from the "
+                             "scalar engine's")
+    others = {k: n for k, n in launches.items() if n and k != "replay_solve"}
+    if not groups or launches["replay_solve"] != len(groups) or others:
+        raise AssertionError(f"H100 fault analysis: launches {launches} for {len(groups)} "
+                             f"family groups")
+    misses = 0
+    for g in groups:
+        for sub, raw in zip(g["subs"], g["raws"]):
+            engine = g["ctx"]._replay(sub, g["fam"])[2]
+            if engine != raw:
+                raise AssertionError(f"H100 replay_levels: {raw!r} where the scalar engine "
+                                     f"gives {engine!r}")
+            misses += 1
+    faults = {"config": [*FAULT_CONFIG[:2], H100_NETWORK_SYSTEM],
+              "iter_time_s": perf.analysis_cost()["iter_time"],
+              "goodput_scenario": report.goodput, "analysis_cuda_s": cuda_s,
+              "analysis_numpy_s": numpy_s, "launches": launches["replay_solve"],
+              "misses": misses, "mean_goodput": on_card["goodput"]["mean"],
+              "best_interval_steps": on_card["best_interval_steps"]}
+    log(f"H100 network (b) {'/'.join(faults['config'])}: iteration "
+        f"{faults['iter_time_s']:.6f} s; predict_goodput [{FAULT_SCENARIO}] "
+        f"{report.goodput:.6f}; analyze_faults {FAULT_ANALYSIS}: cuda {cuda_s:.3f} s, the "
+        f"scalar engine {numpy_s:.3f} s, equal as JSON; replay_levels launches "
+        f"{launches['replay_solve']}, {misses} misses each equal to the scalar engine's replay; "
+        f"mean goodput {faults['mean_goodput']:.6f}, best interval "
+        f"{faults['best_interval_steps']}")
+
+    # c. the guided Mixtral sweep on 256 GPUs
+    model_name, strategy, _lists = SEARCH_MOE
+    base, model, _tpu = search_inputs(model_name, strategy, SEARCH_WORLD)
+    system = C.get_system_config(H100_NETWORK_SYSTEM)
+
+    def sweep(mode, numpy_fold=False):
+        return moe_sweep(torch, base, model, system, mode, numpy_fold)
+
+    E._SCORERS.clear()
+    K.reset_launch_counts()
+    guided, gdiag, guided_s = sweep("guided")
+    got = K.launch_counts()
+    fold = {k: got[k] for k in ("fold_1f1b", "fold_interleaved")}
+    shape_groups = dict(E._batched_scorer(model, system, "cuda").last_screen_jit)
+    others = {k: n for k, n in got.items() if n and k not in fold}
+    if not shape_groups or fold["fold_1f1b"] != len(shape_groups) or \
+            fold["fold_interleaved"] or others:
+        raise AssertionError(f"H100 guided sweep: launches {got} for the {len(shape_groups)} "
+                             f"shape groups its fold batch dispatched")
+    errors = gdiag.counters.get("sweep_cells_quarantined", 0)
+    if errors or len(guided) != 5:
+        raise AssertionError(f"H100 guided sweep: {errors} status=error cells, "
+                             f"{len(guided)} rows")
+    grid, _d, grid_s = sweep("grid")
+    numpy_guided, _d, numpy_s = sweep("guided", numpy_fold=True)
+    if json.dumps(guided, sort_keys=True) != json.dumps(numpy_guided, sort_keys=True):
+        raise AssertionError("H100 guided sweep: the kernel's rows differ from the numpy fold's")
+    if json.dumps(guided, sort_keys=True) != json.dumps(grid, sort_keys=True):
+        raise AssertionError("H100 guided sweep: its top 5 differ from the batched grid sweep's")
+
+    def top(rows):
+        return [f"tp{r['tp']} pp{r['pp']} ep{r['ep']} z{r['zero']} {r['recompute']} "
+                f"mfu {r['mfu']:.6f}" for r in rows]
+
+    search = {"s": guided_s, "numpy_s": numpy_s, "grid_s": grid_s, "launches": fold,
+              "groups": len(shape_groups), "counters": gdiag.counters, "top": guided}
+    log(f"H100 network (c) guided {model_name} {strategy} on {H100_NETWORK_SYSTEM}: "
+        f"{guided_s:.3f} s, {gdiag.counters.get('sweep_cells_evaluated')} cells evaluated of "
+        f"{gdiag.counters.get('sweep_cells_screened')} screened; fold launches {fold} for "
+        f"{len(shape_groups)} shape groups; rows equal to the numpy fold's ({numpy_s:.3f} s), "
+        f"top 5 the batched grid sweep's ({grid_s:.3f} s)")
+    for i, (h100, tpu) in enumerate(zip(top(guided), top(tpu_top))):
+        log(f"  top {i + 1}: {H100_NETWORK_SYSTEM} {h100} | {SEARCH_SYSTEM} {tpu}")
+    record = {"members": members, "faults": faults, "search": search,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"H100 network phase: {record['phase_s']:.3f} s")
+    return record, {"replay_solve": faults["launches"], "fold_1f1b": fold["fold_1f1b"]}
+
+
 def main():
     import torch
 
@@ -2370,6 +2572,12 @@ def main():
     log(f"search phase: {search['phase_s']:.3f} s")
     table.update(search_rows)
     counts.update(search_launches)
+    # main path 10f: the H100 network's fault analysis and guided sweep
+    network, network_launches = check_h100_network(torch, K, search["guided"]["top"])
+    for kernel, n in network_launches.items():
+        if n <= 0:
+            raise AssertionError(f"{kernel} was not launched on the H100 network's path")
+        counts[kernel] += n
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:
@@ -2390,7 +2598,7 @@ def main():
             "rows": rows, "steps": steps, "int8_ms": int8_ms, "bandwidth": bandwidth,
             "host_slowed": host_slowed_reads, "memory_table": memory, "q8_cases": q8_cases,
             "attribution": attribution, "faults": faults, "search": search,
-            "int8_vocab": int8_vocab}, f, indent=1,
+            "int8_vocab": int8_vocab, "h100_network": network}, f, indent=1,
             default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

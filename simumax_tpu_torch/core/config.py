@@ -25,15 +25,37 @@ TPU-first:
 All times are in **seconds**; bandwidths ``gbps`` are **GB/s** (1e9 bytes
 per second); ``latency_us`` in microseconds.
 
-Copy of the JAX package's ``core/config.py`` with four changes for the
-single-card CUDA slice:
+Copy of the JAX package's ``core/config.py`` with these changes for the
+CUDA port:
 
 * ``StrategyConfig.sdp_backend`` takes ``"torch"`` (eager math
   attention) and ``"cuda"`` (the hand-written flash kernels) instead of
   ``"xla"`` and ``"pallas"``;
-* ``SystemConfig.ici`` and ``SystemConfig.dcn`` are optional: a system
-  without them is one card, and costing a collective on it raises
-  :class:`ConfigError` (the multi-GPU network model is a later slice);
+* ``SystemConfig.ici`` and ``SystemConfig.dcn`` are optional. A GPU
+  system describes its network with ``SystemConfig.nvlink``
+  (:class:`NvlinkConfig`, the NVSwitch domain of one node) and
+  ``SystemConfig.ib`` (:class:`IbConfig`, one InfiniBand rail a GPU
+  between nodes) instead; ``num_slices`` then counts nodes and
+  :attr:`SystemConfig.chips_per_slice` is ``gpus_per_node``. A system
+  with both ``ici`` and ``nvlink`` is a :class:`ConfigError`; a system
+  with neither network is one card, and placing a group of more than
+  one on it, or costing a collective, raises :class:`ConfigError`;
+* :meth:`SystemConfig.place_group` on an NVSwitch system walks the node
+  as one axis of ``gpus_per_node`` with the torus walk's rules for inner
+  strides and misaligned placements, but a span inside the node is
+  ``kind="nvlink"``, never wraps, and has the full ``link_gbps`` with no
+  ``1/inner`` share (a switch has no intermediate chips, and every GPU's
+  links are its own); what remains is one ``kind="ib"`` span at
+  ``gbps_per_gpu``, unshared as well (each GPU has its own rail).
+  :attr:`CommPath.on_dcn` is true for ``dcn`` and ``ib`` spans, and
+  ``_op_spec`` picks the op table by span kind;
+* :meth:`SystemConfig.compute_net_op_terms` costs ``all2all`` on an
+  ``nvlink`` or ``ib`` span as ``local·(e−1)/e`` over the span's
+  bandwidth plus one hop of latency (derived there) in place of the
+  torus's bisection term; every other term, and every term on a torus,
+  is the JAX package's;
+* :meth:`SystemConfig.fingerprint` hashes the NVLink and IB rates where
+  the system has them, as it hashes the ICI and DCN ones;
 * ``AcceleratorSpec.backend`` defaults to ``"cuda"``;
 * the registry reads this package's ``configs/`` first, then the
   repository's, and its override variable is
@@ -833,7 +855,14 @@ class Span:
     gbps: float
     wrap: bool
     latency_us: float
-    kind: str = "ici"  # ici | dcn
+    kind: str = "ici"  # ici | dcn | nvlink | ib
+
+
+#: span kinds behind a switch, where every member reaches every other in
+#: one hop over links of its own (the NVSwitch domain, the IB fabric)
+SWITCHED_KINDS = ("nvlink", "ib")
+#: span kinds that leave the slice or node
+OUTER_KINDS = ("dcn", "ib")
 
 
 @dataclass
@@ -847,7 +876,9 @@ class CommPath:
 
     @property
     def on_dcn(self) -> bool:
-        return any(s.kind == "dcn" for s in self.spans)
+        """True where the path leaves its slice or node (a ``dcn`` or
+        ``ib`` span)."""
+        return any(s.kind in OUTER_KINDS for s in self.spans)
 
     def describe(self) -> str:
         parts = [
@@ -898,6 +929,40 @@ class DcnConfig:
             k: (v if isinstance(v, NetOpSpec) else NetOpSpec(**v))
             for k, v in self.op.items()
         }
+
+
+def _net_op_table(op: Dict[str, Any]) -> Dict[str, NetOpSpec]:
+    return {k: (v if isinstance(v, NetOpSpec) else NetOpSpec(**v)) for k, v in op.items()}
+
+
+@dataclass
+class NvlinkConfig:
+    """The NVSwitch domain of one node: every GPU reaches every other in
+    one switch hop over its own NVLinks. ``link_gbps`` is one GPU's
+    NVLink bandwidth per direction (NVLink 4 on the H100 SXM: 18 links,
+    450 GB/s, datasheet)."""
+
+    gpus_per_node: int = 8
+    link_gbps: float = 450.0
+    latency_us: float = 0.8
+    op: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.op = _net_op_table(self.op)
+
+
+@dataclass
+class IbConfig:
+    """The InfiniBand fabric between nodes, one rail a GPU (a rail-
+    optimised fat tree). ``gbps_per_gpu`` is one GPU's rail per direction
+    (one 400 Gb/s NDR port: 50 GB/s, datasheet)."""
+
+    gbps_per_gpu: float = 50.0
+    latency_us: float = 3.0
+    op: Dict[str, Any] = field(default_factory=dict)
+
+    def __post_init__(self):
+        self.op = _net_op_table(self.op)
 
 
 @dataclass
@@ -953,10 +1018,13 @@ class SystemConfig(ConfigBase):
     sys_name: str = "tpu"
     num_slices: int = 1
     accelerator: Any = field(default_factory=AcceleratorSpec)
-    #: ICI torus / DCN of a TPU system; ``None`` on a single-card CUDA
-    #: system, whose collectives are not modeled yet
+    #: ICI torus / DCN of a TPU system; ``None`` on a GPU system
     ici: Any = None
     dcn: Any = None
+    #: NVSwitch domain / InfiniBand rails of a GPU system (``num_slices``
+    #: counts its nodes); ``None`` on a TPU system and on one card
+    nvlink: Any = None
+    ib: Any = None
     #: checkpoint/restore chain (HBM -> host -> storage), consumed by
     #: the fault/goodput layer; excluded from :meth:`fingerprint`
     #: (it is a policy surface, not calibrated compute identity)
@@ -979,6 +1047,14 @@ class SystemConfig(ConfigBase):
             self.ici = IciConfig(**self.ici)
         if isinstance(self.dcn, dict):
             self.dcn = DcnConfig(**self.dcn)
+        if isinstance(self.nvlink, dict):
+            self.nvlink = NvlinkConfig(**self.nvlink)
+        if isinstance(self.ib, dict):
+            self.ib = IbConfig(**self.ib)
+        if self.ici is not None and self.nvlink is not None:
+            raise ConfigError(
+                f"system {self.sys_name!r} describes both an ICI torus and an "
+                f"NVSwitch domain: give one network")
         if isinstance(self.host, dict):
             self.host = HostConfig(**self.host)
         self.reset_status()
@@ -1007,6 +1083,11 @@ class SystemConfig(ConfigBase):
             ident["ici_link_gbps"] = self.ici.link_gbps
         if self.dcn is not None:
             ident["dcn_gbps_per_chip"] = self.dcn.gbps_per_chip
+        if self.nvlink is not None:
+            ident["nvlink_gpus_per_node"] = self.nvlink.gpus_per_node
+            ident["nvlink_link_gbps"] = self.nvlink.link_gbps
+        if self.ib is not None:
+            ident["ib_gbps_per_gpu"] = self.ib.gbps_per_gpu
         blob = json.dumps(ident, sort_keys=True).encode()
         return hashlib.sha256(blob).hexdigest()[:16]
 
@@ -1087,14 +1168,20 @@ class SystemConfig(ConfigBase):
 
     @property
     def chips_per_slice(self) -> int:
-        return 1 if self.ici is None else self.ici.num_chips
+        """Chips of one ICI slice, or GPUs of one NVSwitch node."""
+        if self.ici is not None:
+            return self.ici.num_chips
+        if self.nvlink is not None:
+            return self.nvlink.gpus_per_node
+        return 1
 
     def _require_network(self, what: str):
-        if self.ici is None or self.dcn is None:
+        if (self.ici is None or self.dcn is None) and (self.nvlink is None or self.ib is None):
             raise ConfigError(
                 f"system {self.sys_name!r} describes one card without a "
-                f"network: {what} needs the multi-GPU network model, "
-                f"which is a later slice of the port (ROADMAP.md)"
+                f"network: {what} needs an ICI torus and DCN, or an "
+                f"NVSwitch domain and InfiniBand (a system config with "
+                f"more than one card, e.g. h100_sxm_8x)"
             )
 
     @property
@@ -1159,14 +1246,30 @@ class SystemConfig(ConfigBase):
         selection (``analysis_net`` perf_llm.py:369-474): dims are laid out
         innermost-first over the torus axes; a group strided *within* an
         axis time-shares that axis's links with its sibling groups.
+
+        On an NVSwitch system the node is one axis of ``gpus_per_node``,
+        walked by the same rules: a span inside it is ``nvlink``, never
+        wraps and keeps the full ``link_gbps`` however the group is
+        strided (no intermediate chips, every GPU's links its own), and
+        what is left of the group is one ``ib`` span at ``gbps_per_gpu``.
         """
         path = CommPath(dim=dim, group_size=group_size)
         if group_size <= 1:
             return path
         self._require_network(f"placing a {dim} group of {group_size}")
+        if self.nvlink is not None:
+            axes, wraparound = [self.nvlink.gpus_per_node], [False]
+            link_gbps, latency_us, kind = self.nvlink.link_gbps, self.nvlink.latency_us, "nvlink"
+            outer = (self.ib.gbps_per_gpu, self.ib.latency_us, "ib")
+            shared, what = False, "NVLink node"
+        else:
+            axes, wraparound = self.ici.axes, self.ici.wraparound
+            link_gbps, latency_us, kind = self.ici.link_gbps, self.ici.latency_us, "ici"
+            outer = (self.dcn.gbps_per_chip, self.dcn.latency_us, "dcn")
+            shared, what = True, "ICI axis"
         remaining = group_size
         inner = inner_size
-        for ax_i, ax in enumerate(self.ici.axes):
+        for ax_i, ax in enumerate(axes):
             if remaining <= 1:
                 break
             if inner >= ax:
@@ -1178,7 +1281,7 @@ class SystemConfig(ConfigBase):
                     # over-estimates link sharing on the outer axes.
                     warnings.warn(
                         f"place_group({dim}): inner stride {inner} does not "
-                        f"tile ICI axis of size {ax}; using a conservative "
+                        f"tile {what} of size {ax}; using a conservative "
                         f"placement",
                         stacklevel=2,
                     )
@@ -1192,36 +1295,43 @@ class SystemConfig(ConfigBase):
             if remaining % extent != 0:
                 extent = math.gcd(remaining, avail)
             covers_axis = (extent * inner == ax)
-            wrap = covers_axis and self.ici.wraparound[ax_i]
-            share = 1.0 / inner  # sibling groups time-share the links
-            gbps = self.ici.link_gbps * (2.0 if wrap else 1.0) * share
+            wrap = covers_axis and wraparound[ax_i]
+            # sibling groups time-share a torus axis's links; behind a
+            # switch every GPU's links are its own
+            share = 1.0 / inner if shared else 1.0
+            gbps = link_gbps * (2.0 if wrap else 1.0) * share
             path.spans.append(
                 Span(
                     extent=extent,
                     gbps=gbps,
                     wrap=wrap,
-                    latency_us=self.ici.latency_us,
-                    kind="ici",
+                    latency_us=latency_us,
+                    kind=kind,
                 )
             )
             remaining //= extent
             inner = 1  # after spanning an axis the group is contiguous
         if remaining > 1:
-            # group extends across slices -> DCN stage outermost
+            # group extends across slices (nodes) -> DCN (IB) stage outermost
             path.spans.append(
                 Span(
                     extent=remaining,
-                    gbps=self.dcn.gbps_per_chip,
+                    gbps=outer[0],
                     wrap=False,
-                    latency_us=self.dcn.latency_us,
-                    kind="dcn",
+                    latency_us=outer[1],
+                    kind=outer[2],
                 )
             )
         return path
 
+    def net_config(self, kind: str):
+        """The network behind a span kind: ``ici``, ``dcn``, ``nvlink``
+        or ``ib``."""
+        return {"ici": self.ici, "dcn": self.dcn, "nvlink": self.nvlink, "ib": self.ib}[kind]
+
     def _op_spec(self, span: Span, op: str) -> NetOpSpec:
         self._require_network(f"costing {op}")
-        table = self.dcn.op if span.kind == "dcn" else self.ici.op
+        table = self.net_config(span.kind).op
         return table.get(op) or table.get("default") or NetOpSpec()
 
     def compute_net_op_time(
@@ -1240,8 +1350,9 @@ class SystemConfig(ConfigBase):
         bandwidth both reduce to the classic ``V*(n-1)/n / bw`` ring bound.
         AllReduce = RS + AG. AllToAll per-axis transposes cost
         ``V*extent/(4*bw)`` each — giving the bisection-limited ~sqrt(n)
-        scaling a 2D torus actually provides. p2p is a single-link
-        neighbour transfer (XLA collective-permute).
+        scaling a 2D torus actually provides; on an ``nvlink`` or ``ib``
+        span (a switch) they cost ``V*(extent-1)/extent / bw`` and one hop.
+        p2p is a single-link neighbour transfer (XLA collective-permute).
         """
         bw_t, lat_t = self.compute_net_op_terms(op, size_bytes, path,
                                                 comm_num)
@@ -1297,6 +1408,17 @@ class SystemConfig(ConfigBase):
             # torus via the hierarchical decomposition)
             local = size_bytes / n
             for span in spans:
+                if span.kind in SWITCHED_KINDS:
+                    # behind a switch: each member keeps 1/e of its v and
+                    # sends the other (e-1)/e, v/e to each peer, while it
+                    # receives as much. Every pair's traffic rides the two
+                    # members' own links through a non-blocking switch, so
+                    # no link carries another pair's bytes and the e-1
+                    # transfers share only the member's link: v*(e-1)/e /
+                    # bw, one switch hop away from every peer
+                    bw_t += (local * (span.extent - 1) / span.extent) / stage_bw(span)
+                    lat_t += stage_lat(span, 1.0)
+                    continue
                 bw_t += (local * span.extent / 4.0) / stage_bw(span)
                 lat_t += stage_lat(span, span.extent / 2.0)
         elif op == "p2p":

@@ -12,13 +12,15 @@ TPU notes: every evaluated candidate records its mesh placement
 dims that spilled over the slice onto DCN).
 
 Copy of the JAX package's ``search/searcher.py`` with its import paths
-changed and one addition: :func:`search_best_parallel_strategy` and
+changed and two additions: :func:`search_best_parallel_strategy` and
 :meth:`StrategySearcher.search` take ``device`` (``"cuda"`` by default),
 where the batched engine's pipeline-schedule fold kernel runs
 (``"cpu"``: its plain version). A batched sweep refuses to start
 without a card unless ``device="cpu"``; ``engine="scalar"`` builds no
-scorer and needs no card. The ``docs/`` this module names are the JAX
-package's.
+scorer and needs no card. And the caches key a system on its network
+(:func:`_network_key`): the torus axes on a TPU system, as the JAX
+package does, the node size on an NVSwitch system, nothing on one card.
+The ``docs/`` this module names are the JAX package's.
 """
 
 from __future__ import annotations
@@ -93,6 +95,16 @@ _SWEPT_FIELDS = frozenset({
 })
 
 
+def _network_key(system) -> tuple:
+    """The network's shape: the ICI torus axes, ``("nvlink", gpus per
+    node)`` on an NVSwitch system, ``()`` on one card."""
+    if system.ici is not None:
+        return tuple(system.ici.axes)
+    if system.nvlink is not None:
+        return ("nvlink", system.nvlink.gpus_per_node)
+    return ()
+
+
 def _model_system_key(model, system) -> tuple:
     """Stable content-ish identity of a (model, system) pair — not
     id() (which CPython reuses after GC). Shared by the result cache
@@ -101,7 +113,7 @@ def _model_system_key(model, system) -> tuple:
         (model.model_name, model.layer_num, model.hidden_size,
          model.vocab_size, model.expert_num, model.attention_type),
         (system.sys_name, system.accelerator.mem_gbs,
-         tuple(system.ici.axes), system.num_slices),
+         _network_key(system), system.num_slices),
     )
 
 

@@ -681,7 +681,8 @@ def math_attention(q, k, v, causal: bool = True):
     ``jax.nn.dot_product_attention`` on its XLA path: fp32 logits of
     the input-dtype operands, scaled, masked with a large negative
     number, an fp32 softmax cast to the value dtype, then P @ V in the
-    value dtype. Query head n reads kv head n // (heads / kv_heads)."""
+    value dtype. Query head n reads kv head n // (heads / kv_heads). The
+    value head may differ from the query's (MLA)."""
     b, sq, n, hd = q.shape
     skv, kvn = k.shape[1], k.shape[2]
     g = n // kvn
@@ -695,8 +696,8 @@ def math_attention(q, k, v, causal: bool = True):
         big_neg = -0.7 * torch.finfo(torch.float32).max
         logits = torch.where(mask, logits, torch.full_like(logits, big_neg))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = probs @ vv  # [b, K, G, T, H]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, n, hd)
+    out = probs @ vv  # [b, K, G, T, Hv]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, n, v.shape[-1])
 
 
 def attention(q, k, v, causal: bool = True, use_flash: Optional[bool] = None):

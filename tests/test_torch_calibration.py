@@ -24,6 +24,7 @@ from simumax_tpu_torch import bench  # noqa: E402
 from simumax_tpu_torch.calibration import autocal, timing, validate  # noqa: E402
 from simumax_tpu_torch.core.config import get_system_config  # noqa: E402
 from simumax_tpu_torch.core.errors import CalibrationError  # noqa: E402
+from simumax_tpu_torch.perf import PerfLLM  # noqa: E402
 from simumax_tpu_torch.tools import build_system_config, validate_memory_table  # noqa: E402
 from simumax_tpu_torch.torchref import kernels as K  # noqa: E402
 from tools import validate_memory_table as jax_memory_table  # noqa: E402
@@ -175,13 +176,53 @@ def test_committed_calibrated_config_records_the_sm_clock_of_each_key_family():
             <= cal.provenance["max_sm_clock_mhz"], family
 
 
+def test_committed_256_gpu_calibrated_config_covers_the_family():
+    """``h100_sxm_256_calibrated`` is ``h100_sxm_256`` with the tables the
+    builder measured on one card over its whole family (``--system
+    h100_sxm_256``): the same peaks and network priors, an SM clock per
+    key family, and every member of the family, the multi-card ones
+    included, finds its keys in the table."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cal = get_system_config("h100_sxm_256_calibrated")
+    priors = get_system_config("h100_sxm_256")
+    assert cal.provenance["system_hash"] == cal.fingerprint()
+    assert "H100" in cal.provenance["card"] and cal.provenance["card"].endswith(" W")
+    assert {k: v.tflops for k, v in cal.accelerator.op.items()} == {
+        k: v.tflops for k, v in priors.accelerator.op.items()}
+    assert (cal.nvlink, cal.ib, cal.host, cal.total_chips) == \
+        (priors.nvlink, priors.ib, priors.host, 256)
+    families = {op for op, spec in cal.accelerator.op.items() if spec.accurate_efficient_factor}
+    assert set(cal.provenance["sm_clock"]) == families | {"bandwidth"}
+    for st, model in build_system_config.representative_perfs():
+        perf = PerfLLM().configure(st, model, cal)
+        perf.run_estimate()
+        assert not perf.system.miss_efficiency, (model.model_name, st.world_size)
+
+
 def test_build_family_is_the_single_card_members_and_the_rows():
+    """The JAX builder's family (its eight single-card members, then its
+    six multi-card members, each estimated on an H100 system that holds
+    its world) and the bench rows."""
     family = build_system_config.representative_perfs()
-    assert len(family) == 8 + len(bench.ROWS)
-    assert all(st.world_size == 1 for st, _ in family)
+    assert len(family) == 8 + 6 + len(bench.ROWS)
+    assert all(st.world_size == 1 for st, _ in family[:8] + family[14:])
     assert {st.sdp_backend for st, _ in family} == {"torch", "cuda"}
     assert [m.model_name for _, m in family[5:8]] == ["mixtral_8x1b", "mixtral_8x1b",
                                                       "llama3_8b"]
+    with warnings.catch_warnings():  # the JAX tool sets a global filter on import
+        from tools import build_tpu_system_config as jax_builder
+    jax_family = jax_builder.representative_perfs("tpu_v5p_256")
+    assert len(jax_family) == 14
+    for (st, model), (jst, jmodel) in zip(family[:14], jax_family):
+        assert (st.world_size, st.tp_size, st.cp_size, st.pp_size, st.ep_size, st.seq_len,
+                st.micro_batch_num, st.recompute_granularity, st.cp_comm_type) == \
+            (jst.world_size, jst.tp_size, jst.cp_size, jst.pp_size, jst.ep_size, jst.seq_len,
+             jst.micro_batch_num, jst.recompute_granularity, jst.cp_comm_type)
+        assert (model.model_name, model.layer_num) == (jmodel.model_name, jmodel.layer_num)
+    for st, _model in family[8:14]:
+        system = get_system_config(build_system_config.multi_card_system(st.world_size))
+        assert system.nvlink is not None and st.world_size <= system.total_chips
 
 
 @pytest.mark.parametrize("case", validate_memory_table.CASES,

@@ -248,6 +248,27 @@ def test_math_attention_matches_dot_product_attention(heads, causal):
     assert _max_diff(ref, got) < 1e-5
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_math_attention_takes_a_value_head_of_its_own(causal):
+    """MLA's value head (128 in DeepSeek-V2) is narrower than its query
+    and key head (192): the calibration times such keys. Held against a
+    float64 softmax(q k^T / sqrt(d)) v (``jax.nn.dot_product_attention``
+    refuses a value head of its own)."""
+    rs = np.random.RandomState(4)
+    q, k = (rs.randn(1, 48, 4, 48).astype(np.float32) for _ in range(2))
+    v = rs.randn(1, 48, 4, 32).astype(np.float32)
+    logits = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64))
+    logits /= np.sqrt(48)
+    if causal:
+        logits = np.where(np.tril(np.ones((48, 48), bool)), logits, -np.inf)
+    probs = np.exp(logits - logits.max(-1, keepdims=True))
+    probs /= probs.sum(-1, keepdims=True)
+    ref = np.einsum("bhqk,bkhd->bqhd", probs, v.astype(np.float64))
+    got = K.math_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v), causal)
+    assert got.shape == (1, 48, 4, 32)
+    assert _max_diff(ref, got) < 1e-5
+
+
 def test_dispatcher_routes_by_the_shared_gate():
     q, k, v = (torch.tensor(x, requires_grad=True) for x in _inputs(3, (1, 128, 2, 64)))
     flash = K.attention(q, k, v, causal=True, use_flash=True)

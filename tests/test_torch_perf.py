@@ -98,12 +98,18 @@ def test_h100_config_is_the_packages_own_and_single_card():
         "sdp_bwd": 989, "int8_matmul": 1979, "int8_group_matmul": 1979}
     assert {v.gbps for v in acc.bandwidth.values()} == {3350}
     assert sysc.ici is None and sysc.dcn is None and sysc.total_chips == 1
+    assert sysc.nvlink is None and sysc.ib is None
     assert sysc.fingerprint()
     assert sysc.place_group("tp", 1, 1).spans == []
-    with pytest.raises(ConfigError, match="later slice"):
+    with pytest.raises(ConfigError, match="one card without a network"):
         sysc.place_group("dp", 1, 2)
     with pytest.raises(ConfigError, match="exceeds"):
         PerfLLM().configure("tp2_pp1_dp4_mbs1", "llama3-8b", "h100_sxm")
+    # the same strategy on one NVSwitch node of eight
+    node = PerfLLM().configure("tp2_pp1_dp4_mbs1", "llama3-8b", "h100_sxm_8x")
+    node.run_estimate()
+    assert node.ctx.paths["tp"].describe() == "tp(2): nvlink[2@450GB/s]"
+    assert 0 < node.analysis_cost()["mfu"] < 1
 
 
 def test_strategy_backends_and_shape_gate():
