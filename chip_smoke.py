@@ -187,7 +187,34 @@ Phases, each fatal on failure:
        the scalar engine's replay; phase d's guided Mixtral-8x7B sweep
        on ``h100_sxm_256``: the fold kernel launched once for each shape
        group, the rows equal as JSON to the numpy fold's, the top 5 the
-       batched grid sweep's.
+       batched grid sweep's;
+    g. the fleet and the planning service on the card: (a) the JAX
+       package's reference fleet trace (``configs/fleet/
+       v5p512_reference.json``: 120 jobs, 4 templates, 512 chips)
+       walked by ``simulate_fleet`` with ``replay_backend="cuda"`` and
+       ``"numpy"``, with and without ``explain``, and with ``jobs=2``
+       (spawned workers, each replaying on the card) against ``jobs=1``:
+       every pair equal as canonical JSON, ``replay_levels_kernel``
+       launched by the cuda walk, and every replay call held bit for bit
+       against the plain version; (b) the port's H100 copy of the trace
+       (each template's ``system`` set to ``h100_sxm_256``) held to the
+       same checks; (c) ``make_server`` on 127.0.0.1 with a ``Planner``
+       on the card over a content store under ``build/``: ``POST
+       /v1/estimate``, ``/v1/faults``, ``/v1/fleet`` (the H100 trace) and
+       a batched ``/v1/search`` stream on ``h100_sxm_256`` at the
+       planner's defaults, each answered 200 and equal to a planner whose
+       replay and folds run on numpy, each a cache hit when asked again,
+       ``/metrics`` with the ``replay_compile_cache_*`` gauges; there the
+       faults launch the replay kernel, while the fleet's and the
+       search's batches stay under the ``auto`` floors; then a second
+       server whose planner forces both backends to ``"cuda"`` serves
+       the fleet and the search again, equal to numpy, with the replay
+       and fold kernels launched (counted apart from the main path's).
+       Every replay and fold call is held bit for bit against its plain
+       version. The walks' and requests' wall times, the cached search's
+       re-verification and garbage-collector time and the replay's
+       device ms are logged. The templates' goodputs are estimates for
+       TPU configs, not the card's.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -234,6 +261,29 @@ SEARCH_BENCH = 4096
 #: of the multi-card family whose tp and dp placements are checked
 H100_NETWORK_SYSTEM = "h100_sxm_256"
 H100_TP8_MEMBER = "llama3-70b tp8 selective"
+#: phase 10g: the JAX package's reference fleet trace (120 jobs, 4
+#: templates on ``tpu_v5e_256``, 512 chips; the templates are TPU configs
+#: read as data) and the port's copy of it on ``h100_sxm_256``
+FLEET_TRACES = {
+    "reference": os.path.join("configs", "fleet", "v5p512_reference.json"),
+    "h100": os.path.join("simumax_tpu_torch", "configs", "fleet", "h100_512_reference.json"),
+}
+#: phase 10g (c): the served queries, each asked again (a cache hit): the
+#: estimate and fault analysis of the JAX package's server tests, the H100
+#: fleet, and a small batched search stream on ``h100_sxm_256``. At the
+#: planner's defaults the faults' replay reaches the kernel; the fleet's
+#: lockstep rounds (one miss a family) and the grid sweep's fold jobs (one
+#: candidate a schedule shape) stay under the ``auto`` floors, so a second
+#: pass serves those two with the backends forced to ``"cuda"``
+SERVE_EST = {"model": "llama3-8b", "strategy": "tp1_pp2_dp4_mbs1", "system": "tpu_v5e_256"}
+SERVE_QUERIES = [
+    ("/v1/estimate", SERVE_EST),
+    ("/v1/faults", {**SERVE_EST, "monte_carlo": 3, "seed": 5, "horizon": 10}),
+    ("/v1/fleet", {"trace": FLEET_TRACES["h100"]}),
+    ("/v1/search", {"model": "llama3-8b", "system": H100_NETWORK_SYSTEM, "gbs": 64,
+                    "world": 64, "tp": "1,2", "pp": "2,4", "zero": "1", "topk": 3,
+                    "engine": "batched", "stream": True}),
+]
 SLICE = dict(b=1, s=2048, h=16, d=128, dtype="bfloat16", causal=True)
 CASES = [
     ("slice", SLICE),
@@ -2452,6 +2502,399 @@ def check_h100_network(torch, K, tpu_top):
     return record, {"replay_solve": faults["launches"], "fold_1f1b": fold["fold_1f1b"]}
 
 
+@contextlib.contextmanager
+def recorded_replays(torch, K):
+    """Record every batched replay call on the card while the block runs:
+    a list of ``(prog, models, raws)``, and beside it the device ms of
+    each ``replay_levels`` launch between two CUDA events."""
+    from simumax_tpu_torch.simulator import batched_replay as br
+
+    calls, events = [], []
+    orig = (br.solve_batch, K.replay_levels)
+
+    def solve_batch(prog, models, device="cuda"):
+        raws = orig[0](prog, models, device=device)
+        if str(device) != "cpu":
+            calls.append((prog, list(models), raws))
+        return raws
+
+    def replay_levels(tables, scen):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig[1](tables, scen)
+        end.record()
+        events.append((start, end))
+        return out
+
+    br.solve_batch, K.replay_levels = solve_batch, replay_levels
+    record = {"calls": calls, "events": events}
+    try:
+        yield record
+    finally:
+        br.solve_batch, K.replay_levels = orig
+        torch.cuda.synchronize()
+        record["device_ms"] = sum(s.elapsed_time(e) for s, e in events)
+
+
+def check_replays(torch, calls, what):
+    """Every recorded replay call against the plain version on the CPU,
+    bit for bit; returns the number of misses checked."""
+    from simumax_tpu_torch.simulator import batched_replay as br
+
+    misses = 0
+    for prog, models, raws in calls:
+        plain = br.replay_solve_plain(br.pack_batch(prog, models, "cpu"))
+        if not torch.equal(torch.from_numpy(raws), plain):
+            raise AssertionError(f"{what}: replay_levels [L {prog.n_ops}, B {len(models)}] "
+                                 f"differs from its plain version")
+        misses += len(models)
+    return misses
+
+
+def canonical_json(payload):
+    return json.dumps(payload, sort_keys=True, separators=(",", ":"))
+
+
+def walk_fleet(torch, K, name, explain_and_jobs):
+    """Phase 10g (a) and (b): one trace walked on the card and on the
+    scalar engine, compared as canonical JSON. Returns (the record, the
+    replay kernel's launches in the counted cuda walk)."""
+    from simumax_tpu_torch.fleet import simulate_fleet
+    from simumax_tpu_torch.simulator.faults import ReplayOptions
+
+    trace = os.path.join(ROOT, FLEET_TRACES[name])
+
+    def walk(backend, **kw):
+        t0 = time.perf_counter()
+        report = simulate_fleet(trace, options=ReplayOptions(replay_backend=backend), **kw)
+        torch.cuda.synchronize()
+        return report, time.perf_counter() - t0
+
+    K.reset_launch_counts()
+    with recorded_replays(torch, K) as rec:
+        on_card, cuda_s = walk("cuda")
+    launches = K.launch_counts()
+    others = {k: n for k, n in launches.items() if n and k != "replay_solve"}
+    if not rec["calls"] or launches["replay_solve"] != len(rec["calls"]) or others:
+        raise AssertionError(f"fleet {name}: launches {launches} for {len(rec['calls'])} "
+                             f"replay calls")
+    misses = check_replays(torch, rec["calls"], f"fleet {name}")
+    scalar, numpy_s = walk("numpy")
+    if canonical_json(on_card) != canonical_json(scalar):
+        raise AssertionError(f"fleet {name}: the cuda walk's report differs from the numpy walk's")
+    record = {"trace": FLEET_TRACES[name], "cuda_s": cuda_s, "numpy_s": numpy_s,
+              "launches": launches["replay_solve"], "misses": misses,
+              "replay_device_ms": rec["device_ms"], "n_jobs": on_card["n_jobs"],
+              "makespan_s": on_card["makespan_s"], "fleet_goodput": on_card["fleet_goodput"],
+              "slo": on_card["slo"]}
+    log(f"fleet {name} [{FLEET_TRACES[name]}]: {on_card['n_jobs']} jobs on "
+        f"{on_card['total_chips']} chips; walk on the card {cuda_s:.3f} s "
+        f"({launches['replay_solve']} replay_levels launches, {misses} misses, each call bit "
+        f"for bit its plain version; replay device {rec['device_ms']:.3f} ms), on numpy "
+        f"{numpy_s:.3f} s, equal as JSON; estimated fleet goodput "
+        f"{on_card['fleet_goodput']:.6f}, makespan {on_card['makespan_s']:.3f} s, SLO "
+        f"{on_card['slo']['attained']}/{on_card['slo']['total']} (the simulator's numbers "
+        f"for its templates, not the card's)")
+    if explain_and_jobs:
+        rich, rich_s = walk("cuda", explain=True)
+        rich_numpy, rich_numpy_s = walk("numpy", explain=True)
+        if canonical_json(rich) != canonical_json(rich_numpy):
+            raise AssertionError(f"fleet {name}: the cuda walk's explain report differs from "
+                                 f"the numpy walk's")
+        if canonical_json({k: v for k, v in rich.items() if k != "explain"}) != \
+                canonical_json(on_card):
+            raise AssertionError(f"fleet {name}: explain changed the base report")
+        pooled, pooled_s = walk("cuda", jobs=2)
+        if canonical_json(pooled) != canonical_json(on_card):
+            raise AssertionError(f"fleet {name}: jobs=2 differs from jobs=1 on the card")
+        record.update(explain_cuda_s=rich_s, explain_numpy_s=rich_numpy_s, jobs2_cuda_s=pooled_s)
+        log(f"fleet {name}: explain=True on the card {rich_s:.3f} s, on numpy "
+            f"{rich_numpy_s:.3f} s, equal as JSON; jobs=2 (spawned workers on the card) "
+            f"{pooled_s:.3f} s, equal to jobs=1")
+    return record, launches["replay_solve"]
+
+
+def check_service(torch, K):
+    """Phase 10g (c): the planning server on the card against a planner on
+    numpy, in two passes.
+
+    The shipped path, a main path: ``make_server`` over
+    ``Planner(device="cuda")`` with its defaults. Its replay runs at
+    ``replay_backend="auto"`` (a family's misses reach the kernel from
+    ``JIT_BATCH_MIN`` up) and its folds at the scorer's ``"auto"`` (a
+    schedule shape's candidates reach the kernel from ``JIT_GROUP_MIN``
+    up), so each query's launches are logged as they come. Each query is
+    asked twice, the second a cache hit; the cached search is asked three
+    times, with the time of its top-k re-verification on the scalar
+    engine apart.
+
+    The forced pass, not a main path: the fleet and the search again, on
+    a second server whose planner's replay backend is ``"cuda"`` and whose
+    scorers fold on ``"cuda"``, as no default does. Its launches show that
+    a served fleet and search go through the kernels and still give the
+    numpy answers; they are counted apart from the main path's.
+
+    Returns (the record, the launches of the shipped path)."""
+    import gc
+    import http.client
+    import shutil
+    import threading
+
+    from simumax_tpu_torch.search import executor as E
+    from simumax_tpu_torch.search import searcher as S
+    from simumax_tpu_torch.service.planner import Planner
+    from simumax_tpu_torch.service.server import make_server, response_bytes
+    from simumax_tpu_torch.service.store import ContentStore
+    from simumax_tpu_torch.simulator.faults import ReplayOptions
+    from simumax_tpu_torch.tools import bench_sweep as BS
+
+    class BackendPlanner(Planner):
+        def __init__(self, backend, **kw):
+            super().__init__(**kw)
+            self.backend = backend
+
+        def replay_options(self):
+            return ReplayOptions(replay_backend=self.backend, device=self.device)
+
+    orig_scorer = E._batched_scorer
+
+    def folding_on(backend):
+        """The shipped scorer factory (its profile seed and its cache
+        bound kept), its scorers' fold backend set to ``backend``."""
+        def make(model, system, device="cuda"):
+            got = orig_scorer(model, system, device)
+            got.backend = backend
+            return got
+        E._SCORERS.clear()
+        E._batched_scorer = make
+
+    def start(make_planner, name):
+        root = os.path.join(ROOT, "build", name)
+        shutil.rmtree(root, ignore_errors=True)
+        srv = make_server(make_planner(ContentStore(root)), "127.0.0.1", 0)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        return srv, thread
+
+    def stop(srv, thread):
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+
+    def ask(srv, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=600)
+        t0 = time.perf_counter()
+        conn.request(method, path, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        wall = time.perf_counter() - t0
+        headers = dict(resp.getheaders())
+        conn.close()
+        if resp.status != 200:
+            raise AssertionError(f"{path}: {resp.status} {data[:300]!r}")
+        return headers, data, wall
+
+    def answer(body, data):
+        """The response's payload bytes (a stream's from its result line)
+        and the stream's cell count."""
+        if not body.get("stream"):
+            return data, None
+        lines = [json.loads(x) for x in data.decode().strip().splitlines()]
+        return response_bytes(lines[-2]["result"]), sum(1 for ln in lines if "cell" in ln)
+
+    verify_s = []
+    orig_verify = S._verify_topk_rows
+
+    def timed_verify(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig_verify(*args, **kw)
+        finally:
+            verify_s.append(time.perf_counter() - t0)
+
+    gc_s, gc_start = [], [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_s.append((info["generation"], time.perf_counter() - gc_start[0]))
+
+    def timed(fn, *args):
+        """``fn(*args)``, with the time the search spent re-verifying its
+        top rows on the scalar engine kept in ``verify_s`` and that of
+        the garbage collector's passes in ``gc_s``."""
+        del verify_s[:], gc_s[:]
+        S._verify_topk_rows = timed_verify
+        gc.callbacks.append(on_gc)
+        try:
+            return fn(*args)
+        finally:
+            gc.callbacks.remove(on_gc)
+            S._verify_topk_rows = orig_verify
+
+    def split():
+        return {"verify_s": sum(verify_s), "gc_s": sum(t for _g, t in gc_s),
+                "gc_full_passes": sum(1 for g, _t in gc_s if g == 2)}
+
+    # (1) the shipped path
+    E._SCORERS.clear()
+    srv, thread = start(lambda store: Planner(store=store, device="cuda"),
+                        "chip_smoke_service")
+    requests = {}
+    try:
+        K.reset_launch_counts()
+        with recorded_replays(torch, K) as rec, BS.recorded_folds() as folds:
+            for path, body in SERVE_QUERIES:
+                before = K.launch_counts()
+                headers, first, first_s = timed(ask, srv, "POST", path, body)
+                after = K.launch_counts()
+                payload, cells = answer(body, first)
+                first_split = split()
+                again = {k: v for k, v in body.items() if k != "stream"}
+                cached_s = []
+                for _ in range(3 if path == "/v1/search" else 1):
+                    headers2, cached, wall = timed(ask, srv, "POST", path, again)
+                    if headers2.get("X-SimuMax-Cache") != "hit" or cached != payload:
+                        raise AssertionError(f"{path}: the repeat answered cache "
+                                             f"{headers2.get('X-SimuMax-Cache')}, equal "
+                                             f"{cached == payload}")
+                    cached_s.append((wall, split()))
+                requests[path] = {
+                    "first_s": first_s, "first_split": first_split,
+                    "cached_s": [w for w, _v in cached_s],
+                    "cached_split": [v for _w, v in cached_s],
+                    "cache": headers.get("X-SimuMax-Cache"), "bytes": len(payload),
+                    "stream_cells": cells, "body": payload,
+                    "launches": {k: after[k] - before[k] for k in after if after[k] - before[k]}}
+        launches = K.launch_counts()
+        _h, metrics, metrics_s = ask(srv, "GET", "/metrics")
+        text = metrics.decode()
+        for name in ("replay_compile_cache_shapes", "replay_compile_cache_capacity",
+                     "http_requests_total", "planner_ops_total"):
+            if name not in text:
+                raise AssertionError(f"/metrics: no {name}")
+    finally:
+        stop(srv, thread)
+    misses = check_replays(torch, rec["calls"], "served queries")
+    fold = launches["fold_1f1b"] + launches["fold_interleaved"]
+    others = {k: n for k, n in launches.items()
+              if n and k not in ("replay_solve", "fold_1f1b", "fold_interleaved")}
+    if launches["replay_solve"] != len(rec["calls"]) or not rec["calls"] or \
+            fold != len(folds) or others:
+        raise AssertionError(f"served queries: launches {launches} for {len(rec['calls'])} "
+                             f"replay calls and {len(folds)} fold calls")
+    for ops, fwd, bwd, p2p, blk, out in fold_calls_by_table(folds):
+        if not torch.equal(K.fold_schedule_plain(ops, fwd, bwd, p2p, blk), out):
+            raise AssertionError("served search: fold_schedule differs from its plain version")
+
+    # (2) the forced pass: the fleet and the search on the kernels
+    forced_queries = [q for q in SERVE_QUERIES if q[0] in ("/v1/fleet", "/v1/search")]
+    folding_on("cuda")
+    srv, thread = start(lambda store: BackendPlanner("cuda", store=store, device="cuda"),
+                        "chip_smoke_service_forced")
+    forced = {}
+    try:
+        K.reset_launch_counts()
+        with recorded_replays(torch, K) as forced_rec, \
+                BS.recorded_folds() as forced_folds:
+            for path, body in forced_queries:
+                before = K.launch_counts()
+                _h, data, wall = ask(srv, "POST", path, body)
+                after = K.launch_counts()
+                forced[path] = {"first_s": wall, "body": answer(body, data)[0],
+                                "launches": {k: after[k] - before[k] for k in after
+                                             if after[k] - before[k]}}
+        forced_launches = K.launch_counts()
+    finally:
+        E._batched_scorer = orig_scorer
+        E._SCORERS.clear()
+        stop(srv, thread)
+    forced_misses = check_replays(torch, forced_rec["calls"], "forced served queries")
+    for ops, fwd, bwd, p2p, blk, out in fold_calls_by_table(forced_folds):
+        if not torch.equal(K.fold_schedule_plain(ops, fwd, bwd, p2p, blk), out):
+            raise AssertionError("forced served search: fold_schedule differs from its plain "
+                                 "version")
+    forced_fold = forced_launches["fold_1f1b"] + forced_launches["fold_interleaved"]
+    if not forced["/v1/fleet"]["launches"].get("replay_solve") or not forced_fold or \
+            forced_fold != len(forced_folds) or \
+            forced_launches["replay_solve"] != len(forced_rec["calls"]):
+        raise AssertionError(f"forced served queries: launches {forced_launches} for "
+                             f"{len(forced_rec['calls'])} replay calls and "
+                             f"{len(forced_folds)} fold calls")
+
+    # the oracle: a planner whose replay and folds run on numpy
+    folding_on("numpy")
+    try:
+        ref = BackendPlanner("numpy", enabled=False, device="cuda")
+        est = ref.estimate(SERVE_EST["model"], SERVE_EST["strategy"], SERVE_EST["system"])
+        faults = ref.faults(SERVE_EST["model"], SERVE_EST["strategy"], SERVE_EST["system"],
+                            monte_carlo=3, seed=5, horizon_steps=10)
+        fleet = ref.fleet(os.path.join(ROOT, FLEET_TRACES["h100"]))
+        search_q = SERVE_QUERIES[3][1]
+        search = ref.search(search_q["model"], search_q["system"], search_q["gbs"],
+                            world=search_q["world"], tp_list=(1, 2), pp_list=(2, 4),
+                            zero_list=(1,), topk=search_q["topk"], engine="batched")
+    finally:
+        E._batched_scorer = orig_scorer
+        E._SCORERS.clear()
+    oracle = dict(zip((q[0] for q in SERVE_QUERIES),
+                      (response_bytes(p) for p in (est, faults, fleet, search))))
+    for what, answers in (("shipped", requests), ("forced", forced)):
+        for path, r in answers.items():
+            if r.pop("body") != oracle[path]:
+                raise AssertionError(f"{path} ({what}): the card's answer differs from the "
+                                     f"numpy planner's")
+    record = {"requests": requests, "launches": launches, "replay_calls": len(rec["calls"]),
+              "replay_misses": misses, "replay_device_ms": rec["device_ms"],
+              "fold_calls": len(folds), "metrics_s": metrics_s,
+              "forced": {"requests": forced, "launches": forced_launches,
+                         "replay_calls": len(forced_rec["calls"]),
+                         "replay_misses": forced_misses,
+                         "replay_device_ms": forced_rec["device_ms"],
+                         "fold_calls": len(forced_folds)}}
+    log("served on the card at the planner's defaults, each equal to the numpy planner's "
+        "answer and a cache hit when asked again (first / cached wall s [launches]): "
+        + "; ".join(f"{p} {r['first_s']:.3f} / "
+                    + ", ".join(f"{w:.4f}" for w in r["cached_s"]) + f" {r['launches']}"
+                    for p, r in requests.items())
+        + f"; the search stream {requests['/v1/search']['stream_cells']} cells")
+    log("the search's asks, first then cached: its top-k re-verification on the scalar "
+        "engine / the garbage collector (full passes), s: " + "; ".join(
+            f"{v['verify_s']:.4f} / {v['gc_s']:.4f} ({v['gc_full_passes']})"
+            for v in [requests["/v1/search"]["first_split"]]
+            + requests["/v1/search"]["cached_split"]))
+    log(f"served at the defaults: replay_levels launches {launches['replay_solve']} ({misses} "
+        f"misses, device {rec['device_ms']:.3f} ms, each call bit for bit its plain version), "
+        f"fold launches {launches['fold_1f1b']} 1F1B + {launches['fold_interleaved']} "
+        f"interleaved; /metrics rendered with the replay_compile_cache gauges in "
+        f"{metrics_s:.4f} s")
+    log("served with the backends forced to cuda (not a main path), equal to the numpy "
+        "planner's answer (wall s [launches]): " + "; ".join(
+            f"{p} {r['first_s']:.3f} {r['launches']}" for p, r in forced.items())
+        + f"; replay device {forced_rec['device_ms']:.3f} ms for {forced_misses} misses, every "
+        f"replay and fold call bit for bit its plain version")
+    return record, launches
+
+
+def check_fleet_service(torch, K):
+    """Phase 10g: (a) the reference fleet, (b) the H100 fleet, (c) the
+    planning server, all on the card. Returns (the phase's record, its
+    launches by kernel)."""
+    t_phase = time.perf_counter()
+    reference, ref_launches = walk_fleet(torch, K, "reference", explain_and_jobs=True)
+    h100, h100_launches = walk_fleet(torch, K, "h100", explain_and_jobs=False)
+    service, served = check_service(torch, K)
+    record = {"reference": reference, "h100": h100, "service": service,
+              "phase_s": time.perf_counter() - t_phase}
+    log(f"fleet and service phase: {record['phase_s']:.3f} s")
+    return record, {"replay_solve": ref_launches + h100_launches + served["replay_solve"],
+                    "fold_1f1b": served["fold_1f1b"],
+                    "fold_interleaved": served["fold_interleaved"]}
+
+
 def main():
     import torch
 
@@ -2578,6 +3021,10 @@ def main():
         if n <= 0:
             raise AssertionError(f"{kernel} was not launched on the H100 network's path")
         counts[kernel] += n
+    # main path 10g: the fleet walks and the planning server
+    fleet_service, fleet_launches = check_fleet_service(torch, K)
+    for kernel, n in fleet_launches.items():
+        counts[kernel] += n
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:
@@ -2598,7 +3045,8 @@ def main():
             "rows": rows, "steps": steps, "int8_ms": int8_ms, "bandwidth": bandwidth,
             "host_slowed": host_slowed_reads, "memory_table": memory, "q8_cases": q8_cases,
             "attribution": attribution, "faults": faults, "search": search,
-            "int8_vocab": int8_vocab, "h100_network": network}, f, indent=1,
+            "int8_vocab": int8_vocab, "h100_network": network,
+            "fleet_service": fleet_service}, f, indent=1,
             default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

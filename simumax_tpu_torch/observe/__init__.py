@@ -3,13 +3,23 @@ waterfall, the per-tensor HBM memory ledger with its peak-memory
 waterfall and OOM forensics, the discrete-event critical-path engine
 (slack, blame, simulated waterfall, sim-vs-analytical divergence),
 ledger diffing, the analytical Chrome-trace / memory-timeline exports,
-telemetry, and the shared structured reporter. The JAX package's fleet
-ledger waits for the port's ``fleet/``."""
+telemetry, the fleet goodput ledger (``fleetledger.py``) and the
+shared structured reporter. Exports what the JAX package's
+``observe/__init__.py`` exports."""
 
 from simumax_tpu_torch.observe.critpath import (
     DependencySkeleton,
     diff_critpath,
     diverge,
+)
+from simumax_tpu_torch.observe.fleetledger import (
+    build_fleet_explain,
+    build_fleet_ledger,
+    diff_fleet_reports,
+    fleet_chrome_trace,
+    fleet_explain_lines,
+    format_fleet_diff_lines,
+    slo_counterfactuals,
 )
 from simumax_tpu_torch.observe.ledger import (
     Ledger,
@@ -33,8 +43,15 @@ __all__ = [
     "MemoryLedger",
     "Reporter",
     "attribution_line",
+    "build_fleet_explain",
+    "build_fleet_ledger",
     "build_memory_waterfall",
     "build_waterfall",
+    "diff_fleet_reports",
+    "fleet_chrome_trace",
+    "fleet_explain_lines",
+    "format_fleet_diff_lines",
+    "slo_counterfactuals",
     "configure_reporter",
     "diff_critpath",
     "diff_ledgers",

@@ -39,11 +39,9 @@ for the span model.
 
 Copy of the JAX package's ``observe/telemetry.py`` with its import
 paths changed and its own closed catalogue: :data:`METRICS` holds the
-metrics this package emits (the ``Diagnostics`` counter mirror, the
-simulator's ``des_*`` heartbeat, the tracer's drop counter, the fault
-replay's ``faults_*`` and ``replay_*`` counters, the content store's
-``store_*`` counters). The serving, pool, ring and fleet metrics return
-with the modules that emit them.
+metrics this package emits, the JAX package's catalogue with the
+batched replay's help texts naming the port's kernel and its
+level-schedule cache.
 """
 
 from __future__ import annotations
@@ -69,6 +67,29 @@ from simumax_tpu_torch.core.errors import ConfigError
 #: the registry. Dynamic
 #: dimensions (endpoint, op, counter name) are labels, not names.
 METRICS: Dict[str, Dict[str, str]] = {
+    "http_requests_total": {
+        "type": "counter",
+        "help": "HTTP requests served by the planning server, "
+                "by endpoint.",
+    },
+    "http_errors_total": {
+        "type": "counter",
+        "help": "HTTP requests that ended in an error, by endpoint.",
+    },
+    "http_request_seconds": {
+        "type": "histogram",
+        "help": "HTTP request wall time in seconds, by endpoint.",
+    },
+    "store_ops_total": {
+        "type": "counter",
+        "help": "Content-addressed store operations, by op "
+                "(hits/misses/puts/evictions/corrupt_dropped).",
+    },
+    "planner_ops_total": {
+        "type": "counter",
+        "help": "Planner facade operations, by op (evaluations/hits/"
+                "misses/singleflight_waits/put_errors).",
+    },
     "diag_counter": {
         "type": "gauge",
         "help": "Latest value of a free-form Diagnostics counter "
@@ -93,6 +114,129 @@ METRICS: Dict[str, Dict[str, str]] = {
         "type": "counter",
         "help": "Span records dropped because a trace exceeded the "
                 "tracer's per-trace buffer bound.",
+    },
+    "pool_workers": {
+        "type": "gauge",
+        "help": "Live planner worker processes in the serving pool.",
+    },
+    "pool_queue_depth": {
+        "type": "gauge",
+        "help": "Requests queued in the worker pool awaiting a "
+                "worker, by priority class.",
+    },
+    "pool_requests_total": {
+        "type": "counter",
+        "help": "Requests executed by pool workers, by outcome "
+                "(ok/error/timeout).",
+    },
+    "pool_queue_wait_seconds": {
+        "type": "histogram",
+        "help": "Wall time a pooled request spent between submission "
+                "and a worker picking it up.",
+    },
+    "pool_worker_restarts_total": {
+        "type": "counter",
+        "help": "Worker processes respawned after dying or being "
+                "killed by the request hard-deadline.",
+    },
+    "pool_retries_total": {
+        "type": "counter",
+        "help": "Requests retried on another worker after their "
+                "assigned worker died mid-query.",
+    },
+    "pool_coalesced_total": {
+        "type": "counter",
+        "help": "Requests coalesced onto an identical in-flight "
+                "request instead of dispatching to a worker.",
+    },
+    "pool_memcache_hits_total": {
+        "type": "counter",
+        "help": "Requests served from the in-memory response cache "
+                "(dependency-validated canonical bytes).",
+    },
+    "pool_memcache_entries": {
+        "type": "gauge",
+        "help": "Entries currently held by the in-memory response "
+                "cache.",
+    },
+    "coalesce_cells_total": {
+        "type": "counter",
+        "help": "Sweep-cell flight-table events, by role "
+                "(leader/follower/abandoned).",
+    },
+    "warmer_jobs_total": {
+        "type": "counter",
+        "help": "Speculative cache-warming jobs, by outcome (warmed/"
+                "duplicate/dropped/skipped_headroom/skipped_remote/"
+                "skipped_degraded/error).",
+    },
+    "ring_nodes": {
+        "type": "gauge",
+        "help": "Fleet members in this node's consistent-hash ring "
+                "view.",
+    },
+    "router_forwards_total": {
+        "type": "counter",
+        "help": "Requests relayed to their ring owner, by destination "
+                "node.",
+    },
+    "router_local_hits_total": {
+        "type": "counter",
+        "help": "Requests whose route key this node already owned "
+                "(served locally, no fleet hop).",
+    },
+    "coalesce_remote_follows_total": {
+        "type": "counter",
+        "help": "Sweep cells served by following another node's "
+                "in-flight evaluation over the wire instead of "
+                "re-evaluating.",
+    },
+    "replica_pulls_total": {
+        "type": "counter",
+        "help": "Store entries copied from a peer's shard by the "
+                "read-only replica pull loop.",
+    },
+    "warmer_cells_total": {
+        "type": "counter",
+        "help": "Neighbor sweep cells precomputed into the store by "
+                "the speculative warmer.",
+    },
+    "admission_rejected_total": {
+        "type": "counter",
+        "help": "Requests shed with 429 by admission control, by "
+                "priority class.",
+    },
+    "ring_epoch": {
+        "type": "gauge",
+        "help": "Membership version of this node's live ring view "
+                "(bumped on every failure-detector remove/rejoin).",
+    },
+    "ring_member_state": {
+        "type": "gauge",
+        "help": "Failure-detector verdict per fleet peer "
+                "(0=up, 1=suspect, 2=down), by node.",
+    },
+    "router_hop_timeouts_total": {
+        "type": "counter",
+        "help": "Forward hops abandoned because the peer accepted "
+                "the connection but exceeded the per-hop read "
+                "deadline, by destination node.",
+    },
+    "hedged_requests_total": {
+        "type": "counter",
+        "help": "Hedged second sends for slow read-only forwards, by "
+                "outcome (won/lost/failed).",
+    },
+    "store_quarantined_total": {
+        "type": "counter",
+        "help": "Corrupt/torn store entries moved into .quarantine/ "
+                "(read-path drops, verify --drop, and the start-time "
+                "recovery sweep all route here).",
+    },
+    "chaos_injections_total": {
+        "type": "counter",
+        "help": "Fault injections fired by the chaos harness, by "
+                "kind (kill/stop/drop/delay/corrupt).",
     },
     "faults_scenarios_total": {
         "type": "counter",
@@ -129,16 +273,45 @@ METRICS: Dict[str, Dict[str, str]] = {
                 "unknown_kind/no_streams/lowering_error/"
                 "small_batch/backend_numpy).",
     },
-    "store_ops_total": {
+    "fleet_jobs_total": {
         "type": "counter",
-        "help": "Content-addressed store operations, by op "
-                "(hits/misses/puts/evictions/corrupt_dropped).",
+        "help": "Fleet-simulation job events, by event (admitted/"
+                "queued/resumed/preempted/reclaimed/reshaped/"
+                "restarted/frozen/completed/starved).",
     },
-    "store_quarantined_total": {
+    "fleet_template_ctx_total": {
         "type": "counter",
-        "help": "Corrupt/torn store entries moved into .quarantine/ "
-                "(read-path drops, verify --drop, and the start-time "
-                "recovery sweep all route here).",
+        "help": "Fleet job costings by template replay-context fate: "
+                "kind=built paid a fresh healthy-step DES + replay "
+                "state, kind=shared reused another job's context — "
+                "the cross-job amortization the fleet bench gates.",
+    },
+    "fleet_slo_attainment": {
+        "type": "gauge",
+        "help": "Fraction of SLO-carrying jobs meeting their goodput "
+                "SLO in the most recent fleet trace walk.",
+    },
+    "replay_compile_cache_shapes": {
+        "type": "gauge",
+        "help": "Level schedules (one a distinct op table) currently "
+                "held by the batched replay's LRU.",
+    },
+    "replay_compile_cache_capacity": {
+        "type": "gauge",
+        "help": "Entry bound of the batched replay's level-schedule "
+                "LRU (the oldest entry goes when it would be "
+                "exceeded).",
+    },
+    "fleet_explain_jobs_total": {
+        "type": "counter",
+        "help": "Completed jobs attributed by the fleet goodput "
+                "ledger (one observer re-drive each, "
+                "observe/fleetledger.py).",
+    },
+    "fleet_probes_total": {
+        "type": "counter",
+        "help": "SLO counterfactual probes re-costed by the fleet "
+                "ledger, by outcome (recovers/no/error/starved).",
     },
 }
 

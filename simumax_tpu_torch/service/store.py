@@ -42,8 +42,8 @@ Copy of the JAX package's ``service/store.py`` with its import paths
 changed: :func:`code_version` reads ``simumax_tpu_torch.version``, and
 the ``store_*`` metrics join the port's telemetry catalogue. The port's
 searcher keys its sweep cells with :func:`content_key` and takes a
-:class:`ContentStore` for its ``store=`` argument; the rest of the
-service layer is not ported yet.
+:class:`ContentStore` for its ``store=`` argument, and the planner
+(``planner.py``) serves its queries from it.
 """
 
 from __future__ import annotations

@@ -52,8 +52,10 @@ becomes the CUDA kernel and the plain version here, which take the op
 count, the batch size and the fault arrays' real widths as they are
 (the JAX package pads each to a power of two and repeats the last
 scenario into padded batch rows for XLA's compile cache, which changes
-no result). ``jax_unavailable`` and the compile cache have no
-counterpart.
+no result). ``jax_unavailable`` has no counterpart. The port's one
+bounded cache a shape on this path is the level-schedule LRU
+(``_SCHEDULES``): :func:`compile_cache_info` reports it under the
+compile cache's two gauge names.
 """
 
 from __future__ import annotations
@@ -801,6 +803,22 @@ def level_schedule(prog: LoweredProgram) -> Tuple[np.ndarray, np.ndarray]:
 #: of one analysis (one per touched-rank partition) share a few tables
 _SCHEDULES: "OrderedDict[bytes, Tuple[np.ndarray, np.ndarray]]" = OrderedDict()
 SCHEDULES_KEPT = 64
+
+
+def compile_cache_info(registry=None) -> Dict[str, int]:
+    """Observability hook, the counterpart of the JAX package's XLA
+    compile-cache report: the level schedules held (one a distinct op
+    table, :func:`level_schedule`) and the LRU's bound
+    (:data:`SCHEDULES_KEPT`), set on the ``replay_compile_cache_shapes``
+    and ``replay_compile_cache_capacity`` gauges. Collect-on-scrape: the
+    gauges mirror module state, so callers refresh them by calling this
+    (the server does it per ``/metrics`` scrape)."""
+    from simumax_tpu_torch.observe.telemetry import get_registry
+
+    reg = registry if registry is not None else get_registry()
+    reg.gauge("replay_compile_cache_shapes").set(len(_SCHEDULES))
+    reg.gauge("replay_compile_cache_capacity").set(SCHEDULES_KEPT)
+    return {"compiled_shapes": len(_SCHEDULES), "capacity": SCHEDULES_KEPT}
 
 
 def _schedule_key(prog: LoweredProgram) -> bytes:

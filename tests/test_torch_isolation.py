@@ -41,9 +41,19 @@ def _modules():
         yield rel[: -len(".__init__")] if rel.endswith(".__init__") else rel
 
 
+#: the fleet and service modules, which the module walk must reach
+FLEET_AND_SERVICE = [f"simumax_tpu_torch.fleet.{m}" for m in ("trace", "sim", "report")] + [
+    "simumax_tpu_torch.fleet", "simumax_tpu_torch.observe.fleetledger",
+    "simumax_tpu_torch.service"] + [
+    f"simumax_tpu_torch.service.{m}" for m in (
+        "store", "coalesce", "ring", "router", "planner", "warmer", "pool", "node", "chaos",
+        "server")]
+
+
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     mods = sorted(_modules())
     assert "simumax_tpu_torch.torchref.kernels" in mods and len(mods) >= 20
+    assert set(FLEET_AND_SERVICE) <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -130,3 +140,17 @@ def test_every_public_device_parameter_defaults_to_the_card():
                 wrong.append(f"{modname}.{name}: device={param.default!r}")
     assert "simumax_tpu_torch.torchref.parallel.run_pp_steps" in seen and len(seen) >= 10
     assert not wrong, "\n".join(wrong)
+
+
+def test_the_serving_entry_points_take_the_card_by_default():
+    """The planner, the server and the worker pool run the kernels on
+    the card unless told ``device="cpu"``; a fleet node runs them where
+    its planner does."""
+    import inspect
+
+    from simumax_tpu_torch.service.planner import Planner
+    from simumax_tpu_torch.service.pool import WorkerPool
+    from simumax_tpu_torch.service.server import make_server
+
+    for fn in (Planner.__init__, make_server, WorkerPool.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__

@@ -46,7 +46,7 @@ def test_the_catalogue_is_closed_over_the_ports_sources():
         assert kinds == {T.METRICS[name]["type"]}, name
         assert T.METRICS[name]["help"]
     with pytest.raises(ConfigError, match="unknown metric name"):
-        T.MetricsRegistry().counter("http_requests_total")
+        T.MetricsRegistry().counter("no_such_metric_total")
 
 
 def test_diagnostics_counters_mirror_to_a_gauge():
