@@ -214,7 +214,29 @@ Phases, each fatal on failure:
        version. The walks' and requests' wall times, the cached search's
        re-verification and garbage-collector time and the replay's
        device ms are logged. The templates' goodputs are estimates for
-       TPU configs, not the card's.
+       TPU configs, not the card's;
+    h. the command line (``python -m simumax_tpu_torch``): (a) ``list``
+       and ``perf`` of the flash row's strategy (written as JSON into a
+       temporary directory) on ``bench-llama-0p5b`` and
+       ``h100_sxm_calibrated`` as child processes, each exiting 0, the
+       ``perf`` iteration time (its ``--log-json`` record) equal to an
+       in-process ``PerfLLM`` estimate's; (b) ``faults --monte-carlo 8``
+       of phase c's worked example through ``cli.main`` under ``--device
+       cuda`` (the replay kernel launched, and no other kernel) and under
+       ``--device cpu``, the two outputs and ``--json`` analyses equal;
+       (c) the guided Mixtral-8x7B sweep of phase d through ``search
+       --engine batched`` in the same way (the fold kernel launched, the
+       ``--csv`` rows equal byte for byte); (d) ``calibrate`` of the
+       flash row's strategy at seq 1024 x mbs 2 on
+       ``h100_sxm_calibrated``, whose only misses are one ``backend=cuda``
+       ``sdp_fwd`` and one ``sdp_bwd`` key, with ``--max-keys 2 --save``:
+       the three flash kernels launched, each measured efficiency in
+       (0, 1], the saved JSON a system config; then ``calibrate
+       --collectives`` logging its skip on the one card; (e) ``serve`` as
+       a child process: one ``POST /v1/estimate`` answered as an
+       in-process planner answers, then SIGTERM and exit 0. The children
+       run beside (b)-(d). Every count and wall time is logged beside the
+       card's name and power limit.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -284,6 +306,23 @@ SERVE_QUERIES = [
                     "world": 64, "tp": "1,2", "pp": "2,4", "zero": "1", "topk": 3,
                     "engine": "batched", "stream": True}),
 ]
+#: phase 10h: the command line's model and systems, the calibration's
+#: flash strategy (seq x mbs; on the calibrated config its only misses
+#: are the attention keys, one each), and the sweep of phase 10d as
+#: ``search`` arguments
+CLI_MODEL = "bench-llama-0p5b"
+CLI_SYSTEM = "h100_sxm_calibrated"
+CLI_CALIBRATE = (1024, 2)
+CLI_FAULTS = ["--model", FAULT_CONFIG[1], "--strategy", FAULT_CONFIG[0],
+              "--system", FAULT_CONFIG[2], "--monte-carlo", str(FAULT_ANALYSIS["n_scenarios"]),
+              "--seed", str(FAULT_ANALYSIS["seed"]),
+              "--horizon", str(FAULT_ANALYSIS["horizon_steps"])]
+CLI_SEARCH = ["--model", SEARCH_MOE[0], "--base-strategy", SEARCH_MOE[1],
+              "--system", SEARCH_SYSTEM, "--world", str(SEARCH_WORLD),
+              "--gbs", str(SEARCH_GBS), "--topk", "5", "--engine", "batched", "--guided",
+              "--no-cache"] + [
+    arg for dim in ("tp", "pp", "ep", "zero")
+    for arg in (f"--{dim}", ",".join(map(str, SEARCH_MOE[2][f"{dim}_list"])))]
 SLICE = dict(b=1, s=2048, h=16, d=128, dtype="bfloat16", causal=True)
 CASES = [
     ("slice", SLICE),
@@ -2895,6 +2934,214 @@ def check_fleet_service(torch, K):
                     "fold_interleaved": served["fold_interleaved"]}
 
 
+def run_cli(argv):
+    """``simumax_tpu_torch.cli.main(argv)`` in this process: (its stdout
+    lines, with a diagnostics line's run id dropped, seconds). A nonzero
+    exit fails the phase."""
+    import io
+
+    from simumax_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(argv)
+    except SystemExit as exc:
+        if exc.code:
+            raise AssertionError(f"{argv[0]} exited {exc.code!r}:\n{out.getvalue()[-2000:]}")
+    wall = time.perf_counter() - t0
+    lines = []
+    for line in out.getvalue().splitlines():
+        if line.startswith("[diagnostics] {"):
+            report = json.loads(line[len("[diagnostics] "):])
+            report.pop("run_id", None)
+            line = "[diagnostics] " + canonical_json(report)
+        lines.append(line)
+    return lines, wall
+
+
+def start_child(args, log_path):
+    """``python -m simumax_tpu_torch ARGS`` from the repository's root,
+    its output into ``log_path``."""
+    f = open(log_path, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", "simumax_tpu_torch", *args], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT)
+    finally:
+        f.close()
+
+
+def finish_child(proc, log_path, what, timeout=300):
+    """Wait for a child; its output. A nonzero exit fails the phase."""
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as f:
+        out = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n{out[-3000:]}")
+    return out
+
+
+def check_cli(torch, K, card):
+    """Phase 10h: the command line on the card. Children: ``list``,
+    ``perf`` of the flash row's strategy, ``serve``; in this process,
+    each with the launch counts set to 0 just before and read just after:
+    ``faults``, ``search --engine batched`` and ``calibrate`` under
+    ``--device cuda``, the first two again under ``--device cpu`` and
+    compared. Returns (the phase's record, the launches of its main
+    paths)."""
+    import http.client
+    import signal
+    import socket
+    import tempfile
+
+    from simumax_tpu_torch import PerfLLM, bench
+    from simumax_tpu_torch.core.config import SystemConfig
+    from simumax_tpu_torch.service.planner import Planner
+    from simumax_tpu_torch.service.server import response_bytes
+
+    t_phase = time.perf_counter()
+    record, launches = {"card": card}, {}
+    flash_keys = set(FLASH)
+    with tempfile.TemporaryDirectory() as tmp:
+        strategy = os.path.join(tmp, "flash_row.json")
+        with open(strategy, "w") as f:
+            json.dump(bench.row_strategy("flash").to_dict(), f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t_children = time.perf_counter()
+        children = {
+            "list": start_child(["list"], os.path.join(tmp, "list.log")),
+            "perf": start_child(["perf", "--model", CLI_MODEL, "--strategy", strategy,
+                                 "--system", CLI_SYSTEM, "--log-json",
+                                 "--cache-dir", os.path.join(tmp, "perf-cache")],
+                                os.path.join(tmp, "perf.log")),
+            "serve": start_child(["serve", "--port", str(port),
+                                  "--cache-dir", os.path.join(tmp, "serve-cache")],
+                                 os.path.join(tmp, "serve.log")),
+        }
+        try:
+            # (b) faults, (c) search: on the card, then the plain versions
+            for name, argv, kernels in (
+                    ("faults", ["faults", *CLI_FAULTS], {"replay_solve"}),
+                    ("search", ["search", *CLI_SEARCH], {"fold_1f1b", "fold_interleaved"})):
+                artifact = os.path.join(tmp, f"{name}.{'csv' if name == 'search' else 'json'}")
+                flag = "--csv" if name == "search" else "--json"
+                K.reset_launch_counts()
+                card_lines, card_s = run_cli(argv + [flag, artifact])
+                counts = K.launch_counts()
+                with open(artifact, "rb") as f:
+                    card_bytes = f.read()
+                plain = ["--jobs", "1"] if name == "search" else []
+                cpu_lines, cpu_s = run_cli(argv + [flag, artifact, "--device", "cpu", *plain])
+                with open(artifact, "rb") as f:
+                    cpu_bytes = f.read()
+                ran = {k: n for k, n in counts.items() if n}
+                if not ran or set(ran) - kernels:
+                    raise AssertionError(f"cli {name}: launches {ran}, expected only {kernels}")
+                if card_bytes != cpu_bytes or card_lines != cpu_lines:
+                    raise AssertionError(f"cli {name}: --device cuda and --device cpu differ")
+                launches.update(ran)
+                record[name] = {"launches": ran, "cuda_s": card_s, "cpu_s": cpu_s,
+                                "lines": len(card_lines)}
+                log(f"phase 10h {name} ({card}): {ran} launches, --device cuda {card_s:.3f} s, "
+                    f"--device cpu {cpu_s:.3f} s, equal outputs ({len(card_lines)} lines)")
+
+            # (d) calibrate the flash keys of the flash strategy at seq x mbs
+            seq, mbs = CLI_CALIBRATE
+            cal_strategy = os.path.join(tmp, "flash_cal.json")
+            with open(cal_strategy, "w") as f:
+                json.dump(bench.row_strategy("flash", seq, mbs).to_dict(), f)
+            saved = os.path.join(tmp, "calibrated.json")
+            cal_args = ["calibrate", "--model", CLI_MODEL, "--strategy", cal_strategy,
+                        "--system", CLI_SYSTEM]
+            K.reset_launch_counts()
+            cal_lines, cal_s = run_cli(cal_args + ["--max-keys", "2", "--save", saved])
+            counts = K.launch_counts()
+            ran = {k: n for k, n in counts.items() if n}
+            if set(ran) != flash_keys:
+                raise AssertionError(f"cli calibrate: launches {ran}, expected {sorted(FLASH)}")
+            system = SystemConfig.init_from_config_file(saved)
+            measured = {}
+            for op in ("sdp_fwd", "sdp_bwd"):
+                for key, eff in system.accelerator.op[op].accurate_efficient_factor.items():
+                    if key.startswith("backend=cuda, ") and f"b={mbs}, sq={seq}," in key:
+                        measured[op] = eff
+            if sorted(measured) != ["sdp_bwd", "sdp_fwd"] or not all(
+                    math.isfinite(e) and 0 < e <= 1 for e in measured.values()):
+                raise AssertionError(f"cli calibrate: measured {measured}")
+            launches.update(ran)
+            record["calibrate"] = {"launches": ran, "s": cal_s, "efficiency": measured}
+            log(f"phase 10h calibrate ({card}): {ran} launches, {cal_s:.3f} s, "
+                f"sdp_fwd {measured['sdp_fwd']:.4f}, sdp_bwd {measured['sdp_bwd']:.4f} "
+                f"(backend=cuda, b={mbs}, sq={seq}); saved and loaded back")
+            coll_lines, coll_s = run_cli(cal_args + ["--collectives", "--max-keys", "0"])
+            if "[cal] collectives: need >1 device, skipping" not in coll_lines:
+                raise AssertionError("cli calibrate --collectives: no skip on one card")
+            record["collectives_s"] = coll_s
+            log(f"phase 10h calibrate --collectives ({card}): skipped on 1 card, {coll_s:.3f} s")
+
+            # (a) the children
+            out = finish_child(children.pop("list"), os.path.join(tmp, "list.log"), "list")
+            if f"  {CLI_SYSTEM}" not in out.splitlines():
+                raise AssertionError(f"cli list: no {CLI_SYSTEM}")
+            out = finish_child(children.pop("perf"), os.path.join(tmp, "perf.log"), "perf")
+            cost = [json.loads(x) for x in out.splitlines() if '"perf_cost"' in x]
+            perf = PerfLLM().configure(strategy, CLI_MODEL, CLI_SYSTEM)
+            perf.run_estimate()
+            want = perf.analysis_cost()["iter_time_ms"]
+            if len(cost) != 1 or cost[0]["iter_time_ms"] != want:
+                raise AssertionError(f"cli perf: {cost} against {want} ms in process")
+            children_s = time.perf_counter() - t_children
+            record["perf_iter_time_ms"] = want
+            log(f"phase 10h list and perf ({card}): children exited 0 in {children_s:.3f} s "
+                f"of the phase; perf iteration {want!r} ms, equal in process")
+
+            # (e) serve
+            deadline = time.monotonic() + 120
+            body = json.dumps(SERVE_EST)
+            while True:
+                try:
+                    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                    t0 = time.perf_counter()
+                    conn.request("POST", "/v1/estimate", body,
+                                 {"Content-Type": "application/json"})
+                    resp = conn.getresponse()
+                    data = resp.read()
+                    serve_s = time.perf_counter() - t0
+                    conn.close()
+                    break
+                except OSError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.2)
+            want = response_bytes(Planner(enabled=False).estimate(
+                SERVE_EST["model"], SERVE_EST["strategy"], SERVE_EST["system"]))
+            if resp.status != 200 or data != want:
+                raise AssertionError(f"cli serve: {resp.status} {data[:200]!r}")
+            serve = children.pop("serve")
+            serve.send_signal(signal.SIGTERM)
+            out = finish_child(serve, os.path.join(tmp, "serve.log"), "serve", timeout=60)
+            if "[serve] planning service on http://127.0.0.1:" not in out:
+                raise AssertionError("cli serve: no start line")
+            record["serve_estimate_s"] = serve_s
+            log(f"phase 10h serve ({card}): /v1/estimate 200 in {serve_s:.4f} s, equal to "
+                f"the in-process planner's; SIGTERM, exit 0")
+        finally:
+            for proc in children.values():
+                proc.kill()
+                proc.wait()
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"command-line phase ({card}): {record['phase_s']:.3f} s")
+    return record, launches
+
+
 def main():
     import torch
 
@@ -3025,6 +3272,10 @@ def main():
     fleet_service, fleet_launches = check_fleet_service(torch, K)
     for kernel, n in fleet_launches.items():
         counts[kernel] += n
+    # main path 10h: the command line
+    command_line, cli_launches = check_cli(torch, K, card)
+    for kernel, n in cli_launches.items():
+        counts[kernel] += n
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:
@@ -3046,7 +3297,7 @@ def main():
             "host_slowed": host_slowed_reads, "memory_table": memory, "q8_cases": q8_cases,
             "attribution": attribution, "faults": faults, "search": search,
             "int8_vocab": int8_vocab, "h100_network": network,
-            "fleet_service": fleet_service}, f, indent=1,
+            "fleet_service": fleet_service, "command_line": command_line}, f, indent=1,
             default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -46,7 +46,7 @@ import torch
 
 from simumax_tpu_torch.calibration.timing import time_graph
 from simumax_tpu_torch.core.config import BandwidthSpec
-from simumax_tpu_torch.core.errors import CalibrationError
+from simumax_tpu_torch.core.errors import CalibrationError, CardRequiredError
 from simumax_tpu_torch.core.records import Diagnostics
 from simumax_tpu_torch.core.utils import cuda_flash_supported
 from simumax_tpu_torch.observe.report import get_reporter
@@ -132,7 +132,7 @@ def _card(device) -> torch.device:
     """The CUDA device a measurement runs on; anything else raises."""
     dev = resolve_device(device)
     if dev.type != "cuda":
-        raise RuntimeError(f"calibration measures on the CUDA card, not on {dev}")
+        raise CardRequiredError(f"calibration measures on the CUDA card, not on {dev}")
     return dev
 
 

@@ -1117,7 +1117,7 @@ class SystemConfig(ConfigBase):
             warnings.warn(
                 f"system {self.sys_name!r}: calibration tables are stale — "
                 f"stamped for hardware {stamped}, this config is "
-                f"{self.fingerprint()}; re-run calibrate_for_perf "
+                f"{self.fingerprint()}; re-run `simumax_tpu_torch calibrate` "
                 f"(estimates will use possibly-skewed efficiencies)",
                 stacklevel=2,
             )
@@ -1138,7 +1138,7 @@ class SystemConfig(ConfigBase):
                 warnings.warn(
                     f"system {self.sys_name!r}: calibration tables are "
                     f"{age} days old (> {self.PROVENANCE_MAX_AGE_DAYS}); "
-                    f"consider re-running calibrate_for_perf",
+                    f"consider re-running `simumax_tpu_torch calibrate`",
                     stacklevel=2,
                 )
 

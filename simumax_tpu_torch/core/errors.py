@@ -19,6 +19,14 @@ Hierarchy::
     │   └── DeadlockError               (defined in simulator/engine.py)
     └── CandidateTimeoutError           per-candidate sweep deadline hit
 
+    CardRequiredError (RuntimeError)    the port's: no CUDA card for work
+                                        that runs on one
+
+The JAX package's taxonomy, with one addition of the PyTorch/CUDA
+port: :class:`CardRequiredError`, outside the ``SimuMaxError`` family
+(it is no fact about a configuration or a simulation: the machine
+lacks the card the caller asked for).
+
 This module must stay import-light (stdlib only): it sits below
 ``core/config.py`` and is imported by every layer.
 """
@@ -123,7 +131,15 @@ class CandidateTimeoutError(SimuMaxError):
     interrupted (see ``search/searcher.py`` fault isolation)."""
 
 
+class CardRequiredError(RuntimeError):
+    """Work that runs on the CUDA card was asked for where there is
+    none: the machine has no card, or a card-only measurement was given
+    the CPU. Nothing carries on on the CPU in its place; the command
+    line prints it as one line."""
+
+
 __all__ = [
+    "CardRequiredError",
     "SimuMaxError",
     "ConfigError",
     "FeasibilityError",

@@ -52,13 +52,13 @@ member, and binding ties break toward smaller ranks, so the reduced
 path expands bit-identically to the exact full-world path — asserted
 on the parity grid in ``tests/test_critpath.py``).
 
-Consumers: ``PerfLLM.critical_path``, ``simulate(critical_path=True)``
+Consumers: ``simumax_tpu_torch critical-path``, ``perf --simulate
+--critical-path``, ``diff --critical-path``, ``PerfLLM.critical_path``
 and the fault model's slack gate; schema and a worked triage example
 in the JAX package's ``docs/observability.md``.
 
 Copy of the JAX package's ``observe/critpath.py`` with its import paths
-changed and its command-line surface, which the port does not have yet,
-no longer named as a consumer or in an error message.
+changed.
 """
 
 from __future__ import annotations
@@ -1042,7 +1042,7 @@ def load_report(path: str) -> Dict[str, Any]:
         raise ConfigError(
             f"{path}: not a simumax critical-path report "
             f"(schema={schema!r}; expected {CRITPATH_SCHEMA!r} — produce "
-            f"one with `save_report`)"
+            f"one with `simumax_tpu_torch critical-path ... --json PATH`)"
         )
     return data
 

@@ -21,14 +21,14 @@ Collection is strictly post-hoc and read-only: a run that never calls
 predictions (the sweep therefore opts out by default and keeps its
 throughput — see ``bench_sweep.py --baseline``).
 
-Consumers: :func:`diff_ledgers` and the analytical Chrome-trace export
-(``observe/trace.py``). Schema and a worked triage example: the JAX
-package's ``docs/observability.md``.
+Consumers: ``simumax_tpu_torch explain`` (waterfall + top-N op table,
+``--json``/``--csv``), ``simumax_tpu_torch diff`` (:func:`diff_ledgers`),
+and the analytical Chrome-trace export (``observe/trace.py``). Schema
+and a worked triage example: the JAX package's
+``docs/observability.md``.
 
 Copy of the JAX package's ``observe/ledger.py`` with its import paths
-changed and the JAX package's command-line surface (``explain``,
-``diff``), which the port does not have yet, no longer named as a
-consumer or in an error message.
+changed.
 """
 
 from __future__ import annotations
@@ -465,7 +465,7 @@ class Ledger:
             raise ConfigError(
                 f"{path}: not a simumax ledger (schema={schema!r}; "
                 f"expected {LEDGER_SCHEMA!r} — produce one with "
-                f"`Ledger.save`)"
+                f"`simumax_tpu_torch explain ... --json PATH`)"
             )
         return data
 

@@ -37,13 +37,11 @@ Three more surfaces ride on the same data:
   build-reuse fast path, recompute escalation, the next ZeRO stage),
   ranked so the *cheapest fitting change* is named explicitly.
 
-Schema: the JAX package's ``docs/observability.md``.
+CLI: ``simumax_tpu_torch explain --memory`` and ``simumax_tpu_torch diff
+--memory`` (see the JAX package's ``docs/observability.md``).
 
 Copy of the JAX package's ``observe/memledger.py`` with its import paths
-changed and the JAX package's command-line surface (``explain
---memory``, ``diff --memory``), which the port does not have yet, no
-longer named in its docstring or an error message, and the snapshot schema tag naming
-this package.
+changed and the snapshot schema tag naming this package.
 """
 
 from __future__ import annotations
@@ -869,7 +867,7 @@ class MemoryLedger:
             raise ConfigError(
                 f"{path}: not a simumax memory ledger (schema={schema!r}; "
                 f"expected {MEM_LEDGER_SCHEMA!r} — produce one with "
-                f"`MemoryLedger.save`)"
+                f"`simumax_tpu_torch explain ... --memory --json PATH`)"
             )
         return data
 

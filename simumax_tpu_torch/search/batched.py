@@ -477,8 +477,12 @@ def check_fold_backend(backend: str, device: str) -> None:
         return
     import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError(
+    from simumax_tpu_torch.core.errors import CardRequiredError
+
+    # NVML's count: unlike cudaGetDeviceCount it leaves CUDA
+    # uninitialised, so the sweep's pool can still fork workers that fold
+    if torch.cuda.device_count() < 1:
+        raise CardRequiredError(
             f"backend={backend!r} folds pipeline schedules with the "
             f"CUDA kernel and this machine has no card: pass "
             f"device=\"cpu\" for its plain PyTorch version, or "

@@ -1149,8 +1149,13 @@ def check_backend(backend: str, device: str) -> None:
         return
     import torch
 
-    if not torch.cuda.is_available():
-        raise RuntimeError(
+    from simumax_tpu_torch.core.errors import CardRequiredError
+
+    # NVML's count: unlike cudaGetDeviceCount it leaves CUDA
+    # uninitialised, so the analysis's pool can still fork workers that
+    # replay
+    if torch.cuda.device_count() < 1:
+        raise CardRequiredError(
             f"replay_backend={backend!r} replays miss batches with the "
             f"CUDA kernel and this machine has no card: pass "
             f"ReplayOptions(device=\"cpu\") for its plain PyTorch "

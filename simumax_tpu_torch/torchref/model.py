@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from simumax_tpu_torch.core.errors import CardRequiredError
 from simumax_tpu_torch.torchref.kernels import attention, math_attention
 from simumax_tpu_torch.torchref.quantized import int8_matmul
 
@@ -59,7 +60,7 @@ def resolve_device(device="cuda") -> torch.device:
     (nothing carries on silently on the CPU)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
+        raise CardRequiredError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly"
         )

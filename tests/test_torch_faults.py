@@ -215,6 +215,7 @@ def test_the_kernel_backends_raise_without_a_card(backend, monkeypatch):
     import torch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     _ref, got, _h = _pair("dense-pp2")
     with pytest.raises(RuntimeError, match='device="cpu".*replay_backend="numpy"'):
         tf.ReplayContext(got, options=tf.ReplayOptions(replay_backend=backend))

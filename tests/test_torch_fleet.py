@@ -1,7 +1,8 @@
 """The port's fleet simulator (``fleet/``) held against the JAX package's.
 
-Mirrors ``tests/test_fleet.py`` (its two CLI- and bench-driven cases wait
-for the port's ``cli.py``): the trace schema and its validation errors,
+Mirrors ``tests/test_fleet.py`` (its CLI case and the walk equivalence
+its ``bench_fleet.py`` smoke gates are mirrored through the port's
+command line in ``tests/test_torch_cli.py``): the trace schema and its validation errors,
 multi-rank fault events, the walk's equivalences (one job ==
 ``predict_goodput``, shared == naive, serial == ``jobs=2``, reshape off
 == rollback-restart), the orbit cache, the reshape helpers, and the

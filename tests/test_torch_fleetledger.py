@@ -1,8 +1,8 @@
 """The port's fleet goodput ledger (``observe/fleetledger.py``) held
 against the JAX package's.
 
-Mirrors ``tests/test_fleetledger.py`` (its two CLI-driven cases wait for
-the port's ``cli.py``): the ledger's conservation and byte-identity
+Mirrors ``tests/test_fleetledger.py`` (its two CLI-driven cases are
+mirrored in ``tests/test_torch_cli.py``): the ledger's conservation and byte-identity
 invariants over the fleet chaos grid (the base and churn traces, elastic
 on and off), causality ids, the explain payload's field set, the SLO
 counterfactual probes, the fleet Chrome trace, the renderings and the

@@ -48,12 +48,15 @@ FLEET_AND_SERVICE = [f"simumax_tpu_torch.fleet.{m}" for m in ("trace", "sim", "r
     f"simumax_tpu_torch.service.{m}" for m in (
         "store", "coalesce", "ring", "router", "planner", "warmer", "pool", "node", "chaos",
         "server")]
+#: the command line, its entry point and the golden-comparison helpers
+COMMAND_LINE = [f"simumax_tpu_torch.{m}" for m in ("cli", "__main__", "testing")]
 
 
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     mods = sorted(_modules())
     assert "simumax_tpu_torch.torchref.kernels" in mods and len(mods) >= 20
     assert set(FLEET_AND_SERVICE) <= set(mods)
+    assert set(COMMAND_LINE) <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -69,6 +72,26 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_the_command_line_runs_without_jax_or_the_jax_package():
+    """``python -m simumax_tpu_torch`` in an interpreter where ``jax`` and
+    ``simumax_tpu`` cannot be imported: ``--help`` and ``list`` run, and
+    an estimate on the CPU runs to its end."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['simumax_tpu'] = None\n"
+        "sys.argv = ['simumax_tpu_torch'] + sys.argv[1:]\n"
+        "runpy.run_module('simumax_tpu_torch', run_name='__main__', alter_sys=True)\n"
+    )
+    for args in (["--help"], ["list"],
+                 ["perf", "--model", "llama2-tiny", "--strategy", "tp1_pp2_dp4_mbs1",
+                  "--system", "tpu_v5e_256", "--device", "cpu", "--no-cache"]):
+        proc = subprocess.run([sys.executable, "-c", code, *args], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout
 
 
 def test_port_sources_never_name_jax_imports_or_the_jax_package():

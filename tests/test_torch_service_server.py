@@ -1,8 +1,9 @@
 """The port's HTTP planning server (``service/server.py``) held against
 the JAX package's answers.
 
-Mirrors ``tests/test_service_server.py`` (its CLI-driven cases and its
-bench smoke wait for the port's ``cli.py``): every endpoint over the
+Mirrors ``tests/test_service_server.py`` (its CLI-driven cases are
+mirrored in ``tests/test_torch_cli.py``; its ``bench_service.py`` smoke
+times the JAX package, which the port does not bench): every endpoint over the
 wire, NDJSON streaming, concurrent single-flight, ``/healthz``,
 ``/stats`` and ``/metrics``. Each endpoint's body is held against the
 JAX package's cache-off answer; ``/v1/faults`` against the JAX
