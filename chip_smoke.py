@@ -236,7 +236,26 @@ Phases, each fatal on failure:
        a child process: one ``POST /v1/estimate`` answered as an
        in-process planner answers, then SIGTERM and exit 0. The children
        run beside (b)-(d). Every count and wall time is logged beside the
-       card's name and power limit.
+       card's name and power limit;
+    i. the last modules of the port: (a) ``entry.entry()`` on the card,
+       its logits' cross entropy against its ids within 2e-3 (the bf16
+       loss tolerance of ``tests/test_torch_model.py``) of the same
+       forward's on the CPU from the same parameters, the largest logit
+       gap logged; (b) ``entry.dryrun_multichip(torch.cuda.device_count())``:
+       on one card dp 1 x tp 1 on NCCL, the manual pass, and no cp pass
+       (as the JAX function at n = 1), its printed lines logged; (c) the dp
+       x tp step on DTensor at full width: the bf16 row's model
+       (``bench-llama-0p5b``, 6 layers, seq 2048, mbs 1) on a 1 x 1 mesh
+       with ``sp=True`` and FSDP on, three steps from the same parameters
+       as three steps of the single-device step, the losses within
+       :data:`LOSS_RTOL` step by step (bit-equality logged), the median
+       step of the three and of five more (CUDA events), the host's time
+       to issue a step and ``max_memory_allocated`` of both, and the
+       collective record of a sharded step (empty at world 1); (d)
+       ``calibration.validate.memory_report`` of phase 9's first config,
+       its four keys logged and its peak within 2% of phase 9's reading
+       of the same config (phase 9 runs through it too). Every number is
+       logged beside the card's name and power limit.
 
 Earlier lines report each phase; the line before the last is the JSON
 kernel table; the last line is ``{"ok": true, "device": {...}}``.
@@ -3142,6 +3161,173 @@ def check_cli(torch, K, card):
     return record, launches
 
 
+def sharded_entry(torch, card):
+    """Phase 10i (a) and (b): ``entry()`` on the card against the CPU, and
+    ``dryrun_multichip`` over the cards of this host."""
+    import io
+
+    from simumax_tpu_torch import entry as E
+    from simumax_tpu_torch.torchref import model as M
+
+    fn, (params, ids) = E.entry()
+    with torch.no_grad():
+        card_logits = fn(params, ids).float().cpu()
+        cpu_params = M._map_tree(lambda t: t.detach().cpu(), params)
+        cpu_logits = fn(cpu_params, ids.cpu()).float()
+
+    def cross_entropy(logits):
+        logp = torch.log_softmax(logits, -1)
+        return float(-logp.gather(-1, ids.cpu()[..., None]).mean())
+
+    ce_card, ce_cpu = cross_entropy(card_logits), cross_entropy(cpu_logits)
+    rel = abs(ce_card - ce_cpu) / abs(ce_cpu)
+    gap = float((card_logits - cpu_logits).abs().max())
+    rec = {"entry": {"shape": list(card_logits.shape), "cross_entropy_card": ce_card,
+                     "cross_entropy_cpu": ce_cpu, "rel": rel, "max_logit_gap": gap,
+                     "max_logit": float(cpu_logits.abs().max())}}
+    log(f"phase 10i entry() ({card}): logits {tuple(card_logits.shape)} bf16; cross entropy "
+        f"{ce_card:.6f} on the card vs {ce_cpu:.6f} on the CPU (rel {rel:.3g}, tolerance "
+        f"2e-3); largest logit gap {gap:.4f} of |logit| up to {rec['entry']['max_logit']:.4f}")
+    if not (math.isfinite(ce_card) and rel <= 2e-3):
+        raise AssertionError("entry(): the card and the CPU disagree")
+    n = torch.cuda.device_count()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        losses = E.dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"phase 10i ({card}): {line}")
+    if n == 1 and (set(losses) != {"dp_tp", "manual"} or len(lines) != 2):
+        raise AssertionError(f"dryrun_multichip(1): passes {sorted(losses)}, lines {lines}")
+    rec["dryrun_multichip"] = {"n": n, "losses": losses, "lines": lines, "wall_s": wall}
+    log(f"phase 10i dryrun_multichip({n}) ({card}): {wall:.3f} s")
+    return rec
+
+
+def sharded_step_full_width(torch, card):
+    """Phase 10i (c): three steps of the dp x tp step on DTensor (1 x 1
+    mesh, SP, FSDP) against three steps of the single-device step, from
+    the same parameters, at the bf16 row's full width."""
+    import numpy as np
+
+    from simumax_tpu_torch.calibration.validate import CollectiveRecord
+    from simumax_tpu_torch.torchref import model as M
+    from simumax_tpu_torch.torchref import parallel as P
+    from simumax_tpu_torch.torchref.rows import build_bench_model
+
+    cfg = M.LlamaConfig.from_model_config(build_bench_model(), layer_num=6)
+    seq, steps, steady = 2048, 3, 5
+    params0 = M.init_params(cfg, seed=0)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, seq))
+
+    def run(make):
+        """The three compared steps, then ``steady`` more: each between
+        CUDA events, and the host's time to issue it (the call's return,
+        before the card finishes)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        floor = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step = make()
+        times, issue, losses = [], [], []
+        for _ in range(steps + steady):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            loss = step()
+            end.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(loss))
+        peak = torch.cuda.max_memory_allocated() - floor
+        return {"losses": losses[:steps], "step_ms": times, "median_step_ms":
+                sorted(times[:steps])[steps // 2], "steady_median_ms":
+                sorted(times[steps:])[steady // 2], "steady_issue_ms":
+                sorted(issue[steps:])[steady // 2], "peak_bytes": peak}, step
+
+    def single():
+        params = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+        init_opt, train_step = M.make_train_step(cfg)
+        opt, batch = init_opt(params), (torch.tensor(ids, device="cuda"),) * 2
+        return lambda: train_step(params, opt, batch)[2]
+
+    record = {}
+    with P.process_group("cuda"):
+        mesh = M.make_mesh(1, tp=1)
+
+        def sharded():
+            params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
+            init_opt, train_step = M.make_train_step(cfg, mesh=mesh, sp=True)
+            opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
+            record["params"] = params
+            return lambda: train_step(params, opt, batch)[2]
+
+        record["single"] = run(single)[0]
+        record["sharded"], step = run(sharded)
+        with CollectiveRecord(mesh) as collectives:
+            step()
+        torch.cuda.synchronize()
+        del record["params"], step
+    torch.cuda.empty_cache()
+    one, dt = record["single"], record["sharded"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dt["losses"], one["losses"]))
+    same = dt["losses"] == one["losses"]
+    record.update({"loss_rel": rel, "bit_equal": same, "collectives": collectives.entries,
+                   "config": {"model": "bench-llama-0p5b", "layers": 6, "seq": seq, "mbs": 1,
+                              "dtype": "bfloat16", "mesh": "dp 1 x tp 1", "sp": True,
+                              "fsdp": True}})
+    log(f"phase 10i dp x tp step on DTensor ({card}; bench-llama-0p5b, 6 layers, seq {seq}, mbs "
+        f"1, bf16, 1 x 1 mesh, sp, fsdp): losses {[f'{x:.6f}' for x in dt['losses']]} vs the "
+        f"single-device step's {[f'{x:.6f}' for x in one['losses']]} "
+        f"({'bit-equal' if same else f'largest rel {rel:.3g}'}, tolerance {LOSS_RTOL}); median "
+        f"of the three {dt['median_step_ms']:.3f} ms vs {one['median_step_ms']:.3f} ms; of "
+        f"{steady} more {dt['steady_median_ms']:.3f} ms vs {one['steady_median_ms']:.3f} ms, "
+        f"the host issuing a step in {dt['steady_issue_ms']:.3f} ms vs "
+        f"{one['steady_issue_ms']:.3f} ms (all steps "
+        f"{', '.join(f'{t:.3f}' for t in dt['step_ms'])} vs "
+        f"{', '.join(f'{t:.3f}' for t in one['step_ms'])}); max_memory_allocated "
+        f"{dt['peak_bytes'] / 2 ** 30:.3f} GiB vs {one['peak_bytes'] / 2 ** 30:.3f} GiB; "
+        f"collective record of a sharded step: {collectives.entries or 'empty'}")
+    if not (all(math.isfinite(x) for x in dt["losses"]) and rel <= LOSS_RTOL):
+        raise AssertionError("the dp x tp step disagrees with the single-device step")
+    return record
+
+
+def memory_report_check(torch, card, memory):
+    """Phase 10i (d): ``memory_report`` of phase 9's first config, its
+    peak against phase 9's reading of the same config."""
+    from simumax_tpu_torch.calibration.validate import memory_report
+    from simumax_tpu_torch.torchref.rows import build_bench_model
+
+    row = memory[0]
+    mc = build_bench_model()
+    report = memory_report(mc, row["mbs"], row["seq"], row["layers"], row["remat"])
+    peak = report["peak_memory_in_bytes"] / 2 ** 30
+    drift = abs(peak - row["measured_gib"]) / row["measured_gib"]
+    log(f"phase 10i memory_report ({card}; seq {row['seq']}, {row['layers']} layers, mbs "
+        f"{row['mbs']}, remat {row['remat']}): "
+        + ", ".join(f"{k} {v / 2 ** 30:.4f} GiB" for k, v in report.items())
+        + f"; phase 9 read a peak of {row['measured_gib']:.4f} GiB ({drift:.2%} apart)")
+    if drift > 0.02:
+        raise AssertionError("memory_report drifts from phase 9's reading")
+    return {"report": report, "phase9_gib": row["measured_gib"], "drift": drift}
+
+
+def check_last_modules(torch, card, memory):
+    """Phase 10i: (a) to (d) of the module docstring. Returns its record."""
+    t_phase = time.perf_counter()
+    record = sharded_entry(torch, card)
+    record["sharded_step"] = sharded_step_full_width(torch, card)
+    record["memory_report"] = memory_report_check(torch, card, memory)
+    record["phase_s"] = time.perf_counter() - t_phase
+    log(f"last-modules phase ({card}): {record['phase_s']:.3f} s")
+    return record
+
+
 def main():
     import torch
 
@@ -3276,6 +3462,8 @@ def main():
     command_line, cli_launches = check_cli(torch, K, card)
     for kernel, n in cli_launches.items():
         counts[kernel] += n
+    # phase 10i: the dp x tp step, the entry points and the memory report
+    last_modules = check_last_modules(torch, card, memory)
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:
@@ -3297,7 +3485,8 @@ def main():
             "host_slowed": host_slowed_reads, "memory_table": memory, "q8_cases": q8_cases,
             "attribution": attribution, "faults": faults, "search": search,
             "int8_vocab": int8_vocab, "h100_network": network,
-            "fleet_service": fleet_service, "command_line": command_line}, f, indent=1,
+            "fleet_service": fleet_service, "command_line": command_line,
+            "last_modules": last_modules}, f, indent=1,
             default=str)
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,12 +27,15 @@ collective over an axis of size 1 is the identity.
 
 Every collective that runs appends ``(op, axis, bytes)`` to
 :data:`LEDGER`, the bytes of this rank's input tensor, in the forward
-and in the backward alike (the op recorded is the one that runs).
+and in the backward alike (the op recorded is the one that runs), and
+calls each of :data:`LISTENERS` with the op, the axis, its input, the
+mesh and (for ``ppermute``) the permutation: the collective record of
+``calibration/validate.py`` listens there for the mesh's groups.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -40,6 +43,9 @@ import torch.distributed as dist
 #: (op, axis, bytes of this rank's input) for each collective run by this
 #: process since the last :func:`reset_ledger`
 LEDGER: List[Tuple[str, str, int]] = []
+#: callables ``fn(op, axis, input, mesh, perm)`` told of every collective
+#: as it runs (``perm`` is None but for ``ppermute``)
+LISTENERS: List[Callable] = []
 
 # the newer names where this torch has them (2.13 deprecates the older
 # ones); the arguments are the same
@@ -65,8 +71,10 @@ def axis_index(mesh, axis: str) -> int:
     return mesh.get_local_rank(axis)
 
 
-def _record(op: str, axis: str, x: torch.Tensor) -> None:
+def _record(op: str, axis: str, x: torch.Tensor, mesh, perm=None) -> None:
     LEDGER.append((op, axis, x.numel() * x.element_size()))
+    for listener in LISTENERS:
+        listener(op, axis, x, mesh, perm)
 
 
 # -- the raw collectives (no autograd) -----------------------------------------
@@ -75,7 +83,7 @@ def _record(op: str, axis: str, x: torch.Tensor) -> None:
 def _gather0(x, mesh, axis):
     """Concatenate every rank's x along dim 0, in axis order."""
     x = x.contiguous()
-    _record("all_gather", axis, x)
+    _record("all_gather", axis, x, mesh)
     out = torch.empty((axis_size(mesh, axis) * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     _all_gather_base(out, x, group=mesh.get_group(axis))
@@ -89,7 +97,7 @@ def _scatter0(x, mesh, axis):
         raise ValueError(f"psum_scatter over {axis!r}: dim of size {x.shape[0]} does not "
                          f"split into {n} blocks")
     x = x.contiguous()
-    _record("psum_scatter", axis, x)
+    _record("psum_scatter", axis, x, mesh)
     out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype, device=x.device)
     _reduce_scatter_base(out, x, group=mesh.get_group(axis))
     return out
@@ -97,7 +105,7 @@ def _scatter0(x, mesh, axis):
 
 def _all_reduce(x, mesh, axis):
     out = x.contiguous().clone()
-    _record("psum", axis, out)
+    _record("psum", axis, out, mesh)
     dist.all_reduce(out, group=mesh.get_group(axis))
     return out
 
@@ -109,7 +117,7 @@ def _a2a0(x, mesh, axis):
         raise ValueError(f"all_to_all over {axis!r}: dim of size {x.shape[0]} does not "
                          f"split into {axis_size(mesh, axis)} blocks")
     x = x.contiguous()
-    _record("all_to_all", axis, x)
+    _record("all_to_all", axis, x, mesh)
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=mesh.get_group(axis))
     return out
@@ -124,7 +132,7 @@ def _permute(x, mesh, axis, perm):
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     x = x.contiguous()
-    _record("ppermute", axis, x)
+    _record("ppermute", axis, x, mesh, perm)
     out = torch.zeros_like(x)
     ops = [dist.P2POp(dist.isend, x, ranks[d], group) for d in dst]
     ops += [dist.P2POp(dist.irecv, out, ranks[s], group) for s in src]

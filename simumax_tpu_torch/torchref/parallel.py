@@ -28,8 +28,9 @@ and sums each parameter's cotangent over the mesh axes the parameter is
 replicated on. :func:`make_pp_train_step` does the same, step for step,
 so the update matches JAX's at every layout (``tests/test_torch_parallel.py``).
 
-Two differences from the JAX module: :func:`make_pp_mesh` raises where
-JAX quietly takes CPU devices when there are too few, and
+Two differences from the JAX module: :func:`make_pp_mesh` raises
+(:class:`CardRequiredError` without as many cards as ranks) where JAX
+quietly takes CPU devices when there are too few, and
 :func:`run_pp_dryrun` uses 4 heads of 64 where JAX's has 8 of 32 (the
 same width), because the CUDA flash kernels take head sizes 64 and 128.
 """
@@ -54,6 +55,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from simumax_tpu_torch.core.errors import CardRequiredError
 from simumax_tpu_torch.torchref import collectives as C
 from simumax_tpu_torch.torchref.kernels import attention, swiglu
 
@@ -137,28 +139,42 @@ def process_group(device="cuda", rank: int = 0, world_size: int = 1, store=None)
         dist.destroy_process_group()
 
 
+def require_cards(n: int, device, what: str) -> None:
+    """Raise :class:`CardRequiredError` when ``device`` is the card and
+    this host has fewer than ``n`` cards (one a rank): nothing goes on
+    on the CPU in their place. Counts through NVML, leaving CUDA
+    uninitialised."""
+    if torch.device(device).type == "cuda":
+        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if found < n:
+            raise CardRequiredError(f"{what}: {n} ranks need {n} CUDA cards on this host, "
+                                    f"found {found}; pass device='cpu' for gloo ranks")
+
+
+def mesh_over_ranks(shape: Sequence[int], names: Sequence[str], device, what: str):
+    """A mesh of ``shape`` (row-major, as JAX lays its devices) over the
+    ranks of the default process group. Raises when the host has too few
+    cards for them, or the group holds another number of ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(shape)
+    require_cards(n, device, what)
+    if not dist.is_initialized() or dist.get_world_size() != n:
+        raise RuntimeError(
+            f"{what}: needs a default process group of {n} ranks (process_group(...)), found "
+            f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
+    return init_device_mesh(torch.device(device).type, tuple(shape), mesh_dim_names=tuple(names))
+
+
 def make_pp_mesh(world_size: int, pp: int = 2, tp: int = 2, ep: int = 1, device="cuda"):
     """The ``("pp", "ep", "dp", "tp")`` mesh over the ranks of the
     default process group, row-major as the JAX module lays its devices
     (dp = world_size / (pp ep tp)). Raises when the group or the host's
     cards do not match ``world_size``."""
-    from torch.distributed.device_mesh import init_device_mesh
-
     dp = world_size // (pp * ep * tp)
     if dp < 1 or dp * pp * ep * tp != world_size:
         raise ValueError(f"world size {world_size} is not pp {pp} x ep {ep} x dp x tp {tp}")
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if found < world_size:
-            raise RuntimeError(f"make_pp_mesh: {world_size} ranks need {world_size} CUDA "
-                               f"cards on this host, found {found}")
-    if not dist.is_initialized() or dist.get_world_size() != world_size:
-        raise RuntimeError(
-            f"make_pp_mesh: needs a default process group of {world_size} ranks "
-            f"(process_group(...)), found "
-            f"{dist.get_world_size() if dist.is_initialized() else 'none'}")
-    return init_device_mesh(dev.type, (pp, ep, dp, tp), mesh_dim_names=AXES)
+    return mesh_over_ranks((pp, ep, dp, tp), AXES, device, "make_pp_mesh")
 
 
 def mesh_device(mesh) -> torch.device:
@@ -412,6 +428,28 @@ def spmd_loss(params, ids, targets, cfg: PPConfig, mesh):
     return C.pmean(-ll.mean(), mesh, "dp")
 
 
+def shard_map_grads(loss: torch.Tensor, leaves: Sequence[torch.Tensor], mesh,
+                    replicated: Sequence[Sequence[str]]) -> list:
+    """JAX's gradients of this rank's ``loss`` (the output of a
+    ``shard_map`` with ``out_specs=P()`` and ``check_vma=False``) with
+    respect to its ``leaves``: the loss seeded with the cotangent
+    1 / (number of ranks), each collective transposed, and each leaf's
+    cotangent summed over the mesh axes its input is replicated on
+    (``replicated[i]`` for leaf i). A leaf the loss does not reach gets
+    zeros."""
+    # shard_map's transpose: each rank's output cotangent is 1 / ranks
+    grads = torch.autograd.grad(loss, list(leaves), torch.full_like(loss, 1.0 / mesh.size()),
+                                allow_unused=True)
+    out = []
+    with torch.no_grad():
+        for p, g, axes in zip(leaves, grads, replicated):
+            g = torch.zeros_like(p) if g is None else g
+            for axis in axes:  # ... and summed over the axes it is replicated on
+                g = C.psum(g, mesh, axis)
+            out.append(g)
+    return out
+
+
 def make_pp_train_step(cfg: PPConfig, mesh, lr: float = 1e-3):
     """SGD train step over the mesh: ``make_pp_train_step(cfg, mesh,
     lr)(specs)(params, ids, targets) -> (new params, loss)``. ``params``
@@ -421,7 +459,6 @@ def make_pp_train_step(cfg: PPConfig, mesh, lr: float = 1e-3):
     docstring). The flash kernels run when the mesh is on the card."""
     cfg = dataclasses.replace(cfg, use_flash=(mesh.device_type == "cuda"))
     dev = mesh_device(mesh)
-    n_ranks = mesh.size()
     dp, dp_i = C.axis_size(mesh, "dp"), C.axis_index(mesh, "dp")
 
     def make(param_specs):
@@ -432,20 +469,10 @@ def make_pp_train_step(cfg: PPConfig, mesh, lr: float = 1e-3):
                 for t in (ids, targets))
             leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             loss = spmd_loss(leaves, local_ids, local_targets, cfg, mesh)
-            # shard_map's transpose: each rank's output cotangent is 1 / ranks
-            grads = torch.autograd.grad(loss, list(leaves.values()),
-                                        torch.full_like(loss, 1.0 / n_ranks),
-                                        allow_unused=True)
-            new = {}
+            grads = shard_map_grads(loss, list(leaves.values()), mesh, [
+                [axis for axis in AXES if axis not in param_specs[name]] for name in leaves])
             with torch.no_grad():
-                for (name, p), g in zip(leaves.items(), grads):
-                    g = torch.zeros_like(p) if g is None else g
-                    # ... and a cotangent summed over the axes its input is
-                    # replicated on
-                    for axis in AXES:
-                        if axis not in param_specs[name]:
-                            g = C.psum(g, mesh, axis)
-                    new[name] = p - lr * g.to(p.dtype)
+                new = {name: p - lr * g.to(p.dtype) for (name, p), g in zip(leaves.items(), grads)}
             return new, loss.detach()
 
         return train_step

@@ -1100,3 +1100,65 @@ def test_guided_sweep_on_the_card_with_two_jobs_equals_the_serial_sweep(card):
     assert te._mp_context().get_start_method() == "spawn"
     pooled = _mixtral_guided_sweep(jobs=2)
     assert json.dumps(pooled, sort_keys=True) == json.dumps(serial, sort_keys=True)
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_card_is_the_single_device_step(card):
+    """On a 1 x 1 mesh (NCCL, one rank) the DTensor step with SP and FSDP
+    takes the single-device step's losses and parameters bit for bit,
+    and runs no collective."""
+    from simumax_tpu_torch.calibration.validate import CollectiveRecord
+    from simumax_tpu_torch.torchref import model as M
+    from simumax_tpu_torch.torchref import parallel as P
+
+    cfg = M.LlamaConfig(vocab_size=1024, hidden_size=256, head_num=4, kv_head_num=2,
+                        head_size=64, intermediate_size=512, layer_num=2)
+    params0 = M.init_params(cfg, seed=0, device=card)
+    ids = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(0))
+    one = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+    init_opt, step = M.make_train_step(cfg)
+    opt = init_opt(one)
+    losses = [float(step(one, opt, (ids.to(card), ids.to(card)))[2]) for _ in range(2)]
+    with P.process_group("cuda"):
+        mesh = M.make_mesh(1, tp=1)
+        params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
+        init_opt, step = M.make_train_step(cfg, mesh=mesh, sp=True)
+        opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
+        with CollectiveRecord(mesh) as record:
+            got = [float(step(params, opt, batch)[2]) for _ in range(2)]
+        whole = [p.full_tensor() for p in M.param_leaves(params)]
+    assert got == losses and not record.entries
+    assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(M.param_leaves(one), whole))
+
+
+@pytest.mark.cuda
+def test_memory_report_on_the_card(card):
+    from simumax_tpu_torch.calibration.validate import memory_report
+    from simumax_tpu_torch.torchref.rows import build_bench_model
+
+    report = memory_report(build_bench_model(), 1, 512, 1)
+    assert set(report) == {"argument_size_in_bytes", "output_size_in_bytes",
+                           "temp_size_in_bytes", "peak_memory_in_bytes"}
+    args, peak = report["argument_size_in_bytes"], report["peak_memory_in_bytes"]
+    assert 0 < args < peak and report["temp_size_in_bytes"] == peak - args
+    # the update is in place: the step leaves its arguments and the loss
+    assert abs(report["output_size_in_bytes"] - args) <= 2 ** 20
+
+
+@pytest.mark.cuda
+def test_entry_and_the_one_rank_dry_run_on_the_card(card, capsys):
+    from simumax_tpu_torch import entry as E
+    from simumax_tpu_torch.torchref import model as M
+
+    fn, (params, ids) = E.entry()
+    with torch.no_grad():
+        got = fn(params, ids).float().cpu()
+        ref = fn(M._map_tree(lambda t: t.detach().cpu(), params), ids.cpu()).float()
+
+    def ce(logits):
+        return float(-torch.log_softmax(logits, -1).gather(-1, ids.cpu()[..., None]).mean())
+
+    assert abs(ce(got) - ce(ref)) <= 2e-3 * abs(ce(ref))
+    losses = E.dryrun_multichip(1)
+    assert set(losses) == {"dp_tp", "manual"} and all(math.isfinite(v) for v in losses.values())
+    assert len(capsys.readouterr().out.strip().splitlines()) == 2

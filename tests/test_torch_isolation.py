@@ -50,6 +50,11 @@ FLEET_AND_SERVICE = [f"simumax_tpu_torch.fleet.{m}" for m in ("trace", "sim", "r
         "server")]
 #: the command line, its entry point and the golden-comparison helpers
 COMMAND_LINE = [f"simumax_tpu_torch.{m}" for m in ("cli", "__main__", "testing")]
+#: the dp x tp step, context parallelism, the collective and memory
+#: readers, the entry points and the streamlit app
+LAST_MODULES = [f"simumax_tpu_torch.{m}" for m in (
+    "torchref.model", "torchref.context_parallel", "calibration.validate", "entry", "app",
+    "app.streamlit_app")]
 
 
 def test_every_port_module_imports_without_jax_or_the_jax_package():
@@ -57,6 +62,7 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert "simumax_tpu_torch.torchref.kernels" in mods and len(mods) >= 20
     assert set(FLEET_AND_SERVICE) <= set(mods)
     assert set(COMMAND_LINE) <= set(mods)
+    assert set(LAST_MODULES) <= set(mods)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
