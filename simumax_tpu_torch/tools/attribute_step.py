@@ -181,6 +181,8 @@ def _by_name(name: str) -> str:
         return "attention"
     if "q8_" in name:
         return "GEMM"
+    if "rms_norm_" in name:
+        return "norm"
     return "elementwise"
 
 
@@ -285,9 +287,10 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     ``build/attribution/``). Returns the fullest replay's kernel ms by
     family (``graph_ms``), each replay window's device events
     (``replay_windows``), the eager
-    step's (``eager_ms``), their kernel counts, whether the replay's
-    kernels matched the eager step's one for one, and how many eager
-    kernels the trace did not tie to a host call."""
+    step's (``eager_ms``), their kernel counts, the eager step's kernels
+    by family and name (``family_kernels``: launches), whether the
+    replay's kernels matched the eager step's one for one, and how many
+    eager kernels the trace did not tie to a host call."""
     from torch.profiler import ProfilerActivity, profile
 
     from simumax_tpu_torch.calibration.timing import capture_step
@@ -315,12 +318,14 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     replay_events = max(windows, key=lambda w: w[0])[1]
     graph_ms, matched = replay_families(eager, replay_events)
     eager_ms = dict.fromkeys(FAMILIES, 0.0)
-    for _name, ms, family in eager:
+    family_kernels = {f: defaultdict(int) for f in FAMILIES}
+    for name, ms, family in eager:
         eager_ms[family] += ms
+        family_kernels[family][name] += 1
     own_ms = defaultdict(float)  # the port's CUDA kernels in the replay, by function
     own_n = defaultdict(int)
     for k in device_events(replay_events):
-        own = re.search(r"\w*(?:flash_|q8_|swiglu_)\w*", k["name"])
+        own = re.search(r"\w*(?:flash_|q8_|swiglu_|rms_norm_|rope_)\w*", k["name"])
         if own:
             own_ms[own.group(0)] += k.get("dur", 0.0) / 1e3
             own_n[own.group(0)] += 1
@@ -329,6 +334,7 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     return {"graph_ms": graph_ms, "eager_ms": eager_ms, "kernels": len(eager),
             "graph_kernels": len(device_events(replay_events)), "matched": matched,
             "untied": untied, "own_kernels_ms": dict(own_ms), "own_kernels": dict(own_n),
+            "family_kernels": {f: dict(n) for f, n in family_kernels.items()},
             "replay_windows": [n for n, _events in windows]}
 
 

@@ -32,7 +32,11 @@ GSPMD pads; ``use_int8`` is single-device only.
 
 Every numeric detail of the reference is kept: the rms-norm variance in
 fp32 with the rsqrt cast to the input dtype before the multiply;
-split-half RoPE with cos/sin cast to the input dtype; GQA kv heads
+split-half RoPE with cos/sin cast to the input dtype (on one device both
+run as the CUDA kernels of ``torchref/kernels.py``, :func:`rms_norm` and
+:func:`rope`, which round where these do; the sharded step keeps the
+plain :func:`_rms_norm` and :func:`_rope`, as the JAX sharded step keeps
+plain jnp where a Pallas call has no GSPMD rule); GQA kv heads
 repeated consecutively (``repeat_interleave``, as ``jnp.repeat``) before
 the flash kernels; eager math attention otherwise, mirroring
 ``jax.nn.dot_product_attention``; bf16 params with no master copy and
@@ -60,7 +64,13 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from simumax_tpu_torch.core.errors import CardRequiredError
-from simumax_tpu_torch.torchref.kernels import attention, math_attention
+from simumax_tpu_torch.torchref.kernels import (
+    attention,
+    math_attention,
+    rms_norm,
+    rope,
+    rope_fwd_plain,
+)
 from simumax_tpu_torch.torchref.parallel import mesh_device, mesh_over_ranks
 from simumax_tpu_torch.torchref.quantized import int8_matmul
 
@@ -319,23 +329,24 @@ def shard_batch(batch, mesh):
 
 
 def _rms_norm(x, w, eps=1e-5):
+    """The plain rms norm (the sharded step's; DTensors go through it)."""
     with op_family("norm"):
         var = x.float().square().mean(-1, keepdim=True)
         return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
 
 
 def _rope(x, theta: float):
-    # x: [b, s, n, d]
-    b, s, n, d = x.shape
-    half = d // 2
-    idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
-    freqs = 1.0 / (theta ** (idx / half))
-    pos = torch.arange(s, dtype=torch.float32, device=x.device)
-    ang = pos[:, None] * freqs[None, :]  # [s, half]
-    cos = torch.cos(ang)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(ang)[None, :, None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    """The plain RoPE of x [b, s, n, d] (the sharded step's, on local
+    tensors)."""
+    return rope_fwd_plain(x, theta)
+
+
+def _norm(x, w):
+    """The rms norm of the single-device step: the CUDA kernels
+    (:func:`~simumax_tpu_torch.torchref.kernels.rms_norm`), in the norm
+    family."""
+    with op_family("norm"):
+        return rms_norm(x, w)
 
 
 def _linear(cfg: LlamaConfig) -> Callable:
@@ -354,12 +365,13 @@ def _block(x, p, cfg: LlamaConfig):
     kv_out = cfg.kv_head_num * d
     mm = _linear(cfg)
     res = x
-    y = _rms_norm(x, p["input_norm"])
+    y = _norm(x, p["input_norm"])
     qkv = mm(y, p["qkv"])
     q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
-    q = _rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
-    k = _rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
+    # the q and k views of qkv, rotated where they lie
+    q = rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
+    k = rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
     v = v.reshape(b, s, cfg.kv_head_num, d)
     with op_family("attention"):
         if cfg.use_flash_attn:
@@ -373,7 +385,7 @@ def _block(x, p, cfg: LlamaConfig):
             o = math_attention(q, k, v, causal=True)
     x = res + mm(o.reshape(b, s, q_out), p["out"])
     res = x
-    y = _rms_norm(x, p["pre_mlp_norm"])
+    y = _norm(x, p["pre_mlp_norm"])
     up = mm(y, p["up"])
     gate, val = up.chunk(2, dim=-1)
     y = mm(F.silu(gate) * val, p["down"])
@@ -399,7 +411,7 @@ def forward(params, ids, cfg: LlamaConfig, remat: bool = False, mesh=None, sp: b
             x = checkpoint(_block, x, p, cfg, use_reentrant=False, preserve_rng_state=False)
         else:
             x = _block(x, p, cfg)
-    x = _rms_norm(x, params["final_norm"])
+    x = _norm(x, params["final_norm"])
     return _linear(cfg)(x, params["lm_head"])
 
 

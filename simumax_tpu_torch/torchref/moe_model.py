@@ -7,7 +7,9 @@ sorts assignments by expert into a fixed per-expert capacity buffer
 (dropping overflow, like ``moe_capacity_factor``), the experts run as
 balanced grouped GEMMs (one ``[e, cap, h] x [e, h, f]`` ``torch.bmm``
 per projection), and the combine scatter-adds weighted expert outputs.
-Attention is the eager math attention, as the JAX model takes XLA's.
+Attention is the eager math attention, as the JAX model takes XLA's; the
+rms norms and RoPE run on the CUDA kernels of ``torchref/kernels.py``
+(``torchref.model._norm`` and ``rope``), as the dense model's do.
 
 Every numeric detail of the reference is kept: the gate softmax in fp32,
 top-k, the weights renormalised with ``+ 1e-9`` and cast to the model's
@@ -34,10 +36,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from simumax_tpu_torch.torchref.kernels import math_attention
+from simumax_tpu_torch.torchref.kernels import math_attention, rope
 from simumax_tpu_torch.torchref.model import (  # noqa: F401  (params_from_jax: public)
-    _rms_norm,
-    _rope,
+    _norm,
     make_fused_adam,
     op_family,
     param_leaves,
@@ -200,19 +201,19 @@ def _block(x, p, cfg: MoeConfig):
     q_out = cfg.head_num * d
     kv_out = cfg.kv_head_num * d
     res = x
-    y = _rms_norm(x, p["input_norm"])
+    y = _norm(x, p["input_norm"])
     with op_family("gemm"):
         qkv = y @ p["qkv"]
     q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
-    q = _rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
-    k = _rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
+    q = rope(q.reshape(b, s, cfg.head_num, d), cfg.rope_theta)
+    k = rope(k.reshape(b, s, cfg.kv_head_num, d), cfg.rope_theta)
     v = v.reshape(b, s, cfg.kv_head_num, d)
     with op_family("attention"):
         o = math_attention(q, k, v, causal=True)
     with op_family("gemm"):
         x = res + o.reshape(b, s, q_out) @ p["out"]
-    return x + _moe_mlp(_rms_norm(x, p["pre_mlp_norm"]), p, cfg)
+    return x + _moe_mlp(_norm(x, p["pre_mlp_norm"]), p, cfg)
 
 
 def forward(params, ids, cfg: MoeConfig):
@@ -220,7 +221,7 @@ def forward(params, ids, cfg: MoeConfig):
     x = params["embedding"][ids]
     for p in params["layers"]:
         x = _block(x, p, cfg)
-    y = _rms_norm(x, params["final_norm"])
+    y = _norm(x, params["final_norm"])
     with op_family("gemm"):
         return y @ params["lm_head"]
 

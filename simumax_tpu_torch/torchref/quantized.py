@@ -6,7 +6,9 @@ wgrad TN) with per-tensor symmetric scales, so that the int8 row of the
 self-calibration loop measures the kernel mix the analytical
 ``fp8=True, quant_dtype="int8"`` path costs. The products are
 ``torch._int_mm`` (cuBLASLt's int8 GEMM on the card), a plain product as
-JAX's ``lax.dot_general`` is; only the quantization has kernels of its
+JAX's ``lax.dot_general`` is; the quantization and the epilogue that
+scales the int32 product back (``q8_dequant``: one pass, bit for bit
+JAX's ``astype(float32) * (s_a * s_b)`` and cast) have kernels of their
 own.
 
 ``torch._int_mm`` multiplies 2-D operands only, and on the card it wants
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from simumax_tpu_torch.torchref.kernels import q8_amax, q8_quantize
+from simumax_tpu_torch.torchref.kernels import q8_amax, q8_dequant, q8_quantize
 
 #: per product layout (NN forward, NT dgrad, TN wgrad), whether its first
 #: and its second operand are quantized column-major: the order that
@@ -80,8 +82,8 @@ def _int8_fwd_only(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x_cols, w_cols = OPERAND_ORDERS["NN"]
     qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
     qw, sw = _q8(w, w_cols)
-    y = _mm(qx, qw).float() * (sx * sw)
-    return y.to(torch.bfloat16).reshape(*shape[:-1], w.shape[-1])
+    y = q8_dequant(_mm(qx, qw), sx, sw, torch.bfloat16)
+    return y.reshape(*shape[:-1], w.shape[-1])
 
 
 class _Int8Matmul(torch.autograd.Function):
@@ -102,9 +104,9 @@ class _Int8Matmul(torch.autograd.Function):
         qg_tn = g_cols if g_cols_tn else g_rows
         qw, sw = _q8(w, w_cols)
         qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
-        dx = _mm(qg, qw, tb=True).float() * (sg * sw)  # dgrad: g @ w^T, NT
-        dw = _mm(qx, qg_tn, ta=True).float() * (sx * sg)  # wgrad: x^T @ g, TN
-        return dx.to(x.dtype).reshape(shape), dw.to(w.dtype)
+        dx = q8_dequant(_mm(qg, qw, tb=True), sg, sw, x.dtype)  # dgrad: g @ w^T, NT
+        dw = q8_dequant(_mm(qx, qg_tn, ta=True), sx, sg, w.dtype)  # wgrad: x^T @ g, TN
+        return dx.reshape(shape), dw
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,7 @@ def test_profiled_dense_step_lands_each_op_in_its_family(remat, tmp_path):
     ids = torch.randint(0, 256, (1, 64), generator=torch.Generator().manual_seed(0))
     ops = _profiled_ops(lambda: train_step(params, opt, (ids, ids)), tmp_path / "t.json")
     assert _families_of(ops, "aten::mm") == {"GEMM"}  # forward, dgrad and wgrad
-    assert _families_of(ops, "aten::rsqrt") == {"norm"}
+    assert _families_of(ops, "aten::sqrt") == {"norm"}  # the norm's 1 / sqrt
     assert _families_of(ops, "aten::_log_softmax") == {"cross-entropy"}
     assert _families_of(ops, "aten::_log_softmax_backward_data") == {"cross-entropy"}
     assert _families_of(ops, "aten::_softmax") == {"attention"}
@@ -94,7 +94,7 @@ def test_profiled_dense_step_lands_each_op_in_its_family(remat, tmp_path):
     assert _families_of(ops, "aten::silu") == {"elementwise"}
     assert _families_of(ops, "aten::cos") == {"elementwise"}  # rope
     if remat:  # the recomputed forward runs each norm twice
-        assert sum(1 for n, _f in ops if n == "aten::rsqrt") > 2 * cfg.layer_num + 1
+        assert sum(1 for n, _f in ops if n == "aten::sqrt") > 2 * cfg.layer_num + 1
 
 
 def test_profiled_int8_and_moe_steps_land_each_op_in_its_family(tmp_path):

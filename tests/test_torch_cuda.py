@@ -12,7 +12,10 @@ do); for fp32 outputs 1e-4 for the flash kernels (summation order
 only) and 1e-5 for SwiGLU (the sigmoids may differ in the last bits).
 The int8 quantize kernels, the batched scenario replay and the search's
 pipeline-schedule fold are held bit for bit (the replay also against the
-scalar engine, the fold's scores against the numpy fold).
+scalar engine, the fold's scores against the numpy fold). So are the int8
+dequantization, RoPE and the rms norm, forward and backward (the plain
+norm sums in the kernels' order), and one small dense step on the card
+and the CPU takes the same loss within 1e-3.
 """
 
 import math
@@ -52,12 +55,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, rtol, causal):
            *K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)]
     ref = [o_ref, K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal),
            *K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)]
-    assert K.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                                 "swiglu_fwd": 0, "swiglu_bwd": 0, "q8_amax": 0,
-                                 "q8_quantize": 0, "q8_quantize_cols_tma": 0,
-                                 "q8_quantize_both_tma": 0, "q8_quantize_ragged": 0,
-                                 "replay_solve": 0,
-                                 "fold_1f1b": 0, "fold_interleaved": 0}
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "flash_fwd": 1,
+                                 "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     for (g, r), tol in zip([(lse, lse_ref)] + list(zip(got, ref)), [1e-4] + [rtol] * 4):
         g, r = g.float(), r.float()
         limit = tol * (r.abs() + r.square().mean().sqrt())
@@ -234,11 +233,8 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
             runs[device] = (float(loss), {k: v.cpu() for k, v in new.items()},
                             K.launch_counts())
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
-    assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
-                      "swiglu_fwd": 2, "swiglu_bwd": 2, "q8_amax": 0, "q8_quantize": 0,
-                      "q8_quantize_cols_tma": 0, "q8_quantize_both_tma": 0,
-                      "q8_quantize_ragged": 0, "replay_solve": 0, "fold_1f1b": 0,
-                      "fold_interleaved": 0}
+    assert counts == {**dict.fromkeys(K.LAUNCHES, 0), "flash_fwd": 2, "flash_bwd_dq": 2,
+                      "flash_bwd_dkv": 2, "swiglu_fwd": 2, "swiglu_bwd": 2}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -733,9 +729,13 @@ def test_captured_row_step_takes_the_eager_steps(card, kind):
                 # 4 linear layers a layer and the LM head, 5 quantizes
                 # each: x row-major and w column-major forward, g in both
                 # orders from one read, w row-major and x column-major
-                # backward
+                # backward; 3 dequantizations each (forward, dgrad, wgrad)
                 "int8": {"q8_amax": 5 * 9, "q8_quantize": 2 * 9, "q8_quantize_cols_tma": 2 * 9,
-                         "q8_quantize_both_tma": 9}}.get(kind, {})
+                         "q8_quantize_both_tma": 9, "q8_dequant": 3 * 9}}.get(kind, {})
+    # 2L + 1 rms norms and the q and k RoPEs of each layer, both ways; the
+    # recompute runs the blocks' norms and RoPEs forward again
+    again = 4 if case["remat"] else 0
+    per_step.update(rms_norm_fwd=5 + again, rms_norm_bwd=5, rope_fwd=4 + again, rope_bwd=4)
     assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
 
 
@@ -1103,10 +1103,12 @@ def test_guided_sweep_on_the_card_with_two_jobs_equals_the_serial_sweep(card):
 
 
 @pytest.mark.cuda
-def test_sharded_step_on_one_card_is_the_single_device_step(card):
+def test_sharded_step_on_one_card_is_the_single_device_step(card, monkeypatch):
     """On a 1 x 1 mesh (NCCL, one rank) the DTensor step with SP and FSDP
-    takes the single-device step's losses and parameters bit for bit,
-    and runs no collective."""
+    takes the losses and parameters bit for bit of the single-device step
+    run on the plain rms norm and RoPE it keeps, and runs no collective;
+    the single-device step on the norm and RoPE kernels takes losses
+    within 1e-3 of them (its rms norm backward sums in another order)."""
     from simumax_tpu_torch.calibration.validate import CollectiveRecord
     from simumax_tpu_torch.torchref import model as M
     from simumax_tpu_torch.torchref import parallel as P
@@ -1115,10 +1117,20 @@ def test_sharded_step_on_one_card_is_the_single_device_step(card):
                         head_size=64, intermediate_size=512, layer_num=2)
     params0 = M.init_params(cfg, seed=0, device=card)
     ids = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(0))
-    one = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
-    init_opt, step = M.make_train_step(cfg)
-    opt = init_opt(one)
-    losses = [float(step(one, opt, (ids.to(card), ids.to(card)))[2]) for _ in range(2)]
+
+    def single():
+        params = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+        init_opt, step = M.make_train_step(cfg)
+        opt = init_opt(params)
+        return params, [float(step(params, opt, (ids.to(card), ids.to(card)))[2])
+                        for _ in range(2)]
+
+    _fused, fused_losses = single()
+    with monkeypatch.context() as m:
+        m.setattr(M, "_norm", M._rms_norm)
+        m.setattr(M, "rope", M._rope)
+        one, losses = single()
+    assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(fused_losses, losses))
     with P.process_group("cuda"):
         mesh = M.make_mesh(1, tp=1)
         params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
@@ -1162,3 +1174,133 @@ def test_entry_and_the_one_rank_dry_run_on_the_card(card, capsys):
     losses = E.dryrun_multichip(1)
     assert set(losses) == {"dp_tp", "manual"} and all(math.isfinite(v) for v in losses.values())
     assert len(capsys.readouterr().out.strip().splitlines()) == 2
+
+
+# -- the fused ops of the measured step: rms norm, RoPE, int8 dequantization ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,h", [(2048, 2048), (2048, 1024), (21, 100), (3, 20000), (5, 33)])
+def test_rms_norm_kernels_match_their_plain_versions(card, dtype, rows, h):
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = (torch.randn(rows, h, generator=gen, device=card) * 2).to(dtype)
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=card)).to(dtype)
+    dy = torch.randn(rows, h, generator=gen, device=card).to(dtype)
+    K.reset_launch_counts()
+    y, rstd = K.rms_norm_fwd(x, w)
+    y_ref, rstd_ref = K.rms_norm_fwd_plain(x, w)
+    dx, dw = K.rms_norm_bwd(x, w, rstd_ref, dy)
+    dx_ref, dw_ref = K.rms_norm_bwd_plain(x, w, rstd_ref, dy)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "rms_norm_fwd": 1,
+                                 "rms_norm_bwd": 1}
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    for got, ref in ((y, y_ref), (rstd, rstd_ref), (dx, dx_ref), (dw, dw_ref)):
+        assert torch.equal(got, ref), int((got != ref).sum())
+    # and on the CPU: the plain versions are the kernels' arithmetic
+    cpu = [t.cpu() for t in (x, w, dy)]
+    y_cpu, rstd_cpu = K.rms_norm_fwd_plain(*cpu[:2])
+    assert torch.equal(y_cpu, y.cpu()) and torch.equal(rstd_cpu, rstd.cpu())
+    assert all(torch.equal(a, b.cpu()) for a, b in
+               zip(K.rms_norm_bwd_plain(cpu[0], cpu[1], rstd_cpu, cpu[2]), (dx, dw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,n,kv,d", [(1, 2048, 16, 8, 128), (2, 64, 8, 8, 128),
+                                        (2, 7, 3, 1, 20), (1, 5, 2, 2, 6)])
+def test_rope_kernel_is_bit_identical_to_its_plain_versions(card, dtype, b, s, n, kv, d):
+    """Forward and backward on the q and k views of a fused qkv tensor
+    (strided, read in place) and on a contiguous copy."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    qkv = torch.randn(b, s, (n + 2 * kv) * d, generator=gen, device=card).to(dtype)
+    q = qkv[..., :n * d].reshape(b, s, n, d)
+    k = qkv[..., n * d:(n + kv) * d].reshape(b, s, kv, d)
+    for x in (q, k, k.contiguous()):
+        K.reset_launch_counts()
+        got, got_bwd = K.rope_fwd(x, 1e4), K.rope_bwd(x, 1e4)
+        assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "rope_fwd": 1,
+                                     "rope_bwd": 1}
+        assert got.is_contiguous() and got.dtype == dtype
+        assert torch.equal(got, K.rope_fwd_plain(x, 1e4))
+        assert torch.equal(got_bwd, K.rope_bwd_plain(x, 1e4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cols", [(2048, 32000), (2048, 100008), (21, 100), (3, 5)])
+def test_q8_dequant_kernel_is_bit_identical_to_its_plain_version(card, out, rows, cols):
+    gen = torch.Generator(device=card).manual_seed(7)
+    acc = torch.randint(-2 ** 24, 2 ** 24, (rows, cols), generator=gen, device=card,
+                        dtype=torch.int32)
+    sa = torch.tensor(0.0123, device=card)
+    sb = torch.tensor(0.000456, device=card)
+    off = torch.empty(rows * cols + 1, dtype=torch.int32, device=card)[1:].view(rows, cols)
+    off.copy_(acc)
+    for t in (acc, off):
+        K.reset_launch_counts()
+        got = K.q8_dequant(t, sa, sb, out)
+        assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "q8_dequant": 1}
+        assert got.dtype == out and torch.equal(got, K.q8_dequant_plain(t, sa, sb, out))
+
+
+@pytest.mark.cuda
+def test_fused_ops_raise_for_what_the_kernels_refuse(card):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.rms_norm_fwd(torch.zeros(4, 8, dtype=torch.float16, device=card),
+                       torch.ones(8, dtype=torch.float16, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.rms_norm_fwd(torch.zeros(8, 4, device=card).t(), torch.ones(8, device=card))
+    with pytest.raises(ValueError, match="last dim contiguous"):
+        K.rope_fwd(torch.zeros(1, 4, 8, 2, device=card).transpose(2, 3), 1e4)
+    with pytest.raises(ValueError, match="even d"):
+        K.rope_fwd(torch.zeros(1, 4, 2, 7, device=card), 1e4)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.q8_dequant(torch.zeros(8, 4, dtype=torch.int32, device=card).t(),
+                     torch.tensor(1.0, device=card), torch.tensor(1.0, device=card),
+                     torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_rope_tables_are_not_kept_from_a_capture(card):
+    """A table made while a CUDA graph is captured lives in the graph's
+    pool: it is used and not kept; one made eagerly is kept."""
+    x = torch.randn(1, 24, 2, 64, generator=torch.Generator().manual_seed(8)).to(card)
+    x = x.bfloat16()
+    key = (x.device, 24, 64, 1e4, torch.bfloat16)
+    K._ROPE_TABLES.pop(key, None)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K.rope_fwd(x, 1e4)
+    assert key not in K._ROPE_TABLES
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.rope_fwd_plain(x, 1e4))
+    K.rope_fwd(x, 1e4)
+    assert key in K._ROPE_TABLES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_the_dense_step_launches_the_fused_kernels(card, remat):
+    """One step of a small bf16 Llama: 2L + 1 norms forward and backward,
+    and 2L RoPEs (q and k of each layer), forward and backward; recompute
+    re-runs each block's norms and RoPEs forward; the loss within 1e-3 of
+    the CPU's."""
+    from simumax_tpu_torch.torchref import model as M
+
+    cfg = M.LlamaConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=2,
+                        head_size=64, intermediate_size=512, layer_num=3)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, 512, (1, 128), generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for device in ("cpu", "cuda"):
+        p = M._map_tree(lambda t: t.detach().to(device, copy=True).requires_grad_(True), params)
+        init_opt, step = M.make_train_step(cfg, remat=remat)
+        K.reset_launch_counts()
+        losses[device] = float(step(p, init_opt(p), (ids.to(device), ids.to(device)))[2])
+    L = cfg.layer_num
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
+                                 "rms_norm_fwd": 2 * L + 1 + (2 * L if remat else 0),
+                                 "rms_norm_bwd": 2 * L + 1,
+                                 "rope_fwd": 2 * L * (2 if remat else 1), "rope_bwd": 2 * L}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
