@@ -66,10 +66,12 @@ Phases, each fatal on failure:
    rows' fused qkv products (bf16 dense and MoE, fp32, ragged), and the
    rms norm, forward (y and rstd) and backward (dx and dw), at the rows'
    [2048, 2048], [4096, 2048] and [2048, 1024] in bf16, [2048, 1024] in
-   fp32 and a ragged width, all bit for bit; and time each at the rows'
-   shapes as phase 3 does,
-   beside its bound, its plain version and, for the norm's forward,
-   ``F.rms_norm`` (a yardstick the port never calls);
+   fp32, Llama3-8B's and Llama3-70B's widths (4096, 8192), the widest
+   row the kernels take (32768, both dtypes) and a ragged width, all bit
+   for bit; and time each at the rows' shapes as phase 3 does,
+   beside its bound, its plain version and, for the norm, ``F.rms_norm``
+   and ``aten._fused_rms_norm_backward`` (yardsticks the port never
+   calls);
 4. check the port's reference models on a small input: the flash path
    (the kernels) and the math path of the Llama give the same loss; the
    MoE reference (fp32) and the int8 Llama (``use_int8``) on the card
@@ -494,12 +496,19 @@ SWIGLU_CASES = [
 SWIGLU_ROW = "a2a MoE"  # the case whose numbers go into the kernel table
 #: phase 3c: (case, rows, h, dtype, timed): x [rows, h] as the rows' steps
 #: give it to the rms norm (the dense rows' hidden 2048, the MoE row's
-#: 1024), the MoE model's fp32 (phase 4), and a ragged width
+#: 1024), the MoE model's fp32 (phase 4), 2048 tokens of Llama3-8B's and
+#: Llama3-70B's hidden widths (rows of 8 warps in the backward, 2 and 4
+#: chunks a lane), the widest row the kernels take (the backward reads it
+#: twice), and a ragged width
 NORM_CASES = [
     ("dense rows", 2048, 2048, "bfloat16", True),
     ("seq4096 row", 4096, 2048, "bfloat16", False),
     ("MoE row", 2048, 1024, "bfloat16", True),
     ("MoE row fp32", 2048, 1024, "float32", True),
+    ("Llama3-8B width", 2048, 4096, "bfloat16", True),
+    ("Llama3-70B width", 2048, 8192, "bfloat16", True),
+    ("widest row", 64, 32768, "bfloat16", False),
+    ("widest row fp32", 64, 32768, "float32", False),
     ("ragged", 21, 100, "bfloat16", False),
     ("ragged fp32", 21, 100, "float32", False),
 ]
@@ -1374,6 +1383,10 @@ def fused_per_step(kind, layers, remat):
             "q8_dequant": 3 * (4 * layers + 1) if kind == "int8" else 0}
 
 
+#: the names of a fused kernel's bool template arguments, in order
+FLAG_NAMES = {"rope_kernel": ("vec", "bwd"), "rms_norm_bwd_kernel": ("vec", "held")}
+
+
 def fused_build(reports):
     """Phase 1, the rms norm and RoPE kernels: each function's registers,
     shared memory and spills from the ptxas report (fails on a missing
@@ -1386,10 +1399,13 @@ def fused_build(reports):
                 f = re.search(r"\d((?:rms_norm|rope)\w*?_kernel)I(\w*?)EEv", m.group(1))
                 label = None
                 if f:
-                    flags = re.findall(r"Lb([01])", f.group(2))
+                    args = re.findall(r"L([bi])(\d+)E", f.group(2))
+                    flags = [v for kind, v in args if kind == "b"]
+                    chunks = [f", C={v}" for kind, v in args if kind == "i"]
+                    names = FLAG_NAMES.get(f.group(1), ("vec",))
                     label = (f"{f.group(1)}<{'bf16' if 'bfloat16' in f.group(2) else 'fp32'}"
-                             + "".join(f", {'vec' if i == 0 else 'bwd'}" for i, b in
-                                       enumerate(flags) if b == "1") + ">")
+                             + "".join(f", {names[i]}" for i, b in enumerate(flags) if b == "1")
+                             + "".join(chunks) + ">")
                     info[label] = {}
                 continue
             if not label:
@@ -1409,9 +1425,10 @@ def fused_build(reports):
             f"{rec.get('static_smem_bytes', 0)} bytes static smem, "
             f"{rec.get('spill_store_bytes')} bytes spill stores, "
             f"{rec.get('spill_load_bytes')} bytes spill loads")
-    # 2 dtypes x vector or scalar: the forward, backward and dw sum of the
-    # norm (dw has no VEC), RoPE in both directions
-    want = {"rms_norm_fwd_kernel": 4, "rms_norm_bwd_kernel": 4, "rms_norm_dw_kernel": 2,
+    # 2 dtypes x vector or scalar: the norm's forward, RoPE in both
+    # directions, the dw sum (no VEC); the norm's backward holding 1, 2 or
+    # (bf16 vectors) 4 chunks a lane, or streaming the row: 13
+    want = {"rms_norm_fwd_kernel": 4, "rms_norm_bwd_kernel": 13, "rms_norm_dw_kernel": 2,
             "rope_kernel": 8}
     got = {f: sum(1 for label in info if label.startswith(f + "<")) for f in want}
     bad = [label for label, rec in info.items() if "registers" not in rec
@@ -1420,6 +1437,42 @@ def fused_build(reports):
         raise AssertionError(f"rms norm and RoPE kernels in the ptxas report {got} (want "
                              f"{want}); missing registers or spills in {bad}")
     return info
+
+
+def library_norm_bwd(torch, x, w, dy, h):
+    """The yardstick of the norm's backward: (a call (x, w, rstd, dy) ->
+    (dx, dw) of ``aten._fused_rms_norm_backward`` with the rstd that
+    ``aten._fused_rms_norm`` gives for x (made here, outside any timed
+    graph; the timed calls' rotated inputs take it as the port's kernel
+    takes its rstd), a note: the kernels it launches, under the profiler,
+    and its largest difference from the plain backward), or (None, why
+    not) where the card's PyTorch lacks the ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simumax_tpu_torch.torchref import kernels as K
+
+    try:
+        fused = torch.ops.aten._fused_rms_norm
+        fused_bwd = torch.ops.aten._fused_rms_norm_backward
+        _y, rstd = fused(x, [h], w, K.RMS_EPS)
+    except (AttributeError, RuntimeError, NotImplementedError) as e:
+        return None, f"none on this PyTorch ({type(e).__name__}: {str(e)[:120]})"
+
+    def call(x_, w_, _rstd, dy_):
+        return fused_bwd(dy_, x_, [h], rstd, w_, [True, True])
+
+    # many calls: a profiler window may drop the first dozens of launches
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(200):
+            call(x, w, None, dy)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.count})
+    dx, dw = call(x, w, None, dy)
+    dx_ref, dw_ref = K.rms_norm_bwd_plain(x, w, K.rms_norm_fwd_plain(x, w)[1], dy)
+    err = max(float((dx.float() - dx_ref.float()).abs().max()),
+              float((dw.float() - dw_ref.float()).abs().max()))
+    return call, f"launches {names}; max |library - plain| over dx and dw {err:.6g}"
 
 
 def _fused_bound(kernel, nbytes, elements):
@@ -1435,7 +1488,8 @@ def check_fusions(K):
     their plain versions on the card, bit for bit (the plain versions
     repeat the kernels' operations in their order), at the rows' shapes,
     in fp32 and at ragged ones; and timings of each kernel, its plain version and, for
-    the norm's forward, ``F.rms_norm`` (a yardstick the port never calls),
+    the norm, ``F.rms_norm`` and ``aten._fused_rms_norm_backward`` (what
+    ``F.rms_norm``'s autograd runs; yardsticks the port never calls),
     replayed from CUDA graphs with the inputs rotated through more than
     the L2 cache holds. Returns ({kernel: row of the kernel table},
     [per-case records])."""
@@ -1489,6 +1543,7 @@ def check_fusions(K):
                 x_, dy_ = pick()
                 return fn(x_, w, rstd_ref, dy_)
 
+            lib_bwd, lib_note = library_norm_bwd(torch, x, w, dy, h)
             rec["timed"] = {
                 "rms_norm_fwd": record(
                     "rms_norm_fwd", case, ms(lambda: K.rms_norm_fwd(pick()[0], w)),
@@ -1497,12 +1552,15 @@ def check_fusions(K):
                     2 * n * el + h * el + rows * 4, n),
                 "rms_norm_bwd": record(
                     "rms_norm_bwd", case, ms(lambda: bwd(K.rms_norm_bwd)),
-                    ms(lambda: bwd(K.rms_norm_bwd_plain)), None,
+                    ms(lambda: bwd(K.rms_norm_bwd_plain)),
+                    ms(lambda: bwd(lib_bwd)) if lib_bwd else None,
                     3 * n * el + 2 * h * el + rows * 4, n)}
             lib_err = float((F.rms_norm(x, (h,), w, K.RMS_EPS).float() - y_ref.float()).abs().max())
             rec["library_max_abs_diff"] = lib_err
+            rec["library_bwd"] = lib_note
             log(f"F.rms_norm [{case}] (the yardstick): max |F.rms_norm - plain| {lib_err:.6g} "
-                f"(it rounds once, where the port rounds as the JAX package does)")
+                f"(it rounds once, where the port rounds as the JAX package does); "
+                f"aten._fused_rms_norm_backward: {lib_note}")
         records.append(rec)
 
     for case, b, seq, n, kv, d, dtype, timed in ROPE_CASES:
@@ -1568,8 +1626,10 @@ def check_fusions(K):
         table[kernel] = {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                              "library_ms")}
         table[kernel]["max_abs_err"] = 0.0  # every case equal bit for bit
-    log("library_ms: F.rms_norm for the norm's forward (a yardstick: it rounds once); no "
-        "single PyTorch call computes the norm's backward, RoPE or the dequantization")
+    log("library_ms: F.rms_norm for the norm's forward (a yardstick: it rounds once), "
+        "aten._fused_rms_norm_backward for its backward (what F.rms_norm's autograd runs; its "
+        "rstd from aten._fused_rms_norm, outside the timed graph); no single PyTorch call "
+        "computes RoPE or the dequantization")
     return table, records
 
 
@@ -2109,9 +2169,10 @@ def attribute_and_simulate(torch, bench, rows):
 
 def check_norm_family(row, kernels):
     """Phase 11: the kernels the attribution gives the norm family in a
-    row's profiled eager step are the rms norm kernels, 2L + 1 of each a
-    step (the forward's once more a recomputed block), and no eager norm
-    op. Beside them sit the autograd engine's additions of a norm's dx
+    row's profiled eager step are the rms norm kernels (forward,
+    backward and its dw sum), 2L + 1 of each a step (the forward's once
+    more a recomputed block), and no eager norm op. Beside them sit the
+    autograd engine's additions of a norm's dx
     into the gradient the residual branch already left for the same x
     (one each of the 2L norms inside the blocks): the engine runs them in
     the norm's backward node, so the attribution charges them to its

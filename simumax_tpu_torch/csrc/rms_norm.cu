@@ -22,15 +22,41 @@
 //
 // rms_norm_bwd_kernel: with x_hat = x * rstd and g = w * dy, all in fp32,
 //   dx = rstd * (g - x_hat * mean(g * x_hat)),   rounded once into dx,
-//   dw = sum over rows of dy * x_hat.
-// A grid of `blocks` blocks (the wrapper's choice depends on the rows
-// alone): block b takes rows b, b + blocks, ..., each row a block
-// reduction and a second pass over it, and adds
-// dy * x_hat into its own fp32 partial of dw in shared memory (each
-// thread owns the same columns in every row, so no barrier and no atomic).
-// The partials go to device memory, and rms_norm_dw_kernel sums them in
-// block order, one thread a column, rounding once into dw: the same sum
-// at every launch, so graph-replayed and eager steps agree bit for bit.
+//   dw = sum over rows of dy * x_hat,            rounded once into dw.
+// A row goes to a group of P warps: the fewest, a power of two up to 8,
+// whose lanes take the row at 16 elements a lane in bf16, 8 in fp32 (P =
+// 16 for rows wider than 16384). Lane l of the group's L = 32 P lanes
+// owns the chunks of 8 columns starting at (k * L + l) * 8, k = 0, 1,
+// ..., the same columns in every row. A block is 16 warps, 16 / P groups;
+// group q of block b takes rows b * 16 / P + q, then that plus the grid's
+// groups, and so on, one at a time. For each row a lane
+//   1. loads all its 16-byte vectors of x and dy at once into registers,
+//      the row's only read from device memory;
+//   2. sums g * x_hat over its columns, k then the 8 in order, from 0;
+//      a butterfly of shuffles (lane i adds lane i ^ 16, then i ^ 8, ...
+//      i ^ 1) leaves its warp's sum in every lane, and the group's total
+//      is 0 plus its warps' sums in warp order: for P > 1 after one
+//      exchange in shared memory behind a named barrier of the group's
+//      warps alone (two slots by row parity, so a slot is not written
+//      again before all have read it), never a block-wide barrier;
+//   3. writes dx from the registers, and adds dy * x_hat into its own
+//      fp32 accumulators of dw, in registers, from 0 in row order (no
+//      barrier, no atomic). Up to 2 chunks a lane, w stays in registers
+//      too.
+// Rows of more chunks a lane than the registers hold (bf16 over 4, fp32
+// over 2; scalar accesses over 2) take the same layout and order, reading
+// x, dy and w again for dx (from L1 or L2), the accumulators of dw in
+// shared memory.
+// After its last row each group puts its accumulators in shared memory;
+// the block adds its groups' in group order, from 0, behind its one
+// block-wide barrier, and writes that partial of dw to device memory
+// once. The blocks are min(ceil(rows / groups a block), 128): the rows, h
+// and the dtype fix them, never the card. rms_norm_dw_kernel then sums
+// the partials over the whole card: block c takes 32 columns, its warp j
+// the consecutive chunk j of ceil(blocks / 8) partials in order from 0,
+// and the 8 chunk sums are added in chunk order from 0 and rounded once
+// into dw. No atomics: the same sum at every launch, so graph-replayed
+// and eager steps agree bit for bit.
 //
 // Every sum is taken in an order fixed by h and the rows alone, and every
 // other operation is one IEEE operation, so the plain versions in
@@ -40,11 +66,11 @@
 // What bounds them on this card: a few fp32 operations an element against
 // 4 (fwd) or 6 (bwd) bytes in bf16, far below the ~295 FLOP/byte ridge, so
 // HBM bytes: x read and y written once (fwd); x, dy read and dx written
-// once (bwd), w and the row statistics besides. The TPU's VMEM tiles of
-// many rows have no purpose here; a row is at most a few tens of KB and
-// lives in L1 between the two passes. Loads and stores are 16-byte vectors
-// where h is a multiple of 8 and the bases are 16-byte aligned, else the
-// same kernels with scalar accesses.
+// once (bwd), w, the row statistics and dw's partials besides. The TPU's
+// VMEM tiles of many rows have no purpose here: the forward's row lives
+// in L1 between its two passes, the backward's in registers. Loads and
+// stores are 16-byte vectors where h is a multiple of 8 and the bases are
+// 16-byte aligned, else the same kernels with scalar accesses.
 //
 // Each extern "C" entry point launches on the given stream, allocates and
 // synchronises nothing, and returns cudaGetLastError() (0 on success), or
@@ -59,8 +85,13 @@ namespace {
 
 constexpr int G = 8;             // elements per thread and vector
 constexpr int MAX_THREADS = 1024;
-constexpr int MAX_H = 32768;     // the backward's fp32 partial of dw: 128 KB of shared memory
+constexpr int MAX_H = 32768;     // the backward's fp32 accumulators of dw: 128 KB of shared memory
 constexpr int SMEM_DEFAULT = 48 * 1024;
+constexpr int BWD_WARPS = 16;    // warps of a backward block
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int BWD_MAX_WPR = 8;   // warps of a row group at most: two groups a block
+constexpr int BWD_MAX_BLOCKS = 128;  // partials of dw at most
+constexpr int DW_CHUNKS = 8;     // warps of a dw block: chunks of the partials
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -109,6 +140,57 @@ __device__ __forceinline__ void store(T* __restrict__ p, const float* in, int n)
     for (int j = 0; j < G; ++j)
       if (j < n) p[j] = from_f<T>(in[j]);
   }
+}
+
+// elements of a row a lane of the backward takes, where a group of at most
+// 8 warps can: 16 in bf16, 8 in fp32
+template <typename T> constexpr int lane_elements() { return sizeof(T) == 2 ? 16 : 8; }
+// chunks of G a lane holds in registers at most (128 registers a thread
+// for x, dy, w and the accumulators of dw): 4 in bf16 with vector
+// accesses, else 2
+template <typename T, bool VEC> constexpr int hold_chunks() {
+  return VEC && sizeof(T) == 2 ? 4 : 2;
+}
+
+// G elements of type T as raw 32-bit words, which stay in registers
+template <typename T> struct Words {
+  static constexpr int N = G * (int)sizeof(T) / 4;
+};
+
+// n (<= G) consecutive values at p into words (zeros past n). VEC: n == G
+// and p is 16-byte aligned.
+template <typename T, bool VEC>
+__device__ __forceinline__ void load_words(const T* __restrict__ p, uint32_t* wd, int n) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int v = 0; v < Words<T>::N / 4; ++v) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p) + v);
+      wd[4 * v] = q.x;
+      wd[4 * v + 1] = q.y;
+      wd[4 * v + 2] = q.z;
+      wd[4 * v + 3] = q.w;
+    }
+  } else if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      wd[j] = j < n ? __float_as_uint(__ldg(reinterpret_cast<const float*>(p) + j)) : 0u;
+  } else {
+    const unsigned short* b = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int j = 0; j < G; j += 2)
+      wd[j / 2] = (j < n ? (uint32_t)__ldg(b + j) : 0u) |
+                  (j + 1 < n ? (uint32_t)__ldg(b + j + 1) << 16 : 0u);
+  }
+}
+
+// element j of words as fp32 (a bf16 is the top half of its fp32)
+template <typename T> __device__ __forceinline__ float word(const uint32_t* wd, int j) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(wd[j]);
+  else return __uint_as_float((j & 1) ? (wd[j >> 1] & 0xffff0000u) : (wd[j >> 1] << 16));
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The block's sum of one float a thread, the same bits in every thread:
@@ -164,66 +246,261 @@ rms_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restr
 }
 
 // ---------------------------------------------------------------------------
-// backward: block b takes rows b, b + gridDim.x, ...; its dw partial in
-// shared memory, written to dw_part[b, :] at the end
+// backward: groups of wpr warps a row, 16 / wpr groups a block; dw's partial
+// of block b written to dw_part[b, :] once, at the end
 // ---------------------------------------------------------------------------
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(MAX_THREADS)
-rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const float* __restrict__ rstd, const T* __restrict__ dy,
-                    T* __restrict__ dx, float* __restrict__ dw_part, long long rows, int h) {
-  extern __shared__ float acc[];  // h floats
-  __shared__ float red[32];
-  const int step = blockDim.x * G;
-  for (int c = threadIdx.x * G; c < h; c += step)
-    for (int j = 0; j < min(G, h - c); ++j) acc[c + j] = 0.f;
-  const float inv_h = 1.0f / (float)h;
-  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
-    const float rs = __ldg(rstd + r);
-    const T* xr = x + r * h;
-    const T* dyr = dy + r * h;
-    float part = 0.f;
-    for (int c = threadIdx.x * G; c < h; c += step) {
-      const int n = min(G, h - c);
-      float v[G], d[G], wv[G];
-      load<T, VEC>(xr + c, v, n);
-      load<T, VEC>(dyr + c, d, n);
-      load<T, VEC>(w + c, wv, n);
+
+// one 8-column chunk of a row after its mean is known: dx into o, dy *
+// x_hat added into the lane's own columns of the accumulator a
+template <bool VEC>
+__device__ __forceinline__ void bwd_finish(const float* v, const float* d, const float* wv,
+                                           float rs, float mean, float* o,
+                                           float* __restrict__ a, int n) {
+  float t[G];
 #pragma unroll
-      for (int j = 0; j < G; ++j)
-        part = __fadd_rn(part, __fmul_rn(__fmul_rn(wv[j], d[j]), __fmul_rn(v[j], rs)));
-    }
-    const float mean = __fmul_rn(block_sum(part, red), inv_h);
-    T* dxr = dx + r * h;
-    for (int c = threadIdx.x * G; c < h; c += step) {
-      const int n = min(G, h - c);
-      float v[G], d[G], wv[G], o[G];
-      load<T, VEC>(xr + c, v, n);
-      load<T, VEC>(dyr + c, d, n);
-      load<T, VEC>(w + c, wv, n);
-#pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const float xh = __fmul_rn(v[j], rs);
-        o[j] = __fmul_rn(rs, __fsub_rn(__fmul_rn(wv[j], d[j]), __fmul_rn(xh, mean)));
-        if (j < n) acc[c + j] = __fadd_rn(acc[c + j], __fmul_rn(d[j], xh));
-      }
-      store<T, VEC>(dxr + c, o, n);
-    }
+  for (int j = 0; j < G; ++j) {
+    const float xh = __fmul_rn(v[j], rs);
+    o[j] = __fmul_rn(rs, __fsub_rn(__fmul_rn(wv[j], d[j]), __fmul_rn(xh, mean)));
+    t[j] = __fmul_rn(d[j], xh);
   }
-  float* out = dw_part + (long long)blockIdx.x * h;
-  for (int c = threadIdx.x * G; c < h; c += step)
-    for (int j = 0; j < min(G, h - c); ++j) out[c + j] = acc[c + j];
+  if constexpr (VEC) {
+    float4* a4 = reinterpret_cast<float4*>(a);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float4 s = a4[i];
+      s.x = __fadd_rn(s.x, t[4 * i]);
+      s.y = __fadd_rn(s.y, t[4 * i + 1]);
+      s.z = __fadd_rn(s.z, t[4 * i + 2]);
+      s.w = __fadd_rn(s.w, t[4 * i + 3]);
+      a4[i] = s;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (j < n) a[j] = __fadd_rn(a[j], t[j]);
+  }
 }
 
-// dw[c] = the blocks' partials of column c summed in block order
+// the sum of g * x_hat over one chunk, added into part in column order
+__device__ __forceinline__ float bwd_terms(float part, const float* v, const float* d,
+                                           const float* wv, float rs) {
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    part = __fadd_rn(part, __fmul_rn(__fmul_rn(wv[j], d[j]), __fmul_rn(v[j], rs)));
+  return part;
+}
+
+// The group's total of one float a lane, the same bits in every lane: a
+// butterfly of shuffles leaves each warp's sum in all its lanes, and the
+// total is 0 plus the group's warps' sums in warp order; for more than
+// one warp after one exchange in red[parity] behind a named barrier of
+// the group's warps alone (the slots alternate by row, so a slot is not
+// written again before the group has read it).
+__device__ __forceinline__ float group_sum(float v, float (*red)[BWD_WARPS], int parity,
+                                           int wpr, int grp) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  float total = 0.f;
+  if (wpr == 1) return __fadd_rn(total, v);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[parity][warp] = v;
+  bar_sync(1 + grp, 32 * wpr);
+  for (int i = 0; i < wpr; ++i) total = __fadd_rn(total, red[parity][grp * wpr + i]);
+  return total;
+}
+
+// where a lane's chunks of a row start and end: lanes of the group, the
+// lane's index in it
+struct Lane {
+  int lanes, gl, h;
+  __device__ __forceinline__ int col(int k) const { return (k * lanes + gl) * G; }
+};
+
+// the rows of a group that fit in registers: each row's x and dy loaded
+// at once, then reduced; the lane's accumulators of dw, and for up to 2
+// chunks its w, held across rows. Each accumulator is written to acc (its
+// columns) at the end.
+template <typename T, bool VEC, int C>
+__device__ __forceinline__ void held_rows(const T* __restrict__ x, const T* __restrict__ w,
+                                          const float* __restrict__ rstd,
+                                          const T* __restrict__ dy, T* __restrict__ dx,
+                                          float* __restrict__ acc, long long r, long long rows,
+                                          long long step, Lane l, float (*red)[BWD_WARPS],
+                                          int wpr, int grp, float inv_h) {
+  constexpr bool HOLD_W = C <= 2;
+  [[maybe_unused]] uint32_t ww[C][Words<T>::N];
+  float ac[C][G];
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    if (HOLD_W && l.col(k) < l.h) load_words<T, VEC>(w + l.col(k), ww[k], l.h - l.col(k));
+#pragma unroll
+    for (int j = 0; j < G; ++j) ac[k][j] = 0.f;
+  }
+  // w's chunk k as fp32
+  auto w_chunk = [&](int k, float* wv) {
+    if constexpr (HOLD_W) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) wv[j] = word<T>(ww[k], j);
+    } else {
+      load<T, VEC>(w + l.col(k), wv, min(G, l.h - l.col(k)));
+    }
+  };
+  for (int parity = 0; r < rows; r += step, parity ^= 1) {
+    const float rs = __ldg(rstd + r);
+    uint32_t xw[C][Words<T>::N], dyw[C][Words<T>::N];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = l.col(k);
+      if (c < l.h) {
+        load_words<T, VEC>(x + r * l.h + c, xw[k], l.h - c);
+        load_words<T, VEC>(dy + r * l.h + c, dyw[k], l.h - c);
+      }
+    }
+    float part = 0.f;
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      if (l.col(k) < l.h) {
+        float v[G], d[G], wv[G];
+        w_chunk(k, wv);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          v[j] = word<T>(xw[k], j);
+          d[j] = word<T>(dyw[k], j);
+        }
+        part = bwd_terms(part, v, d, wv, rs);
+      }
+    }
+    const float mean = __fmul_rn(group_sum(part, red, parity, wpr, grp), inv_h);
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const int c = l.col(k);
+      if (c < l.h) {
+        float wv[G], o[G];
+        w_chunk(k, wv);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float d = word<T>(dyw[k], j);
+          const float xh = __fmul_rn(word<T>(xw[k], j), rs);
+          o[j] = __fmul_rn(rs, __fsub_rn(__fmul_rn(wv[j], d), __fmul_rn(xh, mean)));
+          ac[k][j] = __fadd_rn(ac[k][j], __fmul_rn(d, xh));
+        }
+        store<T, VEC>(dx + r * l.h + c, o, min(G, l.h - c));
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < C; ++k) {
+    const int c = l.col(k);
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (c + j < l.h) acc[c + j] = ac[k][j];
+  }
+}
+
+// the rows of a group that do not fit in registers: each chunk of x, dy
+// and w read for the sum and again for dx, the accumulators of dw in acc
+template <typename T, bool VEC>
+__device__ __forceinline__ void streamed_rows(const T* __restrict__ x, const T* __restrict__ w,
+                                              const float* __restrict__ rstd,
+                                              const T* __restrict__ dy, T* __restrict__ dx,
+                                              float* __restrict__ acc, long long r,
+                                              long long rows, long long step, Lane l,
+                                              float (*red)[BWD_WARPS], int wpr, int grp,
+                                              float inv_h) {
+  const int chunks = (l.h + l.lanes * G - 1) / (l.lanes * G);
+  for (int k = 0; k < chunks; ++k)
+    for (int j = 0; j < G && l.col(k) + j < l.h; ++j) acc[l.col(k) + j] = 0.f;
+  for (int parity = 0; r < rows; r += step, parity ^= 1) {
+    const float rs = __ldg(rstd + r);
+    const T* xr = x + r * l.h;
+    const T* dyr = dy + r * l.h;
+    float part = 0.f;
+    for (int k = 0; k < chunks; ++k) {
+      const int c = l.col(k);
+      if (c < l.h) {
+        const int n = min(G, l.h - c);
+        float v[G], d[G], wv[G];
+        load<T, VEC>(xr + c, v, n);
+        load<T, VEC>(dyr + c, d, n);
+        load<T, VEC>(w + c, wv, n);
+        part = bwd_terms(part, v, d, wv, rs);
+      }
+    }
+    const float mean = __fmul_rn(group_sum(part, red, parity, wpr, grp), inv_h);
+    for (int k = 0; k < chunks; ++k) {
+      const int c = l.col(k);
+      if (c < l.h) {
+        const int n = min(G, l.h - c);
+        float v[G], d[G], wv[G], o[G];
+        load<T, VEC>(xr + c, v, n);
+        load<T, VEC>(dyr + c, d, n);
+        load<T, VEC>(w + c, wv, n);
+        bwd_finish<VEC>(v, d, wv, rs, mean, o, acc + c, n);
+        store<T, VEC>(dx + r * l.h + c, o, n);
+      }
+    }
+  }
+}
+
+// C: chunks a lane holds (HOLD), a power of two at least those the row
+// needs; !HOLD streams the row's chunks and reads them again. Block b
+// writes its partial of dw to dw_part[b, :].
+template <typename T, bool VEC, int C, bool HOLD>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+rms_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ rstd, const T* __restrict__ dy,
+                    T* __restrict__ dx, float* __restrict__ dw_part, long long rows, int h,
+                    int wpr) {
+  extern __shared__ float4 smem4[];  // [16 / wpr][h] floats: each group's accumulator
+  float* acc_all = reinterpret_cast<float*>(smem4);
+  __shared__ float red[2][BWD_WARPS];
+  const int warp = threadIdx.x >> 5;
+  const int rpb = BWD_WARPS / wpr, grp = warp / wpr;
+  const Lane l{32 * wpr, (warp % wpr) * 32 + (int)(threadIdx.x & 31), h};
+  const float inv_h = 1.0f / (float)h;
+  const long long step = (long long)gridDim.x * rpb;
+  const long long r = (long long)blockIdx.x * rpb + grp;
+  if constexpr (HOLD)
+    held_rows<T, VEC, C>(x, w, rstd, dy, dx, acc_all + grp * h, r, rows, step, l, red, wpr, grp,
+                         inv_h);
+  else
+    streamed_rows<T, VEC>(x, w, rstd, dy, dx, acc_all + grp * h, r, rows, step, l, red, wpr,
+                          grp, inv_h);
+  // the block's partial: its groups' accumulators in group order, each
+  // thread its own columns, behind the block's one barrier
+  __syncthreads();
+  float* out = dw_part + (long long)blockIdx.x * h;
+  for (int c = threadIdx.x; c < h; c += BWD_THREADS) {
+    float s = 0.f;
+    for (int i = 0; i < rpb; ++i) s = __fadd_rn(s, acc_all[i * h + c]);
+    out[c] = s;
+  }
+}
+
+// dw[c]: warp j of the block of column c sums the partials of chunk j
+// (ceil(blocks / 8) consecutive blocks) in block order, and the chunks'
+// sums are added in chunk order
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * DW_CHUNKS)
 rms_norm_dw_kernel(const float* __restrict__ dw_part, T* __restrict__ dw, int blocks, int h) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= h) return;
+  __shared__ float red[DW_CHUNKS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.x * 32 + lane;
+  const int per = (blocks + DW_CHUNKS - 1) / DW_CHUNKS;
+  const int lo = warp * per, hi = min(lo + per, blocks);
   float s = 0.f;
-  for (int b = 0; b < blocks; ++b) s = __fadd_rn(s, dw_part[(long long)b * h + c]);
-  dw[c] = from_f<T>(s);
+  if (c < h) {
+#pragma unroll 8
+    for (int b = lo; b < hi; ++b) s = __fadd_rn(s, __ldg(dw_part + (long long)b * h + c));
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < h) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < DW_CHUNKS; ++i) total = __fadd_rn(total, red[i][lane]);
+    dw[c] = from_f<T>(total);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -252,19 +529,55 @@ cudaError_t fwd(const void* x, const void* w, void* y, void* rstd, long long row
   return cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+// warps a row of the backward: the fewest (a power of two, at most 8)
+// whose lanes take the row at lane_elements each; 16 (the block) for rows
+// wider than 16384, whose fp32 accumulators of dw fit in shared memory
+// only one a block
+template <typename T> int bwd_warps_per_row(int h) {
+  if (h > MAX_H / 2) return BWD_WARPS;
+  int wpr = 1;
+  while (wpr < BWD_MAX_WPR && 32 * wpr * lane_elements<T>() < h) wpr *= 2;
+  return wpr;
+}
+
+template <typename T, bool VEC, int C, bool HOLD>
 cudaError_t bwd_launch(const void* x, const void* w, const void* rstd, const void* dy, void* dx,
-                       void* dw_part, long long rows, int h, int blocks, cudaStream_t st) {
-  const int smem = h * (int)sizeof(float);
+                       void* dw_part, long long rows, int h, int wpr, int blocks,
+                       cudaStream_t st) {
+  const int smem = (BWD_WARPS / wpr) * h * (int)sizeof(float);
   if (smem > SMEM_DEFAULT) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rms_norm_bwd_kernel<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        rms_norm_bwd_kernel<T, VEC, C, HOLD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  rms_norm_bwd_kernel<T, VEC><<<blocks, threads_for(h), smem, st>>>(
+  rms_norm_bwd_kernel<T, VEC, C, HOLD><<<blocks, BWD_THREADS, smem, st>>>(
       (const T*)x, (const T*)w, (const float*)rstd, (const T*)dy, (T*)dx, (float*)dw_part, rows,
-      h);
+      h, wpr);
   return cudaGetLastError();
+}
+
+// the held instance of the fewest chunks C (1, 2, 4, ...) that cover a
+// lane's chunks of the row
+template <typename T, bool VEC, int C = 1>
+cudaError_t bwd_held(const void* x, const void* w, const void* rstd, const void* dy, void* dx,
+                     void* dw_part, long long rows, int h, int wpr, int chunks, int blocks,
+                     cudaStream_t st) {
+  if constexpr (C < hold_chunks<T, VEC>()) {
+    if (chunks > C)
+      return bwd_held<T, VEC, 2 * C>(x, w, rstd, dy, dx, dw_part, rows, h, wpr, chunks, blocks,
+                                     st);
+  }
+  return bwd_launch<T, VEC, C, true>(x, w, rstd, dy, dx, dw_part, rows, h, wpr, blocks, st);
+}
+
+template <typename T, bool VEC>
+cudaError_t bwd_rows(const void* x, const void* w, const void* rstd, const void* dy, void* dx,
+                     void* dw_part, long long rows, int h, int blocks, cudaStream_t st) {
+  const int wpr = bwd_warps_per_row<T>(h);
+  const int chunks = (h + 32 * wpr * G - 1) / (32 * wpr * G);
+  if (chunks > hold_chunks<T, VEC>())
+    return bwd_launch<T, VEC, 1, false>(x, w, rstd, dy, dx, dw_part, rows, h, wpr, blocks, st);
+  return bwd_held<T, VEC>(x, w, rstd, dy, dx, dw_part, rows, h, wpr, chunks, blocks, st);
 }
 
 template <typename T>
@@ -272,11 +585,11 @@ cudaError_t bwd(const void* x, const void* w, const void* rstd, const void* dy, 
                 void* dw, void* dw_part, long long rows, int h, int blocks, cudaStream_t st) {
   const cudaError_t err =
       (h % G == 0 && aligned(x) && aligned(w) && aligned(dy) && aligned(dx))
-          ? bwd_launch<T, true>(x, w, rstd, dy, dx, dw_part, rows, h, blocks, st)
-          : bwd_launch<T, false>(x, w, rstd, dy, dx, dw_part, rows, h, blocks, st);
+          ? bwd_rows<T, true>(x, w, rstd, dy, dx, dw_part, rows, h, blocks, st)
+          : bwd_rows<T, false>(x, w, rstd, dy, dx, dw_part, rows, h, blocks, st);
   if (err != cudaSuccess) return err;
-  rms_norm_dw_kernel<T><<<(h + 255) / 256, 256, 0, st>>>((const float*)dw_part, (T*)dw, blocks,
-                                                         h);
+  rms_norm_dw_kernel<T><<<(h + 31) / 32, 32 * DW_CHUNKS, 0, st>>>((const float*)dw_part, (T*)dw,
+                                                                  blocks, h);
   return cudaGetLastError();
 }
 
@@ -300,11 +613,13 @@ extern "C" int rms_norm_fwd(int dtype, const void* x, const void* w, void* y, vo
 }
 
 // x, dy and dx [rows, h] contiguous, w and dw [h], rstd float32 [rows] (the
-// forward's), dw_part float32 [blocks, h] scratch; 1 <= blocks <= rows.
+// forward's), dw_part float32 [blocks, h] scratch; 1 <= blocks <= 128 (the
+// wrapper's: min(ceil(rows / (16 / warps a row)), 128)).
 extern "C" int rms_norm_bwd(int dtype, const void* x, const void* w, const void* rstd,
                             const void* dy, void* dx, void* dw, void* dw_part, long long rows,
                             int h, int blocks, void* stream) {
-  if (!shapes_ok(rows, h) || blocks < 1 || blocks > rows) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(rows, h) || blocks < 1 || blocks > BWD_MAX_BLOCKS)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return (int)bwd<float>(x, w, rstd, dy, dx, dw, dw_part, rows, h, blocks, st);
   if (dtype == 1)

@@ -1,10 +1,11 @@
-"""The fp32 flash-attention kernels, or the ragged int8 quantize, against
-another commit's, on the same calls.
+"""The fp32 flash-attention kernels, the ragged int8 quantize or the rms
+norm's backward against another commit's, on the same calls.
 
 The baseline is the source ``csrc/flash_attn.cu`` (``--kernels flash``,
-the default) or ``csrc/quant8.cu`` (``--kernels q8``) of another commit,
-built here with the port's nvcc flags into ``build/baseline/`` and loaded
-beside the current kernels.
+the default), ``csrc/quant8.cu`` (``--kernels q8``) or
+``csrc/rms_norm.cu`` (``--kernels norm``) of another commit, built here
+with the port's nvcc flags into ``build/baseline/`` and loaded beside the
+current kernels.
 
 Flash: the baseline's entry points are those of commit 2f9d7b8:
 ``flash_fwd`` with the kv split (dtype, d, q, k, v, o, lse, b*h, sq, skv,
@@ -34,6 +35,23 @@ current kernel 1 in its both mode, one launch, against the baseline's
 row-major kernel and then its kernel 1) are timed in the same turns, and
 their outputs must be equal bit for bit.
 
+norm: the baseline's ``rms_norm_bwd`` entry point is the current one's
+(that of commit fd7ecb3, whose backward walked each block's rows one at
+a time with two block barriers a row, and summed dw over its
+min(rows, 256) blocks' partials with one thread a column). At
+``NORM_CASES`` (``chip_smoke.py``'s timed norm cases: [2048, 2048],
+[2048, 1024], [2048, 4096] and [2048, 8192] in bf16, [2048, 1024] in
+fp32), on the same x, w, rstd and dy, each backward (both its launches)
+is timed in the same turns, ``NORM_CALLS`` calls a sample, its x and dy
+rotated through copies that exceed twice the L2 cache, as a step finds
+them; dx and dw must agree
+with the baseline's within ``RTOL_NORM`` * (|baseline| + rms(baseline))
+(1e-6: the two sum in other orders), plus in bf16 one bf16 ulp of the
+larger of the two (each rounds its fp32 result once); each difference's
+largest share of that limit, in bf16 ulps and absolute, is reported.
+Each row reports both shares of the bound (x and dy read, dx written, w,
+rstd and dw besides, over 3.35 TB/s) and their ratio.
+
 Usage. Write the baseline's source where git is (the card's machine has
 no repository), then run on the card::
 
@@ -42,6 +60,9 @@ no repository), then run on the card::
     python -m simumax_tpu_torch.tools.time_redesign --kernels q8 --extract f51bffb
     python -m simumax_tpu_torch.tools.time_redesign --kernels q8 \\
         --baseline build/baseline/f51bffb
+    python -m simumax_tpu_torch.tools.time_redesign --kernels norm --extract fd7ecb3
+    python -m simumax_tpu_torch.tools.time_redesign --kernels norm \\
+        --baseline build/baseline/fd7ecb3
 
 Prints one JSON object and writes it to ``--out`` when given.
 """
@@ -59,7 +80,7 @@ import torch
 
 from simumax_tpu_torch.torchref import kernels as K
 
-SOURCES = {"flash": "flash_attn.cu", "q8": "quant8.cu"}
+SOURCES = {"flash": "flash_attn.cu", "q8": "quant8.cu", "norm": "rms_norm.cu"}
 FP32_CASES = {"fp32, 16 kv blocks": dict(b=1, s=1024, h=2, d=64, causal=True),
               "fp32 full width": dict(b=1, s=2048, h=16, d=128, causal=True)}
 RTOL = 1e-4
@@ -68,6 +89,17 @@ SPIN_CYCLES = 2 * 10 ** 6
 Q8_CASES = [("Aquila2 LM head", 2048, 100008, torch.bfloat16),
             ("Aquila2 LM head", 2048, 100008, torch.float32),
             ("LM head", 2048, 32000, torch.bfloat16)]
+#: (case, rows, h, dtype) of the norm rows
+NORM_CASES = [("dense rows", 2048, 2048, torch.bfloat16),
+              ("MoE row", 2048, 1024, torch.bfloat16),
+              ("MoE row fp32", 2048, 1024, torch.float32),
+              ("Llama3-8B width", 2048, 4096, torch.bfloat16),
+              ("Llama3-70B width", 2048, 8192, torch.bfloat16)]
+RTOL_NORM = 1e-6
+#: backwards a norm sample times back to back (each launch's own start
+#: amortised, as in a step and in ``chip_smoke.py``'s graph timings)
+NORM_CALLS = 10
+L2_BYTES = 50 * 2 ** 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: the baseline's entry points: the flash kernels' of 2f9d7b8, the
@@ -79,6 +111,7 @@ BASELINE_ARGTYPES = {
         "flash_bwd_dkv": [_I, _I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P],
     },
     "q8": {"q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P]},
+    "norm": {"rms_norm_bwd": [_I] + [_P] * 7 + [_L, _I, _I, _P]},
 }
 
 
@@ -113,9 +146,10 @@ def build_baseline(directory: str, kernels: str = "flash") -> ctypes.CDLL:
     return cdll
 
 
-def device_ms(fn, reps: int = 5) -> float:
-    """Median device ms of ``fn`` between two CUDA events, each sample
-    queued behind a spin kernel, after a warm-up call."""
+def device_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Median device ms of a call of ``fn``: ``calls`` calls between two
+    CUDA events, each sample queued behind a spin kernel, after a warm-up
+    call."""
     fn()
     times = []
     for _ in range(reps):
@@ -123,15 +157,17 @@ def device_ms(fn, reps: int = 5) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def turns(new, old) -> dict:
-    t = [device_ms(new), device_ms(old), device_ms(old), device_ms(new)]
+def turns(new, old, reps: int = 5, calls: int = 1) -> dict:
+    t = [device_ms(new, reps, calls), device_ms(old, reps, calls), device_ms(old, reps, calls),
+         device_ms(new, reps, calls)]
     return {"new_ms": (t[0] + t[3]) / 2, "baseline_ms": (t[1] + t[2]) / 2, "turns_ms": t}
 
 
@@ -140,12 +176,12 @@ def checked(name, rc):
         raise RuntimeError(f"{name} returned cudaError {rc}")
 
 
-def worst_share(got, ref) -> float:
-    """Largest |got - ref| over its limit RTOL * (|ref| + rms(ref)),
+def worst_share(got, ref, rtol: float = RTOL) -> float:
+    """Largest |got - ref| over its limit rtol * (|ref| + rms(ref)),
     across the output tensors."""
     ratio = 0.0
     for g, r in zip(got, ref):
-        limit = RTOL * (r.abs() + r.square().mean().sqrt())
+        limit = rtol * (r.abs() + r.square().mean().sqrt())
         ratio = max(ratio, float(((g - r).abs() / limit).max()))
     return ratio
 
@@ -261,6 +297,84 @@ def q8_rows(lib) -> dict:
     return rows_out
 
 
+def within(got, ref, dtype) -> float:
+    """Largest |got - ref| over its limit: RTOL_NORM * (|ref| + rms(ref)),
+    and in bf16 one bf16 ulp of the larger of |got| and |ref| besides
+    (the two round fp32 values that differ by their sums' orders)."""
+    g, r = got.float(), ref.float()
+    limit = RTOL_NORM * (r.abs() + r.square().mean().sqrt())
+    if dtype == torch.bfloat16:
+        big = torch.maximum(g.abs(), r.abs())
+        limit = limit + torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return float(((g - r).abs() / limit).max())
+
+
+def bf16_ulps(got, ref) -> float:
+    """Largest |got - ref| in bf16 ulps of the larger of |got| and |ref|."""
+    big = torch.maximum(got.float().abs(), ref.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    ulp = torch.where(big > 0, ulp, torch.ones_like(big))
+    return float(((got.float() - ref.float()).abs() / ulp).max())
+
+
+def norm_rows(lib) -> dict:
+    """The rms norm's backward at :data:`NORM_CASES`, the current kernels
+    against the baseline's, on the same inputs."""
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    new_lib = K._lib("rms_norm")
+    for label, rows, h, dtype in NORM_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(2024)
+        el = torch.finfo(dtype).bits // 8
+        w = (1 + 0.1 * torch.randn(h, generator=gen, device="cuda")).to(dtype)
+        copies = [tuple((torch.randn(rows, h, generator=gen, device="cuda") * s).to(dtype)
+                        for s in (2, 1))
+                  for _ in range(max(2, -(-2 * L2_BYTES // (2 * rows * h * el))))]
+        rstds = [K.rms_norm_fwd(x, w)[1] for x, _dy in copies]
+        code = K._DTYPE_CODES[dtype]
+        blocks = {"n": K.rms_norm_bwd_layout(rows, h, dtype)[1], "b": min(rows, 256)}
+        outs = {k: (torch.empty(rows, h, dtype=dtype, device="cuda"),
+                    torch.empty(h, dtype=dtype, device="cuda"),
+                    torch.empty(b, h, device="cuda")) for k, b in blocks.items()}
+        turn = {"i": 0}
+
+        def launch(which, i):
+            x, dy = copies[i]
+            dx, dw, part = outs[which]
+            lib_ = new_lib if which == "n" else lib
+            checked(f"{which} rms_norm_bwd", lib_.rms_norm_bwd(
+                code, x.data_ptr(), w.data_ptr(), rstds[i].data_ptr(), dy.data_ptr(),
+                dx.data_ptr(), dw.data_ptr(), part.data_ptr(), rows, h, blocks[which], stream))
+
+        def rotated(which):
+            def call():
+                turn["i"] = (turn["i"] + 1) % len(copies)
+                launch(which, turn["i"])
+            return call
+
+        launch("n", 0)
+        launch("b", 0)
+        torch.cuda.synchronize()
+        err = {name: {"share_of_limit": within(outs["n"][i], outs["b"][i], dtype),
+                      "bf16_ulps": bf16_ulps(outs["n"][i], outs["b"][i]),
+                      "max_abs": float((outs["n"][i].float() - outs["b"][i].float()).abs().max())}
+               for i, name in enumerate(("dx", "dw"))}
+        if not all(e["share_of_limit"] <= 1.0 for e in err.values()):
+            raise AssertionError(f"{label}: the backwards differ: {err}")
+        nbytes = 3 * rows * h * el + 2 * h * el + rows * 4
+        rec = {"rows": rows, "h": h, "dtype": str(dtype).replace("torch.", ""),
+               "blocks": blocks["n"], "baseline_blocks": blocks["b"], "differences": err,
+               "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               **turns(rotated("n"), rotated("b"), reps=11, calls=NORM_CALLS)}
+        rec.update(new_share=rec["bound_ms"] / rec["new_ms"],
+                   baseline_share=rec["bound_ms"] / rec["baseline_ms"],
+                   speedup=rec["baseline_ms"] / rec["new_ms"])
+        out[label] = rec
+        del copies, rstds, outs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", choices=sorted(SOURCES), default="flash",
@@ -284,8 +398,10 @@ def main(argv=None) -> dict:
     result = {"card": card.strip(), "baseline": os.path.abspath(args.baseline)}
     if args.kernels == "flash":
         result["flash_fp32"] = flash_rows(lib)
-    else:
+    elif args.kernels == "q8":
         result["q8"] = q8_rows(lib)
+    else:
+        result["norm"] = norm_rows(lib)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1180,7 +1180,9 @@ def test_entry_and_the_one_rank_dry_run_on_the_card(card, capsys):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,h", [(2048, 2048), (2048, 1024), (21, 100), (3, 20000), (5, 33)])
+@pytest.mark.parametrize("rows,h", [(2048, 2048), (2048, 1024), (21, 100), (3, 20000), (5, 33),
+                                    (1, 2048), (4097, 4096), (2048, 8192), (64, 32768),
+                                    (7, 5001)])
 def test_rms_norm_kernels_match_their_plain_versions(card, dtype, rows, h):
     gen = torch.Generator(device=card).manual_seed(5)
     x = (torch.randn(rows, h, generator=gen, device=card) * 2).to(dtype)

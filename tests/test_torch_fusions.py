@@ -138,6 +138,90 @@ def test_rms_norm_backward_matches_jax_vjp(dtype, shape):
     assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
 
 
+def _norm_bwd_scalar_loop(x, w, rstd, dy, per_lane):
+    """dx and dw of the rms norm's backward by a numpy float32 loop, one
+    IEEE operation at a time, in the order the header of
+    ``csrc/rms_norm.cu`` states: a row group of P warps (the fewest, a
+    power of two up to 8, whose lanes take ``per_lane`` elements each; 16
+    past 16384), lane l's columns (k * 32 P + l) * 8 + j summed k then j
+    from 0, a butterfly in each warp, the warps' sums in order from 0; dw
+    accumulated by row group (16 / P a block, ceil(rows / that) blocks, at
+    most 128), the groups of a block in order, then 8 chunks of
+    ceil(blocks / 8) consecutive block partials, and the chunks."""
+    f32 = np.float32
+    rows, h = x.shape
+    warps = 1
+    while warps < 8 and 32 * warps * per_lane < h:
+        warps *= 2
+    if h > 16384:
+        warps = 16
+    lanes, per_block = 32 * warps, 16 // warps
+    blocks = max(1, min(-(-rows // per_block), 128))
+    groups = blocks * per_block
+    dx = np.zeros((rows, h), f32)
+    acc = np.zeros((groups, h), f32)
+    inv_h = f32(1) / f32(h)
+    for r in range(rows):
+        rs = rstd[r]
+        sums = []
+        for lane in range(lanes):
+            part, k = f32(0), 0
+            while (k * lanes + lane) * 8 < h:
+                for c in range((k * lanes + lane) * 8, min((k * lanes + lane) * 8 + 8, h)):
+                    part = f32(part + f32(f32(w[c] * dy[r, c]) * f32(x[r, c] * rs)))
+                k += 1
+            sums.append(part)
+        total = f32(0)
+        for warp in range(warps):
+            v = sums[32 * warp:32 * warp + 32]
+            for off in (16, 8, 4, 2, 1):
+                v = [f32(v[i] + v[i ^ off]) for i in range(32)]
+            total = f32(total + v[0])
+        mean = f32(total * inv_h)
+        for c in range(h):
+            xh = f32(x[r, c] * rs)
+            dx[r, c] = f32(rs * f32(f32(w[c] * dy[r, c]) - f32(xh * mean)))
+            acc[r % groups, c] = f32(acc[r % groups, c] + f32(dy[r, c] * xh))
+    per_chunk = -(-blocks // 8)
+    dw = np.zeros(h, f32)
+    for c in range(h):
+        partials = []
+        for b in range(blocks):
+            s = f32(0)
+            for g in range(b * per_block, (b + 1) * per_block):
+                s = f32(s + acc[g, c])
+            partials.append(s)
+        total = f32(0)
+        for j in range(8):
+            s = f32(0)
+            for b in range(j * per_chunk, min((j + 1) * per_chunk, blocks)):
+                s = f32(s + partials[b])
+            total = f32(total + s)
+        dw[c] = total
+    return dx, dw, warps, blocks
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,h", [(1, 33), (5, 1), (7, 100), (300, 33), (2100, 1),
+                                    (3, 256), (2, 1100), (2, 2100), (2, 16401)])
+def test_rms_norm_backward_plain_follows_the_kernels_order(dtype, rows, h):
+    """The plain backward equals, bit for bit, a scalar loop in the order
+    csrc/rms_norm.cu states: rows below one block's row groups (16 of one
+    warp), between, and past 128 blocks' worth (groups that take two
+    rows); widths of one element, ragged ones, and rows of 1, 4, 8 and
+    (past 16384) 16 warps."""
+    (_jx, tx), (_jw, tw), (_jdy, tdy) = _norm_inputs((rows, h), dtype, seed=3)
+    _y, rstd = K.rms_norm_fwd_plain(tx, tw)
+    dx, dw = K.rms_norm_bwd_plain(tx, tw, rstd, tdy)
+    ref_dx, ref_dw, warps, blocks = _norm_bwd_scalar_loop(
+        tx.float().numpy(), tw.float().numpy(), rstd.numpy(), tdy.float().numpy(),
+        16 if dtype == "bf16" else 8)
+    tdt = DTYPES[dtype][1]
+    assert torch.equal(dx, torch.from_numpy(ref_dx).to(tdt))
+    assert torch.equal(dw, torch.from_numpy(ref_dw).to(tdt))
+    assert K.rms_norm_bwd_layout(rows, h, tdt) == (warps, blocks)
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", ROPE_SHAPES, ids=["d64", "d20"])
 def test_rope_forward_of_strided_views_equals_jax(dtype, shape):
