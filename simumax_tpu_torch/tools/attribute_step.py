@@ -69,6 +69,8 @@ LEAD_LAUNCHES = 64
 WINDOW_PAD_S = 0.05
 #: the spin kernel (``torch.cuda._sleep``) that marks the end of the lead
 MARK = "spin_kernel"
+#: the name of one of the port's own CUDA kernels inside a trace's kernel name
+_OWN_KERNEL = re.compile(r"\w*(?:flash_|q8_|swiglu_|rms_norm_|rope_|moe_permute_|moe_combine_)\w*")
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "attribution")
 
@@ -183,6 +185,8 @@ def _by_name(name: str) -> str:
         return "GEMM"
     if "rms_norm_" in name:
         return "norm"
+    if "moe_permute_" in name or "moe_combine_" in name:
+        return "MoE dispatch"
     return "elementwise"
 
 
@@ -214,24 +218,38 @@ def eager_kernel_families(events: List[dict]) -> Tuple[List[Tuple[str, float, st
     return out, untied
 
 
-def replay_families(eager: List[Tuple[str, float, str]], events: List[dict]
-                    ) -> Tuple[Dict[str, float], bool]:
-    """Device ms by family of a profiled graph replay, each replayed
-    kernel taking the family of the eager kernel at its position (the
-    replay's list may lack the first kernels of the eager step's, which
-    a profiler window can miss: then it is matched to the end of it); and
-    whether the replay's names were the eager step's, so matched. Where
-    they differ otherwise, a kernel's ms is split over the families of
-    the eager kernels of its name, in proportion to how many of them each
-    family has."""
+def _replayed_as(name: str) -> str:
+    """A device event's name as a graph replay shows it: a replay runs an
+    eager step's copies and fills as kernels of its own (``memcpy32_post``,
+    ``memcpy128`` where the eager trace shows ``Memcpy DtoD``), so copies
+    compare as one name, and fills as another."""
+    low = name.lower()
+    if low.startswith("memcpy"):
+        return "memcpy"
+    if low.startswith("memset"):
+        return "memset"
+    return name
+
+
+def replay_kernels(eager: List[Tuple[str, float, str]], events: List[dict]
+                   ) -> Tuple[Dict[str, Dict[str, float]], bool]:
+    """Device ms by family and kernel name of a profiled graph replay,
+    each replayed kernel taking the family of the eager kernel at its
+    position (the replay's list may lack the first kernels of the eager
+    step's, which a profiler window can miss: then it is matched to the
+    end of it); and whether the replay's names were the eager step's
+    (copies and fills compared as :func:`_replayed_as` names them), so
+    matched. Where they differ otherwise, a kernel's ms is split over the
+    families of the eager kernels of its name, in proportion to how many
+    of them each family has."""
     replay = device_events(events)
-    out = dict.fromkeys(FAMILIES, 0.0)
-    names = [k["name"] for k in replay]
+    out = {f: defaultdict(float) for f in FAMILIES}
+    names = [_replayed_as(k["name"]) for k in replay]
     tail = eager[len(eager) - len(replay):] if len(replay) <= len(eager) else []
-    if names == [name for name, _ms, _f in tail]:
+    if names == [_replayed_as(name) for name, _ms, _f in tail]:
         for k, (_name, _ms, family) in zip(replay, tail):
-            out[family] += k.get("dur", 0.0) / 1e3
-        return out, True
+            out[family][k["name"]] += k.get("dur", 0.0) / 1e3
+        return {f: dict(v) for f, v in out.items()}, True
     counts = defaultdict(lambda: defaultdict(int))
     for name, _ms, family in eager:
         counts[name][family] += 1
@@ -239,8 +257,17 @@ def replay_families(eager: List[Tuple[str, float, str]], events: List[dict]
         shares = counts.get(k["name"]) or {_by_name(k["name"]): 1}
         total = sum(shares.values())
         for family, n in shares.items():
-            out[family] += k.get("dur", 0.0) / 1e3 * n / total
-    return out, False
+            out[family][k["name"]] += k.get("dur", 0.0) / 1e3 * n / total
+    return {f: dict(v) for f, v in out.items()}, False
+
+
+def replay_families(eager: List[Tuple[str, float, str]], events: List[dict]
+                    ) -> Tuple[Dict[str, float], bool]:
+    """Device ms by family of a profiled graph replay
+    (:func:`replay_kernels` summed over each family's kernels), and
+    whether the replay matched the eager step one for one."""
+    kernels, matched = replay_kernels(eager, events)
+    return {f: sum(v.values(), 0.0) for f, v in kernels.items()}, matched
 
 
 def open_window(device="cuda"):
@@ -285,7 +312,8 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     """One eager step and :data:`REPLAY_WINDOWS` graph replays of a row's
     step under ``torch.profiler`` on the card (the traces go to
     ``build/attribution/``). Returns the fullest replay's kernel ms by
-    family (``graph_ms``), each replay window's device events
+    family (``graph_ms``) and by family and kernel name
+    (``graph_kernels_ms``), each replay window's device events
     (``replay_windows``), the eager
     step's (``eager_ms``), their kernel counts, the eager step's kernels
     by family and name (``family_kernels``: launches), whether the
@@ -316,7 +344,8 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
         events = after_mark(_trace(prof, f"{slug}_graph{i}"))
         windows.append((len(device_events(events)), events))
     replay_events = max(windows, key=lambda w: w[0])[1]
-    graph_ms, matched = replay_families(eager, replay_events)
+    graph_kernels, matched = replay_kernels(eager, replay_events)
+    graph_ms = {f: sum(v.values(), 0.0) for f, v in graph_kernels.items()}
     eager_ms = dict.fromkeys(FAMILIES, 0.0)
     family_kernels = {f: defaultdict(int) for f in FAMILIES}
     for name, ms, family in eager:
@@ -325,13 +354,14 @@ def profile_row(kind: str, mc, seq: int, mbs: int, layers: int, remat: bool,
     own_ms = defaultdict(float)  # the port's CUDA kernels in the replay, by function
     own_n = defaultdict(int)
     for k in device_events(replay_events):
-        own = re.search(r"\w*(?:flash_|q8_|swiglu_|rms_norm_|rope_)\w*", k["name"])
+        own = _OWN_KERNEL.search(k["name"])
         if own:
             own_ms[own.group(0)] += k.get("dur", 0.0) / 1e3
             own_n[own.group(0)] += 1
     del graph, step
     torch.cuda.empty_cache()
-    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "kernels": len(eager),
+    return {"graph_ms": graph_ms, "graph_kernels_ms": graph_kernels, "eager_ms": eager_ms,
+            "kernels": len(eager),
             "graph_kernels": len(device_events(replay_events)), "matched": matched,
             "untied": untied, "own_kernels_ms": dict(own_ms), "own_kernels": dict(own_n),
             "family_kernels": {f: dict(n) for f, n in family_kernels.items()},

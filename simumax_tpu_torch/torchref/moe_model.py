@@ -18,14 +18,19 @@ dtype; ``cap = int(cf * T * k / e)``; a stable argsort by expert with
 1)`` and masks the dropped assignments.
 
 Every shape is static, so a step syncs the host nowhere and can be
-captured in a CUDA graph. JAX drops the overflow slots in its dispatch
-scatter (``mode="drop"``); ``index_put`` has no drop mode, so every
-assignment is written into an ``[e, cap + 1, h]`` buffer at slot
-``min(slot, cap)`` and the scratch slot ``cap`` is sliced off (its
-gradient is discarded, as JAX's drop discards it). The combine puts the
-expert outputs back in token-major order ``[T, k, h]`` and sums over k
-in a fixed order, where a scatter-add with atomics would make the sum of
-k > 2 bf16 terms depend on the order they land in.
+captured in a CUDA graph. The routing (the gate, top-k, the stable sort
+by expert and the segment starts) stays in PyTorch and hands four int64
+index tensors (``kernels.MoeIndex``) to the dispatch and the combine,
+which run as the CUDA kernels of ``csrc/moe_dispatch.cu`` on the card
+(``kernels.moe_permute`` and ``moe_combine``, forward and backward) and
+as their plain versions on the CPU. The dispatch writes every row of the
+[e, cap, h] capacity buffer by one gather, zeros where no assignment
+fills a slot, so an assignment beyond ``cap`` is dropped as JAX's
+``mode="drop"`` scatter drops it; the combine gathers each token's k
+rows (a dropped one from the clamped slot, zeroed by its keep mask) and
+sums them in the fixed order j = 0 .. k - 1, where a scatter-add with
+atomics would make the sum of k > 2 bf16 terms depend on the order they
+land in.
 """
 
 from __future__ import annotations
@@ -36,7 +41,14 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from simumax_tpu_torch.torchref.kernels import math_attention, rope
+from simumax_tpu_torch.torchref.kernels import (
+    MoeIndex,
+    _moe_sorted,
+    math_attention,
+    moe_combine,
+    moe_permute,
+    rope,
+)
 from simumax_tpu_torch.torchref.model import (  # noqa: F401  (params_from_jax: public)
     _norm,
     make_fused_adam,
@@ -127,13 +139,11 @@ def _capacity(cfg: MoeConfig, tokens: int) -> int:
     return int(cfg.capacity_factor * tokens * cfg.topk / cfg.expert_num)
 
 
-def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
-    """Top-k routing of y [b, s, h] in the reference's order of
-    assignments: (sorted_e, slot, keep, tok, w, order), each of length
-    T * k and sorted stably by expert — its expert, its slot in that
-    expert's capacity buffer, whether the slot is below ``cap``, its
-    token, its renormalised routing weight, and its index in token-major
-    order (``tok * k + j`` for the token's j-th choice)."""
+def _routing(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
+    """Top-k routing of y [b, s, h]: (the renormalised routing weights
+    [T * k] in token-major order, cast to y's dtype, and the
+    :class:`~simumax_tpu_torch.torchref.kernels.MoeIndex` the dispatch and
+    the combine take)."""
     b, s, h = y.shape
     T, e, k = b * s, cfg.expert_num, cfg.topk
     logits = y.reshape(T, h) @ gate.to(y.dtype)
@@ -141,15 +151,35 @@ def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
     topv, topi = torch.topk(probs, k, dim=-1)
     topw = (topv / (topv.sum(-1, keepdim=True) + 1e-9)).to(y.dtype)
 
-    dev = y.device
-    flat_e = topi.reshape(T * k)
-    flat_tok = torch.arange(T * k, device=dev) // k
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=dev))
-    slot = torch.arange(T * k, device=dev) - seg_start[sorted_e]
-    return (sorted_e, slot, slot < _capacity(cfg, T), flat_tok[order],
-            topw.reshape(T * k)[order], order)
+    return topw.reshape(T * k), moe_index(topi.reshape(T * k), e, _capacity(cfg, T), k)
+
+
+def moe_index(flat_e: torch.Tensor, experts: int, cap: int, k: int) -> MoeIndex:
+    """The :class:`~simumax_tpu_torch.torchref.kernels.MoeIndex` of the
+    assignments ``flat_e`` [T * k] (each token's k experts, token-major):
+    their stable sort by expert, its inverse, and where each expert's run
+    starts. Static shapes, no host sync."""
+    dev = flat_e.device
+    sorted_e, order = torch.sort(flat_e, stable=True)
+    seg = torch.searchsorted(sorted_e, torch.arange(experts + 1, device=dev))
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=dev))
+    return MoeIndex(flat_e, order, inv, seg, cap, k)
+
+
+def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
+    """Top-k routing of y [b, s, h] in the reference's order of
+    assignments: (sorted_e, slot, keep, tok, w, order, seg_start, inv),
+    each of the first six of length T * k and sorted stably by expert —
+    its expert, its slot in that expert's capacity buffer, whether the
+    slot is below ``cap``, its token, its renormalised routing weight, and
+    its index in token-major order (``tok * k + j`` for the token's j-th
+    choice); then what the dispatch and the combine index by besides
+    ``order``: where each expert's run of that order starts ([e + 1], the
+    last T * k) and the inverse of ``order``."""
+    w, idx = _routing(y, gate, cfg)
+    sorted_e, slot = _moe_sorted(idx)
+    return (sorted_e, slot, slot < idx.cap, idx.order // idx.k, w[idx.order], idx.order,
+            idx.seg, idx.inv)
 
 
 def _moe_mlp(y, p, cfg: MoeConfig):
@@ -158,42 +188,28 @@ def _moe_mlp(y, p, cfg: MoeConfig):
     projection, weighted combine in token order. Overflow beyond ``cap``
     is dropped (capacity_factor)."""
     b, s, h = y.shape
-    T, e, k = b * s, cfg.expert_num, cfg.topk
-    cap = _capacity(cfg, T)
     with op_family("moe_dispatch"):
-        sorted_e, slot, keep, _tok, w, order = route(y, p["gate"], cfg)
-
-        # permute (dispatch): each token's k copies in token-major order,
-        # permuted by expert (so the backward sums a token's k gradients
-        # in a fixed order), into the capacity buffer, the overflow into
-        # the scratch slot cap, which is sliced off
-        xs = y.reshape(T, 1, h).expand(T, k, h).reshape(T * k, h)[order]
-        where = (sorted_e, slot.clamp(max=cap))
-        xin = torch.zeros((e, cap + 1, h), dtype=y.dtype, device=y.device).index_put(
-            where, xs)[:, :cap]
+        w, idx = _routing(y, p["gate"], cfg)
+        # permute (dispatch): each assignment's token row into its
+        # expert's capacity buffer (under dispatch_probs its routing
+        # weight beside it)
+        if cfg.dispatch_probs:
+            xin, wbuf = moe_permute(y.reshape(b * s, h), w, idx)
+        else:
+            xin = moe_permute(y.reshape(b * s, h), None, idx)
     # grouped GEMMs (balanced groups = one batched matmul each)
     with op_family("gemm"):
         gate_a, val = torch.bmm(xin, p["moe_up"]).chunk(2, dim=-1)
     act = F.silu(gate_a) * val
     if cfg.dispatch_probs:
-        # weighted-SiLU: the routing weights go into the capacity buffer
-        # next to their tokens and fold into the activation
-        wbuf = torch.zeros((e, cap + 1), dtype=y.dtype, device=y.device).index_put(
-            where, w)[:, :cap]
+        # weighted-SiLU: the routing weights fold into the activation
         act = act * wbuf[..., None]
     with op_family("gemm"):
         down = torch.bmm(act, p["moe_down"])
     with op_family("moe_dispatch"):
-        # unpermute (combine): gather back in assignment order; a dropped
-        # assignment reads a clamped slot and is zeroed by the keep mask
-        vals = down[sorted_e, slot.clamp(max=cap - 1)]
-        mask = keep.to(y.dtype)
-        vals = vals * (mask if cfg.dispatch_probs else w * mask)[:, None]
-        # each assignment to its token-major row (order is a permutation,
-        # so each row is written once), then the k terms of a token
-        # summed in a fixed order
-        vals = torch.empty_like(vals).index_put((order,), vals)
-        return vals.reshape(T, k, h).sum(1).reshape(b, s, h)
+        # unpermute (combine): each token's k rows, weighted (by keep
+        # alone under dispatch_probs) and summed in a fixed order
+        return moe_combine(down, None if cfg.dispatch_probs else w, idx).reshape(b, s, h)
 
 
 def _block(x, p, cfg: MoeConfig):

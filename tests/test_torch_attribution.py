@@ -140,6 +140,25 @@ def test_replayed_kernels_take_the_families_of_the_eager_kernels():
     assert out["GEMM"] == 0.5 and out["attention"] == 0.5 + 0.5
 
 
+def test_a_replay_matches_the_eager_step_across_its_copy_kernels():
+    """A graph replay runs the eager step's device copies as kernels of
+    its own name (``memcpy32_post``, ``memcpy128``); the replay still
+    matches one for one, so each kernel keeps the family of its eager
+    position."""
+    eager = [("Memcpy DtoD (Device -> Device)", 0.1, "MoE dispatch"), ("div", 1.0, "optimizer"),
+             ("div", 0.1, "MoE dispatch"), ("Memset (Device)", 0.1, "elementwise")]
+    names = ["memcpy32_post", "div", "div", "Memset (Device)"]
+    replay = [{"ph": "X", "cat": "kernel", "name": n, "ts": i, "dur": 1000.0 * (i + 1)}
+              for i, n in enumerate(names)]
+    kernels, matched = A.replay_kernels(eager, replay)
+    assert matched
+    assert kernels["MoE dispatch"] == {"memcpy32_post": 1.0, "div": 3.0}
+    assert kernels["optimizer"] == {"div": 2.0} and kernels["elementwise"] == {
+        "Memset (Device)": 4.0}
+    out, matched = A.replay_families(eager, replay)
+    assert matched and out["MoE dispatch"] == 4.0 and out["optimizer"] == 2.0
+
+
 def test_a_window_is_read_from_its_mark_on():
     def kernel(name, ts):
         return {"ph": "X", "cat": "kernel", "name": name, "ts": ts, "dur": 1.0}

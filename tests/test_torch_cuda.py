@@ -15,7 +15,9 @@ pipeline-schedule fold are held bit for bit (the replay also against the
 scalar engine, the fold's scores against the numpy fold). So are the int8
 dequantization, RoPE and the rms norm, forward and backward (the plain
 norm sums in the kernels' order), and one small dense step on the card
-and the CPU takes the same loss within 1e-3.
+and the CPU takes the same loss within 1e-3. So are the MoE dispatch and
+combine kernels, forward and backward, at the CPU tests' cases and at the
+MoE row's shape, on the card and against the CPU.
 """
 
 import math
@@ -736,6 +738,8 @@ def test_captured_row_step_takes_the_eager_steps(card, kind):
     # recompute runs the blocks' norms and RoPEs forward again
     again = 4 if case["remat"] else 0
     per_step.update(rms_norm_fwd=5 + again, rms_norm_bwd=5, rope_fwd=4 + again, rope_bwd=4)
+    if kind == "moe":  # the dispatch and the combine, once a layer each way
+        per_step.update(dict.fromkeys(MOE_KERNELS, case["layers"]))
     assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
 
 
@@ -1306,3 +1310,130 @@ def test_the_dense_step_launches_the_fused_kernels(card, remat):
                                  "rms_norm_bwd": 2 * L + 1,
                                  "rope_fwd": 2 * L * (2 if remat else 1), "rope_bwd": 2 * L}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
+
+
+# -- the MoE dispatch and combine -------------------------------------------------
+
+MOE_KERNELS = ("moe_permute_fwd", "moe_permute_bwd", "moe_combine_fwd", "moe_combine_bwd")
+
+
+def _moe_inputs(card, tokens, h, e, k, cf, dtype, seed=9):
+    """Routing from random logits (each token's top-k experts) and the
+    four kernels' inputs on the card: (y, w, index, dxin, dwbuf, down, g)."""
+    from simumax_tpu_torch.torchref import moe_model as M
+
+    gen = torch.Generator(device=card).manual_seed(seed)
+    logits = torch.randn(tokens, e, generator=gen, device=card)
+    flat_e = torch.topk(logits, k, dim=-1).indices.reshape(-1)
+    idx = M.moe_index(flat_e, e, int(cf * tokens * k / e), k)
+
+    def rows(*shape):
+        return torch.randn(*shape, generator=gen, device=card).to(dtype)
+
+    w = torch.rand(tokens * k, generator=gen, device=card).to(dtype)
+    return (rows(tokens, h), w, idx, rows(e, idx.cap, h), rows(e, idx.cap), rows(e, idx.cap, h),
+            rows(tokens, h))
+
+
+def _moe_calls(y, w, idx, dxin, dwbuf, down, g, probs, plain=False):
+    """The four functions (kernels, or their plain versions) on one case:
+    [xin, wbuf, dy, dw, out, d_down, dw of the combine]."""
+    fns = [getattr(K, f"{name}_plain" if plain else name) for name in MOE_KERNELS]
+    xin, wbuf = fns[0](y, w if probs else None, idx)
+    dy, dw = fns[1](dxin, dwbuf if probs else None, idx)
+    out = fns[2](down, None if probs else w, idx)
+    d_down, dw_c = fns[3](g, down, None if probs else w, idx)
+    return [xin, wbuf, dy, dw, out, d_down, dw_c]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("probs", [False, True], ids=["weighted-combine", "dispatch_probs"])
+@pytest.mark.parametrize("tokens,h,e,k,cf", [
+    (64, 256, 4, 2, 2.0), (64, 256, 4, 2, 0.5), (64, 256, 8, 4, 2.0), (64, 256, 8, 4, 0.5),
+    (2048, 1024, 8, 2, 2.0),   # the MoE row
+    (128, 256, 4, 2, 1.0),     # chip_smoke.py phase 4's fp32 step
+    (300, 100, 8, 2, 2.0),     # h not a multiple of 8: scalar accesses
+    (77, 40, 6, 3, 0.7),
+])
+def test_moe_dispatch_kernels_are_bit_identical_to_their_plain_versions(card, tokens, h, e, k,
+                                                                       cf, probs, dtype):
+    """Each of the four kernels, bit for bit against its plain version on
+    the card and on the CPU, each launched once."""
+    case = _moe_inputs(card, tokens, h, e, k, cf, dtype)
+    K.reset_launch_counts()
+    got = _moe_calls(*case, probs)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), **dict.fromkeys(MOE_KERNELS, 1)}
+    ref = _moe_calls(*case, probs, plain=True)
+    y, w, idx, *rest = case
+    cpu_idx = K.MoeIndex(*(t.cpu() for t in idx[:4]), idx.cap, idx.k)
+    cpu = _moe_calls(y.cpu(), w.cpu(), cpu_idx, *(t.cpu() for t in rest), probs, plain=True)
+    for name, a, b, c in zip(("xin", "wbuf", "dy", "dw", "out", "d_down", "dw of the combine"),
+                             got, ref, cpu):
+        if b is None:
+            assert a is None and c is None, name
+            continue
+        assert a.dtype == dtype and a.is_contiguous(), name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+        assert torch.equal(a.cpu(), c), (name, int((a.cpu() != c).sum()))
+
+
+@pytest.mark.cuda
+def test_moe_dispatch_kernels_raise_for_what_they_refuse(card):
+    y, w, idx, dxin, dwbuf, down, g = _moe_inputs(card, 64, 256, 4, 2, 2.0, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.moe_permute_fwd(y.half(), None, idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.moe_combine_fwd(down.transpose(1, 2).contiguous().transpose(1, 2), w, idx)
+    with pytest.raises(ValueError, match="must be on"):
+        K.moe_permute_fwd(y.cpu(), None, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probs", [False, True], ids=["weighted-combine", "dispatch_probs"])
+def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
+    """The MoE layer on the card (top-4, tokens dropped), forward and
+    backward, launches each of the four kernels once, runs no
+    ``index_put`` and no op that syncs the host, and its output and
+    gradients repeat bit for bit; a whole model's loss and gradients
+    launch each once a layer."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from simumax_tpu_torch.torchref import moe_model as M
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.add(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    cfg = M.MoeConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4, head_size=64,
+                      layer_num=3, expert_num=8, topk=4, moe_ffn=512, capacity_factor=0.5,
+                      dispatch_probs=probs)
+    y0 = torch.randn(2, 64, 256, generator=torch.Generator().manual_seed(2))
+    runs = []
+    for _ in range(2):
+        p = M.init_params(cfg, seed=3, device=card)["layers"][0]
+        y = y0.to(card, torch.bfloat16).requires_grad_(True)
+        K.reset_launch_counts()
+        with Record() as rec:
+            out = M._moe_mlp(y, p, cfg)
+            grads = torch.autograd.grad(out.float().square().sum(),
+                                        [y, p["gate"], p["moe_up"], p["moe_down"]])
+        assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
+                                     **dict.fromkeys(MOE_KERNELS, 1)}
+        assert {"sort", "searchsorted", "scatter_", "bmm"} <= rec.ops
+        assert not rec.ops & {"index_put", "index_put_", "nonzero", "masked_select",
+                              "_local_scalar_dense", "item"}
+        runs.append([out, *grads])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    params = M.init_params(cfg, seed=0, device=card)
+    ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0)).to(card)
+    K.reset_launch_counts()
+    torch.autograd.grad(M.loss_fn(params, (ids, ids), cfg), M.param_leaves(params))
+    assert {k: K.launch_counts()[k] for k in MOE_KERNELS} == dict.fromkeys(MOE_KERNELS,
+                                                                           cfg.layer_num)
