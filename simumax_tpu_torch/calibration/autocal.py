@@ -22,10 +22,10 @@ PyTorch folds nothing. The ``default`` class times one streaming
 reduction that moves exactly its counted bytes, as the reference's fused
 one does: it prices every memory-bound op the model does not price
 otherwise, so it is the card's streaming rate, not one eager op's. Each
-other benchmark runs the eager ops the port's own step runs for its
-function, so where eager PyTorch moves more bytes than the model's
-traffic count (the Adam update, the cross-entropy's fp32 copy), the
-efficiency reads lower. :func:`with_retries` retries only a
+other benchmark runs what the port's own step runs for its function (its
+eager ops; for the Adam update the CUDA kernel of ``csrc/adam.cu``), so
+where eager PyTorch moves more bytes than the model's traffic count (the
+cross-entropy's fp32 copy), the efficiency reads lower. :func:`with_retries` retries only a
 device OOM, where the reference retried every error: a failed kernel
 build, launch or capture propagates. Every measurement runs on the card;
 without one it raises.
@@ -40,7 +40,7 @@ import signal
 import statistics
 import subprocess
 import time as _time
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 
@@ -343,8 +343,12 @@ def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
     """Measured HBM efficiency of the very update the reference train
     step runs (``torchref.model.adam_update``): bf16 param + grad, fp32
     moments, against the 22 B/param the analytical "functional"
-    optimizer charges. Eager PyTorch moves more bytes than that, and the
-    efficiency says so."""
+    optimizer charges. On the card that update is one launch of
+    ``csrc/adam.cu``'s kernel, which moves those 22 B a parameter and
+    no more, plus the step's bias corrections (a few scalar launches),
+    so the efficiency is the kernel's share of HBM's rate. The graph
+    timer's eager warm-up calls make the kernel's leaf table before it
+    captures."""
     dev = _card(device)
     numel = max(int(nbytes // 22), 1024)
     g = _test_array((numel,), torch.bfloat16, dev)
@@ -363,10 +367,12 @@ def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,
 
 def calibrate_bandwidth_classes(system, verbose: bool = False,
                                 nbytes: float = 256 * 2**20,
-                                vocab: int = 32000, device="cuda") -> Dict[str, float]:
-    """Measure the HBM bandwidth classes in the system config and write
-    the efficiencies back; returns {class: efficiency}. A ``fused_adam``
-    class (the same HBM as ``default``) is added when missing.
+                                vocab: int = 32000, device="cuda",
+                                classes: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Measure the HBM bandwidth classes in the system config (or only
+    ``classes`` of them) and write the efficiencies back; returns
+    {class: efficiency}. A ``fused_adam`` class (the same HBM as
+    ``default``) is added when missing.
     ``ce_fusion`` is skipped: a fused CE kernel avoids exactly the fp32
     materialization the unfused benchmark performs, so its prior stays.
     Each class retries a device OOM (:func:`with_retries`) and must pass
@@ -380,8 +386,11 @@ def calibrate_bandwidth_classes(system, verbose: bool = False,
             gbps=base.gbps, efficient_factor=base.efficient_factor,
             latency_us=base.latency_us,
         )
+    if classes is not None and not set(classes) <= set(bw) - {"ce_fusion"}:
+        raise CalibrationError(f"no measurable bandwidth class among {sorted(classes)}: the "
+                               f"config has {sorted(bw)} (ce_fusion keeps its prior)")
     for key, spec in bw.items():
-        if key == "ce_fusion":
+        if key == "ce_fusion" or (classes is not None and key not in classes):
             continue
         eff = validate_efficiency(
             with_retries(measure_bandwidth_efficiency, key, spec.gbps, nbytes, vocab,

@@ -65,6 +65,10 @@ from torch.utils.checkpoint import checkpoint
 
 from simumax_tpu_torch.core.errors import CardRequiredError
 from simumax_tpu_torch.torchref.kernels import (
+    ADAM_B1,
+    ADAM_B2,
+    ADAM_EPS,
+    adam_multi_tensor,
     attention,
     math_attention,
     rms_norm,
@@ -226,6 +230,28 @@ def params_from_jax(np_params, device="cuda", dtype=torch.bfloat16) -> Dict:
     for p in param_leaves(params):
         p.requires_grad_(True)
     return params
+
+
+def opt_state_from_jax(np_opt_state, params, device="cuda") -> Dict:
+    """The JAX package's ``make_fused_adam`` state ``{"mu", "nu",
+    "step"}``, given as numpy arrays, as the port's state for ``params``
+    on ``device``: fp32 moments of the params' structure (copied: numpy
+    views of JAX arrays are read-only), the step count an int32 scalar
+    tensor. Raises ValueError where a moment's shape is not its
+    parameter's."""
+    dev = resolve_device(device)
+
+    def moment(p, a):
+        t = torch.tensor(np.array(a, dtype=np.float32), device=dev)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"opt_state_from_jax: a moment of shape {tuple(t.shape)} for a "
+                             f"parameter of shape {tuple(p.shape)}")
+        return t
+
+    return {"mu": _zip_tree(moment, params, np_opt_state["mu"]),
+            "nu": _zip_tree(moment, params, np_opt_state["nu"]),
+            "step": torch.tensor(int(np.asarray(np_opt_state["step"])), dtype=torch.int32,
+                                 device=dev)}
 
 
 # -- the dp x tp mesh ---------------------------------------------------------
@@ -542,9 +568,6 @@ def _sharded_forward(params, ids, cfg: LlamaConfig, mesh, sp: bool, remat: bool)
 
 # -- training step ------------------------------------------------------------
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.95, 1e-8
-
-
 @torch.no_grad()
 def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
                 mu: List[torch.Tensor], nu: List[torch.Tensor], step: torch.Tensor,
@@ -556,20 +579,16 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
     dtype. The bias corrections 1 - b1^step and 1 - b2^step are fp32
     tensors computed on the device, as JAX computes them in the jitted
     step, so no number goes back to the host and one captured launch
-    sequence takes step N at its N-th replay. Eager PyTorch runs it as
-    several elementwise launches per leaf (the calibration times this
-    very function)."""
-    b1, b2, eps = ADAM_B1, ADAM_B2, ADAM_EPS
+    sequence takes step N at its N-th replay. On the card the update is
+    one launch of ``csrc/adam.cu``'s kernel for every leaf of a dtype
+    (:func:`~simumax_tpu_torch.torchref.kernels.adam_multi_tensor`, which
+    raises on a leaf it does not take); on the CPU its plain version. The
+    calibration's ``fused_adam`` class times this very function."""
     with op_family("optimizer"):
         t = step.float()
-        bc1 = 1 - torch.full_like(t, b1).pow(t)
-        bc2 = 1 - torch.full_like(t, b2).pow(t)
-        for p, g, m, v in zip(params, grads, mu, nu):
-            g = g.float()
-            m.mul_(b1).add_(g, alpha=1 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1 - b2)
-            upd = (m / bc1).mul_(lr).div_((v / bc2).sqrt_().add_(eps))
-            p.copy_(p.float().sub_(upd))
+        bc1 = 1 - torch.full_like(t, ADAM_B1).pow(t)
+        bc2 = 1 - torch.full_like(t, ADAM_B2).pow(t)
+        adam_multi_tensor(params, grads, mu, nu, bc1, bc2, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
 
 
 @torch.no_grad()

@@ -89,7 +89,8 @@ def test_profiled_dense_step_lands_each_op_in_its_family(remat, tmp_path):
     assert _families_of(ops, "aten::_softmax") == {"attention"}
     assert _families_of(ops, "aten::_softmax_backward_data") == {"attention"}
     assert _families_of(ops, "aten::bmm") == {"attention"}  # math attention's products
-    assert _families_of(ops, "aten::addcmul_") == {"optimizer"}
+    # the plain Adam update's in-place moment decays and square root
+    assert _families_of(ops, "aten::mul_") == {"optimizer"}
     assert _families_of(ops, "aten::sqrt_") == {"optimizer"}
     assert _families_of(ops, "aten::silu") == {"elementwise"}
     assert _families_of(ops, "aten::cos") == {"elementwise"}  # rope
@@ -121,7 +122,7 @@ def test_profiled_int8_and_moe_steps_land_each_op_in_its_family(tmp_path):
     assert _families_of(ops, "aten::topk") == {"MoE dispatch"}
     assert "GEMM" in _families_of(ops, "aten::bmm")  # the experts
     assert "attention" in _families_of(ops, "aten::bmm")  # math attention
-    assert _families_of(ops, "aten::addcmul_") == {"optimizer"}
+    assert _families_of(ops, "aten::mul_") == {"optimizer"}  # the Adam moments' decays
 
 
 def test_replayed_kernels_take_the_families_of_the_eager_kernels():

@@ -737,7 +737,8 @@ def test_captured_row_step_takes_the_eager_steps(card, kind):
     # 2L + 1 rms norms and the q and k RoPEs of each layer, both ways; the
     # recompute runs the blocks' norms and RoPEs forward again
     again = 4 if case["remat"] else 0
-    per_step.update(rms_norm_fwd=5 + again, rms_norm_bwd=5, rope_fwd=4 + again, rope_bwd=4)
+    per_step.update(rms_norm_fwd=5 + again, rms_norm_bwd=5, rope_fwd=4 + again, rope_bwd=4,
+                    adam_multi_tensor=1)  # every leaf is of one dtype: one Adam launch
     if kind == "moe":  # the dispatch and the combine, once a layer each way
         per_step.update(dict.fromkeys(MOE_KERNELS, case["layers"]))
     assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
@@ -1290,8 +1291,8 @@ def test_rope_tables_are_not_kept_from_a_capture(card):
 def test_the_dense_step_launches_the_fused_kernels(card, remat):
     """One step of a small bf16 Llama: 2L + 1 norms forward and backward,
     and 2L RoPEs (q and k of each layer), forward and backward; recompute
-    re-runs each block's norms and RoPEs forward; the loss within 1e-3 of
-    the CPU's."""
+    re-runs each block's norms and RoPEs forward; one Adam launch for all
+    the leaves; the loss within 1e-3 of the CPU's."""
     from simumax_tpu_torch.torchref import model as M
 
     cfg = M.LlamaConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=2,
@@ -1308,7 +1309,8 @@ def test_the_dense_step_launches_the_fused_kernels(card, remat):
     assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
                                  "rms_norm_fwd": 2 * L + 1 + (2 * L if remat else 0),
                                  "rms_norm_bwd": 2 * L + 1,
-                                 "rope_fwd": 2 * L * (2 if remat else 1), "rope_bwd": 2 * L}
+                                 "rope_fwd": 2 * L * (2 if remat else 1), "rope_bwd": 2 * L,
+                                 "adam_multi_tensor": 1}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
 
 

@@ -12,8 +12,12 @@ roundings: XLA on the CPU contracts ``b1 * mu + (1 - b1) * g`` into a
 fused multiply-add, PyTorch's vectorised sqrt on the CPU is not always
 correctly rounded, and where the terms cancel one ulp of a term is a
 large share of the result. bf16 parameters within one bf16 ulp (rounded
-from those fp32 values). The quantization is exact: equal int8 values
-and fp32 scales, ties of x / scale included.
+from those fp32 values). The same limits hold at leaves of 1, 7, 2049 and
+65537 elements (the CUDA kernel's chunk is 2048 elements, its vectors 8)
+and from step 5 with nonzero moments carried over from JAX's state
+(``opt_state_from_jax``), which checks the bias corrections past step 1.
+The quantization is exact: equal int8 values and fp32 scales, ties of
+x / scale included.
 """
 
 import jax
@@ -31,16 +35,27 @@ from simumax_tpu_torch.torchref import quantized as TQ  # noqa: E402
 
 STEPS = 3
 SHAPES = {"a": (37, 24), "b": (24,), "c": (5, 3, 8)}
+#: leaves about the CUDA kernel's chunk (2048 elements) and vector (8)
+ODD_SHAPES = {"n1": (1,), "n7": (7,), "n2049": (2049,), "n65537": (65537,)}
+#: the step count the runs from a carried-over state start at
+START_STEP = 5
 
 
-def _adam_runs(dtype, lr):
+def _adam_runs(dtype, lr, shapes=SHAPES, start=False):
     """Both packages' fused Adam over STEPS steps of a loss linear in the
-    params (its gradient is the batch, given in the params' dtype)."""
+    params (its gradient is the batch, given in the params' dtype), from
+    zero moments at step 0 or, with ``start``, from nonzero moments at
+    step :data:`START_STEP` (JAX's state carried over by
+    ``opt_state_from_jax``)."""
     jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     rs = np.random.RandomState(3)
-    p0 = {k: rs.randn(*shape).astype(np.float32) for k, shape in SHAPES.items()}
+    p0 = {k: rs.randn(*shape).astype(np.float32) for k, shape in shapes.items()}
     grads = [{k: (rs.randn(*shape) * 10 ** rs.uniform(-3, 1)).astype(np.float32)
-              for k, shape in SHAPES.items()} for _ in range(STEPS)]
+              for k, shape in shapes.items()} for _ in range(STEPS)]
+    state = {"mu": {k: (rs.randn(*shape) * 0.1).astype(np.float32) for k, shape in shapes.items()},
+             "nu": {k: (rs.randn(*shape) * 0.1).astype(np.float32) ** 2 + np.float32(1e-6)
+                    for k, shape in shapes.items()},
+             "step": np.int32(START_STEP)}
 
     def jloss(params, batch):
         return sum(jnp.sum(params[k].astype(jnp.float32) * batch[k]) for k in params)
@@ -50,11 +65,11 @@ def _adam_runs(dtype, lr):
 
     jinit, jstep = JM.make_fused_adam(jloss, lr=lr)
     jp = {k: jnp.array(v, jdt) for k, v in p0.items()}
-    jo = jinit(jp)
+    jo = jax.tree.map(jnp.asarray, state) if start else jinit(jp)
     jit_step = jax.jit(jstep)
     tinit, tstep = TM.make_fused_adam(tloss, lr=lr)
     tp = {k: torch.tensor(v).to(tdt).requires_grad_(True) for k, v in p0.items()}
-    to = tinit(tp)
+    to = TM.opt_state_from_jax(state, tp, device="cpu") if start else tinit(tp)
     for g in grads:
         jp, jo, _ = jit_step(jp, jo, {k: jnp.array(v, jdt) for k, v in g.items()})
         tp, to, _ = tstep(tp, to, {k: torch.tensor(v).to(tdt) for k, v in g.items()})
@@ -69,12 +84,11 @@ def _within(got, ref, rtol=1e-6):
     return bool((np.abs(got - ref) <= rtol * (np.abs(ref) + np.sqrt(np.mean(ref ** 2)))).all())
 
 
-@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-def test_device_step_adam_matches_jax_over_three_steps(dtype):
-    (jp, jo), (tp, to) = _adam_runs(dtype, lr=1e-2)
+def _assert_adam_runs_agree(dtype, shapes, start):
+    (jp, jo), (tp, to) = _adam_runs(dtype, 1e-2, shapes, start)
     assert to["step"].dtype == torch.int32 and to["step"].shape == ()
-    assert int(to["step"]) == int(jo["step"]) == STEPS
-    for k in SHAPES:
+    assert int(to["step"]) == int(jo["step"]) == STEPS + (START_STEP if start else 0)
+    for k in shapes:
         for name in ("mu", "nu"):
             assert _within(to[name][k].numpy(), np.asarray(jo[name][k], np.float32)), (k, name)
         ref = np.asarray(jp[k].astype(jnp.float32))
@@ -84,6 +98,32 @@ def test_device_step_adam_matches_jax_over_three_steps(dtype):
         else:
             ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 1e-30))) - 7)
             assert (np.abs(got - ref) <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_device_step_adam_matches_jax_over_three_steps(dtype):
+    _assert_adam_runs_agree(dtype, SHAPES, start=False)
+
+
+@pytest.mark.parametrize("start", [False, True], ids=["from step 0", f"from step {START_STEP}"])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_plain_adam_matches_jax_at_leaves_about_the_kernels_chunk(dtype, start):
+    """``adam_update_plain`` (what the update runs on the CPU) against
+    JAX's ``make_fused_adam`` at leaves of 1, 7, 2049 and 65537 elements,
+    from step 0 and from a carried-over state at step 5."""
+    _assert_adam_runs_agree(dtype, ODD_SHAPES, start)
+
+
+def test_opt_state_from_jax_refuses_a_moment_of_another_shape():
+    params = {"a": torch.zeros(3, 2), "b": [torch.zeros(4)]}
+    good = {"mu": {"a": np.ones((3, 2)), "b": [np.ones(4)]},
+            "nu": {"a": np.ones((3, 2)), "b": [np.ones(4)]}, "step": np.int32(7)}
+    state = TM.opt_state_from_jax(good, params, device="cpu")
+    assert state["step"].dtype == torch.int32 and int(state["step"]) == 7
+    assert state["mu"]["b"][0].dtype == torch.float32 and state["nu"]["a"].shape == (3, 2)
+    bad = dict(good, nu={"a": np.ones((2, 3)), "b": [np.ones(4)]})
+    with pytest.raises(ValueError, match="shape"):
+        TM.opt_state_from_jax(bad, params, device="cpu")
 
 
 def test_adam_bias_corrections_stay_on_the_device():
