@@ -36,7 +36,15 @@ split-half RoPE with cos/sin cast to the input dtype (on one device both
 run as the CUDA kernels of ``torchref/kernels.py``, :func:`rms_norm` and
 :func:`rope`, which round where these do; the sharded step keeps the
 plain :func:`_rms_norm` and :func:`_rope`, as the JAX sharded step keeps
-plain jnp where a Pallas call has no GSPMD rule); GQA kv heads
+plain jnp where a Pallas call has no GSPMD rule). On one device the
+block's two norms also carry the residual stream
+(:func:`~simumax_tpu_torch.torchref.kernels.rms_norm_residual`): the add
+before the pre-MLP norm is written by the norm's kernel, and each norm's
+backward adds the gradient the residual branch passes on for its input,
+so no tensor of a block has two autograd consumers; and SwiGLU runs as
+the step-mode kernels (``kernels.swiglu_step``), bit for bit
+``F.silu(gate) * val`` and its autograd, as the sharded step still
+computes it; GQA kv heads
 repeated consecutively (``repeat_interleave``, as ``jnp.repeat``) before
 the flash kernels; eager math attention otherwise, mirroring
 ``jax.nn.dot_product_attention``; bf16 params with no master copy and
@@ -72,8 +80,10 @@ from simumax_tpu_torch.torchref.kernels import (
     attention,
     math_attention,
     rms_norm,
+    rms_norm_residual,
     rope,
     rope_fwd_plain,
+    swiglu_step,
 )
 from simumax_tpu_torch.torchref.parallel import mesh_device, mesh_over_ranks
 from simumax_tpu_torch.torchref.quantized import int8_matmul
@@ -375,6 +385,15 @@ def _norm(x, w):
         return rms_norm(x, w)
 
 
+def _norm_residual(x, w, add=None):
+    """(s, y): the residual sum s = x + add (x itself without ``add``) and
+    its rms norm, in the norm family: the CUDA kernels of
+    :func:`~simumax_tpu_torch.torchref.kernels.rms_norm_residual`, whose
+    backward adds the gradient s receives to the norm's."""
+    with op_family("norm"):
+        return rms_norm_residual(x, w, add)
+
+
 def _linear(cfg: LlamaConfig) -> Callable:
     mm = int8_matmul if cfg.use_int8 else torch.matmul
 
@@ -390,8 +409,7 @@ def _block(x, p, cfg: LlamaConfig):
     q_out = cfg.head_num * d
     kv_out = cfg.kv_head_num * d
     mm = _linear(cfg)
-    res = x
-    y = _norm(x, p["input_norm"])
+    res, y = _norm_residual(x, p["input_norm"])
     qkv = mm(y, p["qkv"])
     q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
@@ -409,13 +427,10 @@ def _block(x, p, cfg: LlamaConfig):
             o = attention(q, kk, vv, causal=True, use_flash=True)
         else:
             o = math_attention(q, k, v, causal=True)
-    x = res + mm(o.reshape(b, s, q_out), p["out"])
-    res = x
-    y = _norm(x, p["pre_mlp_norm"])
+    # the residual add, written by the pre-MLP norm's kernel
+    res, y = _norm_residual(res, p["pre_mlp_norm"], mm(o.reshape(b, s, q_out), p["out"]))
     up = mm(y, p["up"])
-    gate, val = up.chunk(2, dim=-1)
-    y = mm(F.silu(gate) * val, p["down"])
-    return res + y
+    return res + mm(swiglu_step(up), p["down"])
 
 
 def forward(params, ids, cfg: LlamaConfig, remat: bool = False, mesh=None, sp: bool = False):

@@ -8,8 +8,11 @@ sorts assignments by expert into a fixed per-expert capacity buffer
 balanced grouped GEMMs (one ``[e, cap, h] x [e, h, f]`` ``torch.bmm``
 per projection), and the combine scatter-adds weighted expert outputs.
 Attention is the eager math attention, as the JAX model takes XLA's; the
-rms norms and RoPE run on the CUDA kernels of ``torchref/kernels.py``
-(``torchref.model._norm`` and ``rope``), as the dense model's do.
+rms norms (the block's two with the residual stream's add and gradient
+sums, ``torchref.model._norm_residual``), RoPE and the experts' SwiGLU
+(the step-mode kernels, ``kernels.swiglu_step``, on the [e, cap, 2f]
+product) run on the CUDA kernels of ``torchref/kernels.py``, as the dense
+model's do.
 
 Every numeric detail of the reference is kept: the gate softmax in fp32,
 top-k, the weights renormalised with ``+ 1e-9`` and cast to the model's
@@ -39,7 +42,6 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from simumax_tpu_torch.torchref.kernels import (
     MoeIndex,
@@ -48,9 +50,11 @@ from simumax_tpu_torch.torchref.kernels import (
     moe_combine,
     moe_permute,
     rope,
+    swiglu_step,
 )
 from simumax_tpu_torch.torchref.model import (  # noqa: F401  (params_from_jax: public)
     _norm,
+    _norm_residual,
     make_fused_adam,
     op_family,
     param_leaves,
@@ -199,8 +203,8 @@ def _moe_mlp(y, p, cfg: MoeConfig):
             xin = moe_permute(y.reshape(b * s, h), None, idx)
     # grouped GEMMs (balanced groups = one batched matmul each)
     with op_family("gemm"):
-        gate_a, val = torch.bmm(xin, p["moe_up"]).chunk(2, dim=-1)
-    act = F.silu(gate_a) * val
+        up = torch.bmm(xin, p["moe_up"])
+    act = swiglu_step(up)
     if cfg.dispatch_probs:
         # weighted-SiLU: the routing weights fold into the activation
         act = act * wbuf[..., None]
@@ -216,8 +220,7 @@ def _block(x, p, cfg: MoeConfig):
     d = cfg.head_size
     q_out = cfg.head_num * d
     kv_out = cfg.kv_head_num * d
-    res = x
-    y = _norm(x, p["input_norm"])
+    res, y = _norm_residual(x, p["input_norm"])
     with op_family("gemm"):
         qkv = y @ p["qkv"]
     q, k, v = torch.split(qkv, [q_out, kv_out, kv_out], dim=-1)
@@ -228,8 +231,10 @@ def _block(x, p, cfg: MoeConfig):
     with op_family("attention"):
         o = math_attention(q, k, v, causal=True)
     with op_family("gemm"):
-        x = res + o.reshape(b, s, q_out) @ p["out"]
-    return x + _moe_mlp(_norm(x, p["pre_mlp_norm"]), p, cfg)
+        a = o.reshape(b, s, q_out) @ p["out"]
+    # the residual add, written by the pre-MLP norm's kernel
+    res, y = _norm_residual(res, p["pre_mlp_norm"], a)
+    return res + _moe_mlp(y, p, cfg)
 
 
 def forward(params, ids, cfg: MoeConfig):

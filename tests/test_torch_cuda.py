@@ -17,7 +17,11 @@ dequantization, RoPE and the rms norm, forward and backward (the plain
 norm sums in the kernels' order), and one small dense step on the card
 and the CPU takes the same loss within 1e-3. So are the MoE dispatch and
 combine kernels, forward and backward, at the CPU tests' cases and at the
-MoE row's shape, on the card and against the CPU.
+MoE row's shape, on the card and against the CPU. So are the step-mode
+SwiGLU kernels against the eager ops (``F.silu(gate) * val`` and its
+autograd) and the rms norm with the residual, and one step of the dense
+and MoE models on the card equals, loss and every updated parameter, the
+same step run with the eager ops those kernels replace.
 """
 
 import math
@@ -1107,6 +1111,15 @@ def test_guided_sweep_on_the_card_with_two_jobs_equals_the_serial_sweep(card):
     assert json.dumps(pooled, sort_keys=True) == json.dumps(serial, sort_keys=True)
 
 
+def _plain_norm_residual(x, w, add=None):
+    """The residual add and the plain rms norm, as the sharded step runs
+    them."""
+    from simumax_tpu_torch.torchref import model as M
+
+    s = x if add is None else x + add
+    return s, M._rms_norm(s, w)
+
+
 @pytest.mark.cuda
 def test_sharded_step_on_one_card_is_the_single_device_step(card, monkeypatch):
     """On a 1 x 1 mesh (NCCL, one rank) the DTensor step with SP and FSDP
@@ -1133,6 +1146,7 @@ def test_sharded_step_on_one_card_is_the_single_device_step(card, monkeypatch):
     _fused, fused_losses = single()
     with monkeypatch.context() as m:
         m.setattr(M, "_norm", M._rms_norm)
+        m.setattr(M, "_norm_residual", _plain_norm_residual)
         m.setattr(M, "rope", M._rope)
         one, losses = single()
     assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(fused_losses, losses))
@@ -1289,10 +1303,13 @@ def test_rope_tables_are_not_kept_from_a_capture(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("remat", [False, True])
 def test_the_dense_step_launches_the_fused_kernels(card, remat):
-    """One step of a small bf16 Llama: 2L + 1 norms forward and backward,
-    and 2L RoPEs (q and k of each layer), forward and backward; recompute
-    re-runs each block's norms and RoPEs forward; one Adam launch for all
-    the leaves; the loss within 1e-3 of the CPU's."""
+    """One step of a small bf16 Llama: 2L + 1 norms forward and backward
+    (each block's second norm forward with the residual add, each block
+    norm's backward with its input's second gradient), and 2L RoPEs (q and
+    k of each layer), forward and backward; the step-mode SwiGLU once a
+    layer each way; recompute re-runs each block's norms, RoPEs and SwiGLU
+    forward; one Adam launch for all the leaves; the loss within 1e-3 of
+    the CPU's."""
     from simumax_tpu_torch.torchref import model as M
 
     cfg = M.LlamaConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=2,
@@ -1306,12 +1323,141 @@ def test_the_dense_step_launches_the_fused_kernels(card, remat):
         K.reset_launch_counts()
         losses[device] = float(step(p, init_opt(p), (ids.to(device), ids.to(device)))[2])
     L = cfg.layer_num
+    again = 2 if remat else 1
     assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
-                                 "rms_norm_fwd": 2 * L + 1 + (2 * L if remat else 0),
-                                 "rms_norm_bwd": 2 * L + 1,
-                                 "rope_fwd": 2 * L * (2 if remat else 1), "rope_bwd": 2 * L,
+                                 "rms_norm_fwd": L * again + 1,
+                                 "rms_norm_residual_fwd": L * again,
+                                 "rms_norm_bwd": 1, "rms_norm_residual_bwd": 2 * L,
+                                 "swiglu_step_fwd": L * again, "swiglu_step_bwd": L,
+                                 "rope_fwd": 2 * L * again, "rope_bwd": 2 * L,
                                  "adam_multi_tensor": 1}
     assert abs(losses["cuda"] - losses["cpu"]) <= 1e-3 * abs(losses["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,offset", [((2048, 11008), 0), ((8, 1024, 3584), 0),
+                                          ((21, 200), 0), ((3, 7, 512), 0), ((33, 11008), 1)])
+def test_swiglu_step_kernels_are_the_eager_ops_bit_for_bit(card, dtype, shape, offset):
+    """The step mode against ``F.silu(gate) * val`` over ``up.chunk(2, -1)``
+    and its autograd on the card, bit for bit, from an aligned base and
+    one ``offset`` elements off (the scalar instances)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=card).manual_seed(10)
+    n = math.prod(shape)
+    up = torch.empty(n + offset, device=card, dtype=dtype)[offset:].view(shape)
+    up.copy_(torch.randn(shape, generator=gen, device=card) * 3)
+    dy = torch.randn(*shape[:-1], shape[-1] // 2, generator=gen, device=card).to(dtype)
+    K.reset_launch_counts()
+    out, d_up = K.swiglu_step_fwd(up), K.swiglu_step_bwd(up, dy)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "swiglu_step_fwd": 1,
+                                 "swiglu_step_bwd": 1}
+    a = up.detach().clone().requires_grad_(True)
+    gate, val = a.chunk(2, dim=-1)
+    eager = F.silu(gate) * val
+    eager.backward(dy)
+    assert torch.equal(out, eager.detach()) and torch.equal(d_up, a.grad)
+    assert torch.equal(out, K.swiglu_step_fwd_plain(up))
+    assert torch.equal(d_up, K.swiglu_step_bwd_plain(up, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,h", [(2048, 2048), (2048, 1024), (21, 100), (3, 20000),
+                                    (4097, 4096), (64, 32768), (7, 5001)])
+def test_rms_norm_residual_kernels_match_their_plain_versions(card, dtype, rows, h):
+    gen = torch.Generator(device=card).manual_seed(11)
+    x, a, dy, gs = ((torch.randn(rows, h, generator=gen, device=card) * sc).to(dtype)
+                    for sc in (2, 2, 1, 1))
+    w = (1 + 0.1 * torch.randn(h, generator=gen, device=card)).to(dtype)
+    K.reset_launch_counts()
+    got_fwd = K.rms_norm_residual_fwd(x, w, a)
+    ref_fwd = K.rms_norm_residual_fwd_plain(x, w, a)
+    s, _y, rstd = ref_fwd
+    got_bwd = K.rms_norm_residual_bwd(s, w, rstd, dy, gs)
+    ref_bwd = K.rms_norm_residual_bwd_plain(s, w, rstd, dy, gs)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "rms_norm_residual_fwd": 1,
+                                 "rms_norm_residual_bwd": 1}
+    for got, ref in zip(got_fwd + got_bwd, ref_fwd + ref_bwd):
+        assert got.dtype == ref.dtype and torch.equal(got, ref), int((got != ref).sum())
+    assert got_bwd[0].data_ptr() != gs.data_ptr()
+    # the Function against the eager composition (the add, the norm, the
+    # engine's sum of the two gradients)
+    xs, ws, as_ = (t.clone().requires_grad_(True) for t in (x, w, a))
+    s_f, y_f = K.rms_norm_residual(xs, ws, as_)
+    ((y_f.float() * dy.float()).sum() + (s_f.float() * gs.float()).sum()).backward()
+    xe, we, ae = (t.clone().requires_grad_(True) for t in (x, w, a))
+    s_e = xe + ae
+    y_e = K.rms_norm(s_e, we)
+    ((y_e.float() * dy.float()).sum() + (s_e.float() * gs.float()).sum()).backward()
+    for got, ref in ((s_f, s_e), (y_f, y_e), (xs.grad, xe.grad), (ws.grad, we.grad),
+                     (as_.grad, ae.grad)):
+        assert torch.equal(got.detach(), ref.detach())
+
+
+def _eager_ops(monkeypatch):
+    """What the blocks ran before the SwiGLU and residual fusions: the
+    residual add as its own op before the norm kernel, and ``F.silu(gate)
+    * val`` over ``up.chunk(2, -1)``."""
+    import torch.nn.functional as F
+
+    from simumax_tpu_torch.torchref import model as M
+    from simumax_tpu_torch.torchref import moe_model as MoE
+
+    def norm_residual(x, w, add=None):
+        s = x if add is None else x + add
+        return s, M._norm(s, w)
+
+    def swiglu(up):
+        gate, val = up.chunk(2, dim=-1)
+        return F.silu(gate) * val
+
+    for mod in (M, MoE):
+        monkeypatch.setattr(mod, "_norm_residual", norm_residual)
+        monkeypatch.setattr(mod, "swiglu_step", swiglu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,dtype,remat,int8", [
+    ("dense", torch.bfloat16, False, False), ("dense", torch.float32, False, False),
+    ("dense", torch.bfloat16, True, False), ("dense", torch.bfloat16, False, True),
+    ("moe", torch.bfloat16, False, False)])
+def test_the_steps_on_the_card_are_the_eager_ops_steps(card, kind, dtype, remat, int8,
+                                                       monkeypatch):
+    """Two steps of a small model on the card with the SwiGLU and residual
+    kernels and with the eager ops they replace, from the same params:
+    losses, parameters and moments bit for bit."""
+    from simumax_tpu_torch.torchref import model as M
+    from simumax_tpu_torch.torchref import moe_model as MoE
+
+    if kind == "moe":
+        cfg = MoE.MoeConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=4,
+                            head_size=64, layer_num=2, expert_num=4, topk=2, moe_ffn=512,
+                            dtype=dtype)
+        mod, kw = MoE, {}
+    else:
+        cfg = M.LlamaConfig(vocab_size=512, hidden_size=256, head_num=4, kv_head_num=2,
+                            head_size=64, intermediate_size=512, layer_num=2, dtype=dtype,
+                            use_int8=int8)
+        mod, kw = M, {"remat": remat}
+    params = mod.init_params(cfg, seed=0, device=card)
+    ids = torch.randint(0, 512, (1, 128), generator=torch.Generator().manual_seed(0)).to(card)
+
+    def run():
+        p = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params)
+        init_opt, step = mod.make_train_step(cfg, **kw)
+        opt = init_opt(p)
+        losses = [float(step(p, opt, (ids, ids))[2]) for _ in range(2)]
+        return losses, [M.param_leaves(t) for t in (p, opt["mu"], opt["nu"])]
+
+    losses, leaves = run()
+    with monkeypatch.context() as m:
+        _eager_ops(m)
+        losses_ref, leaves_ref = run()
+    assert losses == losses_ref
+    for got, ref in zip(leaves, leaves_ref):
+        assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(got, ref))
 
 
 # -- the MoE dispatch and combine -------------------------------------------------

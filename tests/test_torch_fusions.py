@@ -28,9 +28,11 @@ The steps (bf16, fp32, full-block recompute, MoE, int8) match JAX at the
 tolerances of ``tests/test_torch_model.py``, ``test_torch_moe.py`` and
 ``test_torch_quantized.py``, and run each norm, RoPE and dequantization
 through the wrappers as often as ``chip_smoke.py`` counts their launches
-on the card. The kernels themselves are held against these plain
-versions by ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (phase
-3c) on the card.
+on the card (the norm's with and without the residual together;
+``tests/test_torch_step_fusions.py`` counts them apart). The kernels
+themselves are held against these plain versions by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (phase 3c) on the
+card.
 """
 
 import jax
