@@ -317,12 +317,21 @@ Phases, each fatal on failure:
        (as the JAX function at n = 1), its printed lines logged; (c) the dp
        x tp step on DTensor at full width: the bf16 row's model
        (``bench-llama-0p5b``, 6 layers, seq 2048, mbs 1) on a 1 x 1 mesh
-       with ``sp=True`` and FSDP on, three steps from the same parameters
-       as three steps of the single-device step, the losses within
-       :data:`LOSS_RTOL` step by step (bit-equality logged), the median
-       step of the three and of five more (CUDA events), the host's time
-       to issue a step and ``max_memory_allocated`` of both, and the
-       collective record of a sharded step (empty at world 1); (d)
+       with ``sp=True`` and FSDP on, in bf16 and with ``use_int8``, three
+       steps from the same parameters as three steps of the
+       single-device step, the losses equal bit for bit step by step and
+       the parameters after five more equal bit for bit (the phase fails
+       on any difference), the median step of the three and of the five
+       (CUDA events), the host's time to issue a step and
+       ``max_memory_allocated`` of both, and of one more sharded step the
+       collective record (empty at world 1) and the kernels it launched
+       (read around it, and added to the main path's counts): the
+       norms', RoPE's, SwiGLU's and Adam's as many as the single-device
+       step's, and with ``use_int8`` the q8 kernels too (3 amax launches
+       a product where the single-device step takes 5: the sharded
+       product keeps x's and w's amaxes from its forward), with every
+       ``*_plain`` function of ``torchref/kernels.py`` counted and
+       called no time; (d)
        ``calibration.validate.memory_report`` of phase 9's first config,
        its four keys logged and its peak within 2% of phase 9's reading
        of the same config (phase 9 runs through it too). Every number is
@@ -4274,10 +4283,34 @@ def sharded_entry(torch, card):
     return rec
 
 
-def sharded_step_full_width(torch, card):
+@contextlib.contextmanager
+def plain_calls(K):
+    """Count the calls of every ``*_plain`` function of the kernels module
+    while the block runs: yields {name: calls}."""
+    calls = {}
+    saved = {name: getattr(K, name) for name in dir(K) if name.endswith("_plain")}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(K, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(K, name, fn)
+
+
+def sharded_step_full_width(torch, card, K):
     """Phase 10i (c): three steps of the dp x tp step on DTensor (1 x 1
     mesh, SP, FSDP) against three steps of the single-device step, from
-    the same parameters, at the bf16 row's full width."""
+    the same parameters, at the bf16 row's full width, in bf16 and with
+    ``use_int8``. Returns (its record, the launches of one sharded step
+    of each)."""
     import numpy as np
 
     from simumax_tpu_torch.calibration.validate import CollectiveRecord
@@ -4285,10 +4318,7 @@ def sharded_step_full_width(torch, card):
     from simumax_tpu_torch.torchref import parallel as P
     from simumax_tpu_torch.torchref.rows import build_bench_model
 
-    cfg = M.LlamaConfig.from_model_config(build_bench_model(), layer_num=6)
     seq, steps, steady = 2048, 3, 5
-    params0 = M.init_params(cfg, seed=0)
-    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, seq))
 
     def run(make):
         """The three compared steps, then ``steady`` more: each between
@@ -4298,7 +4328,7 @@ def sharded_step_full_width(torch, card):
         torch.cuda.empty_cache()
         floor = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        step = make()
+        params, step = make()
         times, issue, losses = [], [], []
         for _ in range(steps + steady):
             start = torch.cuda.Event(enable_timing=True)
@@ -4315,54 +4345,95 @@ def sharded_step_full_width(torch, card):
         return {"losses": losses[:steps], "step_ms": times, "median_step_ms":
                 sorted(times[:steps])[steps // 2], "steady_median_ms":
                 sorted(times[steps:])[steady // 2], "steady_issue_ms":
-                sorted(issue[steps:])[steady // 2], "peak_bytes": peak}, step
+                sorted(issue[steps:])[steady // 2], "peak_bytes": peak}, params, step
 
-    def single():
-        params = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
-        init_opt, train_step = M.make_train_step(cfg)
-        opt, batch = init_opt(params), (torch.tensor(ids, device="cuda"),) * 2
-        return lambda: train_step(params, opt, batch)[2]
-
-    record = {}
-    with P.process_group("cuda"):
-        mesh = M.make_mesh(1, tp=1)
-
-        def sharded():
-            params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
-            init_opt, train_step = M.make_train_step(cfg, mesh=mesh, sp=True)
-            opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
-            record["params"] = params
-            return lambda: train_step(params, opt, batch)[2]
-
-        record["single"] = run(single)[0]
-        record["sharded"], step = run(sharded)
-        with CollectiveRecord(mesh) as collectives:
+    def one_step(step, mesh=None):
+        """One more step: the kernels it launched (taken off the counts
+        and returned), its plain calls and its collective record."""
+        before = K.launch_counts()
+        record = contextlib.nullcontext() if mesh is None else CollectiveRecord(mesh)
+        with plain_calls(K) as plain, record as collectives:
             step()
         torch.cuda.synchronize()
-        del record["params"], step
-    torch.cuda.empty_cache()
-    one, dt = record["single"], record["sharded"]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(dt["losses"], one["losses"]))
-    same = dt["losses"] == one["losses"]
-    record.update({"loss_rel": rel, "bit_equal": same, "collectives": collectives.entries,
-                   "config": {"model": "bench-llama-0p5b", "layers": 6, "seq": seq, "mbs": 1,
-                              "dtype": "bfloat16", "mesh": "dp 1 x tp 1", "sp": True,
-                              "fsdp": True}})
-    log(f"phase 10i dp x tp step on DTensor ({card}; bench-llama-0p5b, 6 layers, seq {seq}, mbs "
-        f"1, bf16, 1 x 1 mesh, sp, fsdp): losses {[f'{x:.6f}' for x in dt['losses']]} vs the "
-        f"single-device step's {[f'{x:.6f}' for x in one['losses']]} "
-        f"({'bit-equal' if same else f'largest rel {rel:.3g}'}, tolerance {LOSS_RTOL}); median "
-        f"of the three {dt['median_step_ms']:.3f} ms vs {one['median_step_ms']:.3f} ms; of "
-        f"{steady} more {dt['steady_median_ms']:.3f} ms vs {one['steady_median_ms']:.3f} ms, "
-        f"the host issuing a step in {dt['steady_issue_ms']:.3f} ms vs "
-        f"{one['steady_issue_ms']:.3f} ms (all steps "
-        f"{', '.join(f'{t:.3f}' for t in dt['step_ms'])} vs "
-        f"{', '.join(f'{t:.3f}' for t in one['step_ms'])}); max_memory_allocated "
-        f"{dt['peak_bytes'] / 2 ** 30:.3f} GiB vs {one['peak_bytes'] / 2 ** 30:.3f} GiB; "
-        f"collective record of a sharded step: {collectives.entries or 'empty'}")
-    if not (all(math.isfinite(x) for x in dt["losses"]) and rel <= LOSS_RTOL):
-        raise AssertionError("the dp x tp step disagrees with the single-device step")
-    return record
+        return K.take_launches(before), plain, collectives
+
+    record, launches = {}, {}
+    for variant in ("bf16", "int8"):
+        cfg = M.LlamaConfig.from_model_config(build_bench_model(), layer_num=6,
+                                              use_int8=variant == "int8")
+        params0 = M.init_params(cfg, seed=0)
+        ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (1, seq))
+
+        def single():
+            params = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+            init_opt, train_step = M.make_train_step(cfg)
+            opt, batch = init_opt(params), (torch.tensor(ids, device="cuda"),) * 2
+            return params, lambda: train_step(params, opt, batch)[2]
+
+        rec = {}
+        rec["single"], one_params, single_step = run(single)
+        with P.process_group("cuda"):
+            mesh = M.make_mesh(1, tp=1)
+
+            def sharded():
+                params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
+                init_opt, train_step = M.make_train_step(cfg, mesh=mesh, sp=True)
+                opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
+                return params, lambda: train_step(params, opt, batch)[2]
+
+            rec["sharded"], params, step = run(sharded)
+            same_params = all(torch.equal(a.detach(), b.full_tensor().detach()) for a, b in
+                              zip(M.param_leaves(one_params), M.param_leaves(params)))
+            single_launches = one_step(single_step)[0]
+            got, plain, collectives = one_step(step, mesh)
+            del params, step
+        del one_params, single_step, params0
+        torch.cuda.empty_cache()
+        one, dt = rec["single"], rec["sharded"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dt["losses"], one["losses"]))
+        same = dt["losses"] == one["losses"]
+        expect = dict(single_launches)
+        if variant == "int8":  # x's and w's amaxes kept from the forward
+            expect["q8_amax"] = single_launches["q8_amax"] * 3 // 5
+        used = {k: n for k, n in got.items() if n}
+        rec.update({"loss_rel": rel, "bit_equal": same, "params_bit_equal": same_params,
+                    "launches": used, "single_launches": {k: n for k, n in
+                                                          single_launches.items() if n},
+                    "plain_calls": plain, "collectives": collectives.entries,
+                    "config": {"model": "bench-llama-0p5b", "layers": 6, "seq": seq, "mbs": 1,
+                               "dtype": "bfloat16", "use_int8": variant == "int8",
+                               "mesh": "dp 1 x tp 1", "sp": True, "fsdp": True}})
+        record[variant] = rec
+        log(f"phase 10i dp x tp step on DTensor ({card}; bench-llama-0p5b, 6 layers, seq {seq}, "
+            f"mbs 1, {variant}, 1 x 1 mesh, sp, fsdp): losses "
+            f"{[f'{x:.6f}' for x in dt['losses']]} vs the single-device step's "
+            f"{[f'{x:.6f}' for x in one['losses']]} "
+            f"({'bit-equal' if same else f'largest rel {rel:.3g}'}; parameters after "
+            f"{steps + steady} steps {'bit-equal' if same_params else 'differ'}); median of "
+            f"the three {dt['median_step_ms']:.3f} ms vs {one['median_step_ms']:.3f} ms; of "
+            f"{steady} more {dt['steady_median_ms']:.3f} ms vs {one['steady_median_ms']:.3f} ms, "
+            f"the host issuing a step in {dt['steady_issue_ms']:.3f} ms vs "
+            f"{one['steady_issue_ms']:.3f} ms (all steps "
+            f"{', '.join(f'{t:.3f}' for t in dt['step_ms'])} vs "
+            f"{', '.join(f'{t:.3f}' for t in one['step_ms'])}); max_memory_allocated "
+            f"{dt['peak_bytes'] / 2 ** 30:.3f} GiB vs {one['peak_bytes'] / 2 ** 30:.3f} GiB; "
+            f"kernels launched in one sharded step {used} (the single-device step's "
+            f"{rec['single_launches']}); plain calls {plain or 'none'}; collective record of "
+            f"a sharded step: {collectives.entries or 'empty'}")
+        if not (same and same_params):
+            raise AssertionError(f"the {variant} dp x tp step is not the single-device step "
+                                 f"bit for bit")
+        if got != expect or plain:
+            raise AssertionError(f"the {variant} dp x tp step launched {used} and called the "
+                                 f"plain versions {plain}; expected {expect}")
+        for key in ("rms_norm_fwd", "rms_norm_residual_fwd", "rms_norm_bwd",
+                    "rms_norm_residual_bwd", "rope_fwd", "rope_bwd", "swiglu_step_fwd",
+                    "swiglu_step_bwd", ADAM) + (("q8_amax", "q8_quantize", "q8_dequant")
+                                                if variant == "int8" else ()):
+            if got[key] <= 0:
+                raise AssertionError(f"the {variant} dp x tp step launched no {key}")
+        launches = {k: launches.get(k, 0) + n for k, n in got.items()}
+    return record, launches
 
 
 def memory_report_check(torch, card, memory):
@@ -4385,15 +4456,16 @@ def memory_report_check(torch, card, memory):
     return {"report": report, "phase9_gib": row["measured_gib"], "drift": drift}
 
 
-def check_last_modules(torch, card, memory):
-    """Phase 10i: (a) to (d) of the module docstring. Returns its record."""
+def check_last_modules(torch, card, memory, K):
+    """Phase 10i: (a) to (d) of the module docstring. Returns its record
+    and the launches of (c)'s counted sharded steps."""
     t_phase = time.perf_counter()
     record = sharded_entry(torch, card)
-    record["sharded_step"] = sharded_step_full_width(torch, card)
+    record["sharded_step"], launches = sharded_step_full_width(torch, card, K)
     record["memory_report"] = memory_report_check(torch, card, memory)
     record["phase_s"] = time.perf_counter() - t_phase
     log(f"last-modules phase ({card}): {record['phase_s']:.3f} s")
-    return record
+    return record, launches
 
 
 def main():
@@ -4543,7 +4615,9 @@ def main():
     for kernel, n in cli_launches.items():
         counts[kernel] += n
     # phase 10i: the dp x tp step, the entry points and the memory report
-    last_modules = check_last_modules(torch, card, memory)
+    last_modules, sharded_launches = check_last_modules(torch, card, memory, K)
+    for kernel, n in sharded_launches.items():
+        counts[kernel] += n
     log(f"launches on the main paths: {counts}")
     for kernel, n in counts.items():
         if n <= 0:

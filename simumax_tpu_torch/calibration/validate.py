@@ -131,7 +131,7 @@ def validate_memory(perf, device="cuda") -> Dict[str, float]:
 
 #: the names of ``torchref.collectives``' ops as HLO's op families
 _LEDGER_FAMILIES = {"all_gather": "all-gather", "psum_scatter": "reduce-scatter",
-                    "psum": "all-reduce", "all_to_all": "all-to-all",
+                    "psum": "all-reduce", "pmax": "all-reduce", "all_to_all": "all-to-all",
                     "ppermute": "collective-permute"}
 
 
@@ -157,8 +157,10 @@ class CollectiveRecord:
     reduce-scatter, all-reduce, all-to-all, collective-permute),
     ``axis`` (the mesh axis, or a tuple of them for a group over the
     whole mesh), ``bytes`` (of this rank's result, as HLO counts a
-    collective's result shape) and ``groups`` (every group of global
-    ranks of the mesh along that axis, as ``replica_groups``; for
+    collective's result shape), ``dtype`` (of the elements moved, as
+    ``torch`` names it without its prefix: ``bfloat16``, ``float32``,
+    ``int32``, ``int8``) and ``groups`` (every group of global ranks of
+    the mesh along that axis, as ``replica_groups``; for
     collective-permute the (source, target) pairs)."""
 
     def __init__(self, mesh):
@@ -177,8 +179,9 @@ class CollectiveRecord:
             return tuple(self.mesh.mesh_dim_names), [everyone]
         raise ValueError(f"collective over ranks {ranks} lies along no axis of {self.mesh}")
 
-    def _add(self, op, axis, nbytes, groups):
-        self.entries.append({"op": op, "axis": axis, "bytes": int(nbytes), "groups": groups})
+    def _add(self, op, axis, nbytes, dtype, groups):
+        self.entries.append({"op": op, "axis": axis, "bytes": int(nbytes),
+                             "dtype": str(dtype).removeprefix("torch."), "groups": groups})
 
     def _on_direct(self, op, axis, x, mesh, perm):
         """A call of ``torchref.collectives``: x is this rank's input."""
@@ -188,7 +191,7 @@ class CollectiveRecord:
         groups = _axis_groups(mesh, axis)
         if op == "ppermute":
             groups = [[g[s], g[d]] for g in groups for s, d in perm]
-        self._add(_LEDGER_FAMILIES[op], axis, nbytes, groups)
+        self._add(_LEDGER_FAMILIES[op], axis, nbytes, x.dtype, groups)
 
     def _on_funcol(self, op, args, out):
         import torch.distributed as dist
@@ -197,7 +200,7 @@ class CollectiveRecord:
         name = [a for a in args if isinstance(a, str)][-1]
         ranks = dist.get_process_group_ranks(_resolve_process_group(name))
         axis, groups = self._locate(ranks)
-        self._add(op, axis, out.numel() * out.element_size(), groups)
+        self._add(op, axis, out.numel() * out.element_size(), out.dtype, groups)
 
     def __enter__(self):
         from torch.distributed.tensor import DTensor

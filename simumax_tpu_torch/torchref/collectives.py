@@ -16,6 +16,7 @@ applies to it:
 ``pmean``         ``all_reduce`` / n          ``all_reduce`` / n
 ``all_to_all``    ``all_to_all_single``       ``all_to_all_single``
 ``ppermute``      ``batch_isend_irecv``       the inverse permutation
+``pmax``          ``all_reduce`` (max)        none
 ================  ==========================  ===============================
 
 (psum transposes to psum: JAX's ``shard_map`` with ``check_vma=False``
@@ -23,7 +24,10 @@ treats every rank's copy of a reduced value as its own output.) The
 tensor collectives work on dim 0; ``all_gather`` and ``psum_scatter``
 take a ``dim`` and move it to the front and back. ``all_to_all`` is
 JAX's ``split_axis=0, concat_axis=0, tiled=True``. As ``lax`` does, a
-collective over an axis of size 1 is the identity.
+collective over an axis of size 1 is the identity. ``all_gather``,
+``psum_scatter`` and ``psum`` take integer tensors too (the int8 rows and
+int32 partial products of ``torchref/quantized.py``'s sharded product),
+which carry no gradient; nor does ``pmax`` (the per-tensor amaxes there).
 
 Every collective that runs appends ``(op, axis, bytes)`` to
 :data:`LEDGER`, the bytes of this rank's input tensor, in the forward
@@ -103,10 +107,11 @@ def _scatter0(x, mesh, axis):
     return out
 
 
-def _all_reduce(x, mesh, axis):
+def _all_reduce(x, mesh, axis, op: str = "psum"):
     out = x.contiguous().clone()
-    _record("psum", axis, out, mesh)
-    dist.all_reduce(out, group=mesh.get_group(axis))
+    _record(op, axis, out, mesh)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "pmax" else dist.ReduceOp.SUM,
+                    group=mesh.get_group(axis))
     return out
 
 
@@ -224,6 +229,14 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if axis_size(mesh, axis) == 1:
         return x
     return _Psum.apply(x, mesh, axis, 1)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``lax.pmax(x, axis)``: the elementwise max of every rank's x over
+    the axis, with no gradient."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _all_reduce(x.detach(), mesh, axis, "pmax")
 
 
 def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

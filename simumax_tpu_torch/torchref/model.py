@@ -15,36 +15,48 @@ vocab parallel), optionally FSDP-sharded over ``dp``, with the
 activations sequence-sharded over ``tp`` between blocks when ``sp``.
 Where the JAX module leaves the collectives to GSPMD, this one asks for
 them: each dp-sharded weight is all-gathered over dp at its use
-(``Redistribute`` to its tp-only placement; its gradient comes back by
-a reduce-scatter), the activations are all-gathered over tp before a
+(``Redistribute`` to its tp-only placement; its bf16 gradient comes
+back by a reduce-scatter, its int8 one summed over dp already), the
+activations are all-gathered over tp before a
 column-parallel product and reduce-scattered (SP) or all-reduced after
 a row-parallel one. Like GSPMD it computes the function of the
-unsharded step at every layout (``tests/test_torch_sharded.py``). The
-fused qkv and up columns are all-gathered over tp before they are
-split; each tp rank then runs RoPE and math attention on its own query
-heads (and the kv heads they read), and SwiGLU on its own block of the
-intermediate columns, on local tensors. The sharded step never takes
-the flash kernels, as the JAX step ignores ``use_pallas_attn`` under
-sharding. Differences from the JAX module: :func:`make_mesh` raises
-where JAX quietly takes CPU devices; a layout whose heads, intermediate
-size, vocabulary or sharded dims do not divide the mesh raises where
-GSPMD pads; ``use_int8`` is single-device only.
+unsharded step at every layout (``tests/test_torch_sharded.py``,
+``tests/test_torch_sharded_int8.py``). The fused qkv and up columns are
+all-gathered over tp before they are split; each tp rank then runs RoPE
+and math attention on its own query heads (and the kv heads they read),
+and SwiGLU on its own block of the intermediate columns (its gate and
+val blocks put side by side by one copy at tp > 1), on local tensors.
+The norms run on each rank's rows as local tensors too, the pre-MLP one
+writing the residual add before it, so on a 1 x 1 mesh the sharded step
+is the single-device step bit for bit. With ``use_int8`` every product
+is :func:`~simumax_tpu_torch.torchref.quantized.int8_matmul_sharded` on
+the local blocks: scales maxed over the mesh (``pmax``), the partial
+products summed in int32 over the axis that splits their contraction
+(tp for out and down forward and for the column-parallel dgrads, dp for
+every wgrad), and under SP the sequence's rows gathered as int8 (GSPMD
+gathers them as int8 too). An amax split over dp and tp is maxed over
+one axis, then the other: two scalar all-reduces.
+The sharded step never takes the flash kernels, as the JAX step ignores
+``use_pallas_attn`` under sharding. Differences from the JAX module:
+:func:`make_mesh` raises where JAX quietly takes CPU devices; a layout
+whose heads, intermediate size, vocabulary or sharded dims do not divide
+the mesh raises where GSPMD pads, and so does one whose local int8
+product breaks ``torch._int_mm``'s shape rule
+(:func:`~simumax_tpu_torch.torchref.quantized.check_int_mm_shape`).
 
 Every numeric detail of the reference is kept: the rms-norm variance in
 fp32 with the rsqrt cast to the input dtype before the multiply;
-split-half RoPE with cos/sin cast to the input dtype (on one device both
-run as the CUDA kernels of ``torchref/kernels.py``, :func:`rms_norm` and
-:func:`rope`, which round where these do; the sharded step keeps the
-plain :func:`_rms_norm` and :func:`_rope`, as the JAX sharded step keeps
-plain jnp where a Pallas call has no GSPMD rule). On one device the
+split-half RoPE with cos/sin cast to the input dtype (both run as the
+CUDA kernels of ``torchref/kernels.py``, :func:`rms_norm` and
+:func:`rope`, which round where these do; :func:`_rms_norm` and
+:func:`_rope` are the plain forwards the tests hold them against). The
 block's two norms also carry the residual stream
 (:func:`~simumax_tpu_torch.torchref.kernels.rms_norm_residual`): the add
 before the pre-MLP norm is written by the norm's kernel, and each norm's
 backward adds the gradient the residual branch passes on for its input,
 so no tensor of a block has two autograd consumers; and SwiGLU runs as
 the step-mode kernels (``kernels.swiglu_step``), bit for bit
-``F.silu(gate) * val`` and its autograd, as the sharded step still
-computes it; GQA kv heads
+``F.silu(gate) * val`` and its autograd; GQA kv heads
 repeated consecutively (``repeat_interleave``, as ``jnp.repeat``) before
 the flash kernels; eager math attention otherwise, mirroring
 ``jax.nn.dot_product_attention``; bf16 params with no master copy and
@@ -86,7 +98,7 @@ from simumax_tpu_torch.torchref.kernels import (
     swiglu_step,
 )
 from simumax_tpu_torch.torchref.parallel import mesh_device, mesh_over_ranks
-from simumax_tpu_torch.torchref.quantized import int8_matmul
+from simumax_tpu_torch.torchref.quantized import Int8Split, int8_matmul, int8_matmul_sharded
 
 
 #: the op families whose profiler ranges (:func:`op_family`) the reference
@@ -365,15 +377,16 @@ def shard_batch(batch, mesh):
 
 
 def _rms_norm(x, w, eps=1e-5):
-    """The plain rms norm (the sharded step's; DTensors go through it)."""
+    """The plain rms norm, the JAX package's ``_rms_norm`` (the tests hold
+    the kernels against it)."""
     with op_family("norm"):
         var = x.float().square().mean(-1, keepdim=True)
         return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
 
 
 def _rope(x, theta: float):
-    """The plain RoPE of x [b, s, n, d] (the sharded step's, on local
-    tensors)."""
+    """The plain RoPE of x [b, s, n, d] (the tests hold the kernel
+    against it)."""
     return rope_fwd_plain(x, theta)
 
 
@@ -512,25 +525,37 @@ def _local(x: DTensor) -> torch.Tensor:
     return x.to_local(grad_placements=(_batch(x.device_mesh), Partial()))
 
 
+def _sharded_norm(x: DTensor, w: DTensor, add: Optional[DTensor] = None):
+    """(s, y) of :func:`_norm_residual` on this rank's rows of x (and of
+    ``add``), as DTensors placed as x. w's gradient sums over this rank's
+    rows only: a partial sum over every axis that splits them."""
+    grad_w = tuple(Partial() if isinstance(pl, Shard) else Replicate() for pl in x.placements)
+    s, y = _norm_residual(x.to_local(), w.to_local(grad_placements=grad_w),
+                          None if add is None else add.to_local())
+    return tuple(DTensor.from_local(t, x.device_mesh, x.placements, run_check=False)
+                 for t in (s, y))
+
+
 def _attention_heads(qkv: DTensor, cfg: LlamaConfig, mesh) -> DTensor:
     """Attention of this tp rank's query heads, from the fused qkv
-    columns gathered over tp: RoPE and math attention on local tensors
-    (the whole sequence), GQA kv heads taken for the query heads held.
-    Returns [b, s, q_out] split over tp by heads."""
+    columns gathered over tp: RoPE (the kernel, on the strided q and k
+    views) and math attention on local tensors (the whole sequence), GQA
+    kv heads taken for the query heads held. Returns [b, s, q_out] split
+    over tp by heads."""
     d, H, Hkv = cfg.head_size, cfg.head_num, cfg.kv_head_num
     q_out, kv_out = H * d, Hkv * d
     t, hl = _tp_block(H, mesh, "head_num")
     g = H // Hkv
     q, k, v = torch.split(_local(qkv), [q_out, kv_out, kv_out], dim=-1)
     b, s, _ = q.shape
-    q = _rope(q.reshape(b, s, H, d)[:, :, t * hl:(t + 1) * hl], cfg.rope_theta)
+    q = rope(q.reshape(b, s, H, d)[:, :, t * hl:(t + 1) * hl], cfg.rope_theta)
     k, v = k.reshape(b, s, Hkv, d), v.reshape(b, s, Hkv, d)
     if hl % g == 0:  # whole kv groups: GQA as on one device
         k, v = k[:, :, t * hl // g:(t + 1) * hl // g], v[:, :, t * hl // g:(t + 1) * hl // g]
     else:  # part of one group: each query head with its own kv head
         idx = torch.arange(t * hl, (t + 1) * hl, device=k.device) // g
         k, v = k.index_select(2, idx), v.index_select(2, idx)
-    k = _rope(k, cfg.rope_theta)
+    k = rope(k, cfg.rope_theta)
     with op_family("attention"):
         o = math_attention(q, k, v, causal=True)
     return DTensor.from_local(o.reshape(b, s, hl * d), mesh, (_batch(mesh), Shard(2)),
@@ -539,32 +564,85 @@ def _attention_heads(qkv: DTensor, cfg: LlamaConfig, mesh) -> DTensor:
 
 def _swiglu_columns(up: DTensor, cfg: LlamaConfig, mesh) -> DTensor:
     """silu(gate) * val of this tp rank's block of the intermediate
-    columns, from the fused up columns gathered over tp."""
-    t, fl = _tp_block(cfg.intermediate_size, mesh, "intermediate_size")
-    gate, val = _local(up).chunk(2, dim=-1)
-    act = F.silu(gate[..., t * fl:(t + 1) * fl]) * val[..., t * fl:(t + 1) * fl]
-    return DTensor.from_local(act, mesh, (_batch(mesh), Shard(2)), run_check=False)
+    columns, from the fused up columns gathered over tp, by the step-mode
+    kernels (:func:`~simumax_tpu_torch.torchref.kernels.swiglu_step`). At
+    tp > 1 the rank's gate and val blocks lie f columns apart; one copy
+    puts them side by side as [gate_t | val_t] (2 f / tp columns a row,
+    read and written once)."""
+    f = cfg.intermediate_size
+    t, fl = _tp_block(f, mesh, "intermediate_size")
+    up = _local(up)
+    if fl != f:
+        up = torch.cat([up[..., t * fl:(t + 1) * fl], up[..., f + t * fl:f + (t + 1) * fl]], -1)
+    return DTensor.from_local(swiglu_step(up), mesh, (_batch(mesh), Shard(2)), run_check=False)
+
+
+def _int8_split(mesh, sp: bool, column: bool):
+    """The :class:`~simumax_tpu_torch.torchref.quantized.Int8Split` of a
+    column- or row-parallel product of the step: the rows split over dp,
+    the weight over tp (FSDP's dp shards already gathered), x over tp by
+    sequence (SP, column) or by columns (row), the output's gradient over
+    tp by columns (column) or by sequence (SP, row). Axes of one rank
+    are left out, so on a 1 x 1 mesh the product is the single-device
+    one."""
+    dp = ("dp",) if mesh.size(0) > 1 else ()
+    tp = "tp" if mesh.size(1) > 1 else None
+    tps = (tp,) if tp else ()
+    seq = tp if sp else None
+    split_seq = (seq,) if seq else ()
+    if column:
+        return Int8Split(x=dp + split_seq, w=tps, g=dp + tps, rows=dp, n=tp, seq=seq)
+    return Int8Split(x=dp + tps, w=tps, g=dp + split_seq, rows=dp, k=tp, seq=seq)
+
+
+def _sharded_linears(cfg: LlamaConfig, mesh, sp: bool):
+    """(column, row): the step's column-parallel product of activations
+    placed between blocks (-> split over tp by columns) and its
+    row-parallel product of activations split over tp by columns (->
+    placed between blocks). bf16: DTensor's matmul, y gathered over tp
+    first (SP) and the partial sum reduce-scattered (SP) or all-reduced
+    after. ``use_int8``: :func:`~simumax_tpu_torch.torchref.quantized.
+    int8_matmul_sharded` on the local blocks, every sum in int32."""
+    between = _between_blocks(mesh, sp)
+
+    def column(y, w):
+        w = _at_use(w)
+        if not cfg.use_int8:
+            y = _gathered(y)  # SP: all-gather the sequence
+            with op_family("gemm"):
+                return torch.matmul(y, w)
+        with op_family("gemm"):
+            out = int8_matmul_sharded(y.to_local(), w.to_local(), mesh,
+                                      _int8_split(mesh, sp, True))
+        return DTensor.from_local(out, mesh, (_batch(mesh), Shard(2)), run_check=False)
+
+    def row(o, w):
+        w = _at_use(w)
+        if not cfg.use_int8:
+            with op_family("gemm"):
+                out = torch.matmul(o, w)
+            # a partial sum over tp, reduce-scattered (SP) or all-reduced
+            return out.redistribute(mesh, between)
+        with op_family("gemm"):
+            out = int8_matmul_sharded(o.to_local(), w.to_local(), mesh,
+                                      _int8_split(mesh, sp, False))
+        return DTensor.from_local(out, mesh, between, run_check=False)
+
+    return column, row
 
 
 def _sharded_block(x, p, cfg: LlamaConfig, mesh, sp: bool):
-    mm = _linear(cfg)
-    between = _between_blocks(mesh, sp)
-    res = x
-    y = _gathered(_rms_norm(x, p["input_norm"]))  # SP: all-gather the sequence
-    qkv = _gathered(mm(y, _at_use(p["qkv"])))  # the fused columns, gathered
+    column, row = _sharded_linears(cfg, mesh, sp)
+    res, y = _sharded_norm(x, p["input_norm"])
+    qkv = _gathered(column(y, p["qkv"]))  # the fused columns, gathered
     o = _attention_heads(qkv, cfg, mesh)
-    # row parallel: a partial sum over tp, reduce-scattered (SP) or all-reduced
-    x = res + mm(o, _at_use(p["out"])).redistribute(mesh, between)
-    res = x
-    y = _gathered(_rms_norm(x, p["pre_mlp_norm"]))
-    up = _gathered(mm(y, _at_use(p["up"])))
-    y = mm(_swiglu_columns(up, cfg, mesh), _at_use(p["down"]))
-    return res + y.redistribute(mesh, between)
+    # the residual add, written by the pre-MLP norm's kernel
+    res, y = _sharded_norm(res, p["pre_mlp_norm"], row(o, p["out"]))
+    up = _gathered(column(y, p["up"]))
+    return res + row(_swiglu_columns(up, cfg, mesh), p["down"])
 
 
 def _sharded_forward(params, ids, cfg: LlamaConfig, mesh, sp: bool, remat: bool):
-    if cfg.use_int8:
-        raise ValueError("use_int8 runs on one device only (mesh=None)")
     if tuple(mesh.mesh_dim_names) != MESH_AXES:
         raise ValueError(f"the sharded step wants a mesh with the axes {MESH_AXES}, got "
                          f"{mesh.mesh_dim_names}")
@@ -577,8 +655,8 @@ def _sharded_forward(params, ids, cfg: LlamaConfig, mesh, sp: bool, remat: bool)
                            preserve_rng_state=False)
         else:
             x = _sharded_block(x, p, cfg, mesh, sp)
-    x = _gathered(_rms_norm(x, params["final_norm"]))
-    return _linear(cfg)(x, _at_use(params["lm_head"]))
+    _s, x = _sharded_norm(x, params["final_norm"])
+    return _sharded_linears(cfg, mesh, sp)[0](x, params["lm_head"])
 
 
 # -- training step ------------------------------------------------------------

@@ -23,12 +23,34 @@ kernels of ``csrc/quant8.cu`` on the card, their plain versions on the
 CPU), and :func:`_mm` copies nothing: the forward's weight and both wgrad
 operands are written column-major, the gradient of the output both ways
 from one amax and one read (``q8_quantize(..., both=True)``).
+
+On a ``("dp", "tp")`` mesh (``torchref/model.py``'s DTensor step)
+:func:`int8_matmul_sharded` runs the same product on this rank's local
+blocks, told by an :class:`Int8Split` which mesh axes split which
+operand. Each scale is the whole tensor's, as on one device: the local
+``q8_amax``, then its max over every axis that splits the tensor
+(``collectives.pmax``, exact). Where an axis splits the contraction (the
+forward of a row-parallel product, the dgrad of a column-parallel one,
+the wgrad over dp) the **int32** partial products are summed over it
+(``psum``, or ``psum_scatter`` by sequence under SP) before
+``q8_dequant``: integer sums are exact, so every product is the
+unsharded one's, as the int32 all-reduces of JAX's compiled GSPMD step
+are. Under SP the sequence-split rows are quantized where they lie and
+gathered as int8 (1 byte an element, where the bf16 step gathers bf16);
+the wgrad's column-major operand is then that gathered int8 tensor
+transposed by one copy (rows x cols bytes read and written), where the
+single-device product has the quantize kernel write that order. The
+weight's gradient comes back summed over dp, replicated there.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Tuple
+
 import torch
 
+from simumax_tpu_torch.torchref import collectives as C
 from simumax_tpu_torch.torchref.kernels import q8_amax, q8_dequant, q8_quantize
 
 #: per product layout (NN forward, NT dgrad, TN wgrad), whether its first
@@ -113,3 +135,128 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [..., k] @ w [k, n]`` with int8 operands in every backprop
     stage; returns bf16."""
     return _Int8Matmul.apply(x, w)
+
+
+# -- on local shards of a device mesh ----------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Split:
+    """Which mesh axes (each of more than one rank) split which operand of
+    a local product x [b, s, k] @ w [k, n] -> out [b, s, n], and so where
+    the sharded int8 product reduces.
+
+    ``x``, ``w``, ``g``: the axes that split x's, w's and the output
+    gradient's whole tensor (each scale's amax is maxed over them).
+    ``rows``: the axes that split the rows (b, s) of the product, whose
+    wgrad is summed over them. ``k``: the axis that splits the
+    contraction (row parallel), whose forward is summed over it. ``n``:
+    the axis that splits the output's columns (column parallel), whose
+    dgrad is summed over it. ``seq``: under SP, the axis that splits the
+    sequence: x's rows are gathered over it before a column-parallel
+    product (as int8) and its dgrad reduce-scattered back; a row-parallel
+    product's output is reduce-scattered over it and its gradient
+    gathered (as int8)."""
+
+    x: Tuple[str, ...] = ()
+    w: Tuple[str, ...] = ()
+    g: Tuple[str, ...] = ()
+    rows: Tuple[str, ...] = ()
+    k: Optional[str] = None
+    n: Optional[str] = None
+    seq: Optional[str] = None
+
+
+def _pmax(amax: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for axis in axes:
+        amax = C.pmax(amax, mesh, axis)
+    return amax
+
+
+def _rows(t: torch.Tensor, b: int) -> torch.Tensor:
+    """[b, s, c] rows of a product, flattened to a contiguous [b s, c]."""
+    return t.reshape(b * t.shape[1], t.shape[2]).contiguous()
+
+
+def _seq_gather(q: torch.Tensor, b: int, mesh, axis: str) -> torch.Tensor:
+    """Row-major rows [b s_l, c] split by sequence over ``axis`` -> the
+    whole sequence's [b s, c] (an all-gather)."""
+    return _rows(C.all_gather(q.reshape(b, -1, q.shape[1]), mesh, axis, 1), b)
+
+
+def _reduce(acc: torch.Tensor, b: int, mesh, axis, seq) -> torch.Tensor:
+    """An int32 partial product [b s, c] summed over ``axis``: all-reduced,
+    or reduce-scattered by sequence where ``seq`` is that axis."""
+    if axis is None:
+        return acc
+    if axis == seq:
+        return _rows(C.psum_scatter(acc.reshape(b, -1, acc.shape[1]), mesh, axis, 1), b)
+    return C.psum(acc, mesh, axis)
+
+
+def _column_major(q: torch.Tensor) -> torch.Tensor:
+    """A row-major int8 operand in the column-major order (one copy)."""
+    return q.t().contiguous().t()
+
+
+class _ShardedInt8Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, mesh, split: Int8Split):
+        b = x.shape[0]
+        x_cols, w_cols = OPERAND_ORDERS["NN"]
+        x2 = _rows(x, b)
+        amax_x = _pmax(q8_amax(x2), mesh, split.x)
+        amax_w = _pmax(q8_amax(w), mesh, split.w)
+        qx, sx = q8_quantize(x2, amax_x, x_cols)
+        gathered = split.seq is not None and split.n == split.seq
+        if gathered:  # SP, column parallel: the whole sequence's int8 rows
+            qx = _seq_gather(qx, b, mesh, split.seq)
+        qw, sw = q8_quantize(w, amax_w, w_cols)
+        acc = _reduce(_mm(qx, qw), b, mesh, split.k, split.seq)
+        ctx.mesh, ctx.split, ctx.b, ctx.x_shape, ctx.x_dtype = mesh, split, b, x.shape, x.dtype
+        # the wgrad's x: the gathered int8 rows, or x, quantized in its
+        # order in the backward
+        ctx.save_for_backward(qx if gathered else x2, w, amax_x, amax_w, sx)
+        return q8_dequant(acc, sx, sw, torch.bfloat16).reshape(b, -1, w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, amax_x, amax_w, sx = ctx.saved_tensors
+        mesh, split, b = ctx.mesh, ctx.split, ctx.b
+        (g_cols_nt, w_cols), (x_cols, g_cols_tn) = OPERAND_ORDERS["NT"], OPERAND_ORDERS["TN"]
+        g2 = _rows(g, b)
+        amax_g = _pmax(q8_amax(g2), mesh, split.g)
+        if split.seq is not None and split.k == split.seq:
+            # SP, row parallel: the whole sequence's int8 rows of g
+            g_rows, sg = q8_quantize(g2, amax_g)
+            g_rows = _seq_gather(g_rows, b, mesh, split.seq)
+            g_cols = _column_major(g_rows)
+        else:  # g quantized once, as JAX does, into both of its orders
+            g_rows, g_cols, sg = q8_quantize(g2, amax_g, both=True)
+        qg = g_cols if g_cols_nt else g_rows
+        qg_tn = g_cols if g_cols_tn else g_rows
+        qw, sw = q8_quantize(w, amax_w, w_cols)
+        if x2.dtype == torch.int8:
+            qx = _column_major(x2) if x_cols else x2
+        else:
+            qx, _ = q8_quantize(x2, amax_x, x_cols)
+        dx = _reduce(_mm(qg, qw, tb=True), b, mesh, split.n, split.seq)  # dgrad: g @ w^T, NT
+        dx = q8_dequant(dx, sg, sw, ctx.x_dtype)
+        dw = _mm(qx, qg_tn, ta=True)  # wgrad: x^T @ g, TN
+        for axis in split.rows:
+            dw = C.psum(dw, mesh, axis)
+        return dx.reshape(ctx.x_shape), q8_dequant(dw, sx, sg, w.dtype), None, None
+
+
+def int8_matmul_sharded(x: torch.Tensor, w: torch.Tensor, mesh, split: Int8Split) -> torch.Tensor:
+    """:func:`int8_matmul` of this rank's blocks x [b, s, k] and w [k, n]
+    (plain tensors: the local shards of DTensors on ``mesh``) under
+    ``split``; returns this rank's block of the bf16 product, and in the
+    backward x's gradient for its own rows and w's summed over
+    ``split.rows``. With no axis in ``split`` it computes
+    :func:`int8_matmul`'s bits, the backward taking x's and w's amaxes
+    from the forward rather than reading them again."""
+    if x.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"int8_matmul_sharded: x must be [b, s, k] and w [k, n], got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    return _ShardedInt8Matmul.apply(x, w.contiguous(), mesh, split)

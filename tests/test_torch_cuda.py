@@ -699,6 +699,19 @@ def test_q8_wrappers_raise_for_what_the_kernels_refuse(card):
         K.q8_quantize(x, amax.view(1))
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module (its functions import torch lazily)."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _row_step_case(kind):
     from simumax_tpu_torch.torchref import rows
 
@@ -735,16 +748,13 @@ def test_captured_row_step_takes_the_eager_steps(card, kind):
                 # 4 linear layers a layer and the LM head, 5 quantizes
                 # each: x row-major and w column-major forward, g in both
                 # orders from one read, w row-major and x column-major
-                # backward; 3 dequantizations each (forward, dgrad, wgrad)
+                # backward
                 "int8": {"q8_amax": 5 * 9, "q8_quantize": 2 * 9, "q8_quantize_cols_tma": 2 * 9,
-                         "q8_quantize_both_tma": 9, "q8_dequant": 3 * 9}}.get(kind, {})
-    # 2L + 1 rms norms and the q and k RoPEs of each layer, both ways; the
-    # recompute runs the blocks' norms and RoPEs forward again
-    again = 4 if case["remat"] else 0
-    per_step.update(rms_norm_fwd=5 + again, rms_norm_bwd=5, rope_fwd=4 + again, rope_bwd=4,
-                    adam_multi_tensor=1)  # every leaf is of one dtype: one Adam launch
-    if kind == "moe":  # the dispatch and the combine, once a layer each way
-        per_step.update(dict.fromkeys(MOE_KERNELS, case["layers"]))
+                         "q8_quantize_both_tma": 9}}.get(kind, {})
+    # the norms (with and without the residual), RoPE, SwiGLU, the int8
+    # dequantizations, the MoE dispatch and combine and Adam, as
+    # chip_smoke.py counts them a step
+    per_step.update(_smoke().fused_per_step(model_kind, case["layers"], case["remat"]))
     assert counts == {k: 5 * per_step.get(k, 0) for k in counts}
 
 
@@ -1111,55 +1121,43 @@ def test_guided_sweep_on_the_card_with_two_jobs_equals_the_serial_sweep(card):
     assert json.dumps(pooled, sort_keys=True) == json.dumps(serial, sort_keys=True)
 
 
-def _plain_norm_residual(x, w, add=None):
-    """The residual add and the plain rms norm, as the sharded step runs
-    them."""
-    from simumax_tpu_torch.torchref import model as M
-
-    s = x if add is None else x + add
-    return s, M._rms_norm(s, w)
-
-
 @pytest.mark.cuda
-def test_sharded_step_on_one_card_is_the_single_device_step(card, monkeypatch):
+def test_sharded_step_on_one_card_is_the_single_device_step(card):
     """On a 1 x 1 mesh (NCCL, one rank) the DTensor step with SP and FSDP
-    takes the losses and parameters bit for bit of the single-device step
-    run on the plain rms norm and RoPE it keeps, and runs no collective;
-    the single-device step on the norm and RoPE kernels takes losses
-    within 1e-3 of them (its rms norm backward sums in another order)."""
+    takes the losses and parameters bit for bit of the single-device step,
+    both on the norm, RoPE, SwiGLU and (``use_int8``) int8 kernels, and
+    runs no collective; its sharded step launches those kernels and no
+    plain version."""
     from simumax_tpu_torch.calibration.validate import CollectiveRecord
     from simumax_tpu_torch.torchref import model as M
     from simumax_tpu_torch.torchref import parallel as P
 
-    cfg = M.LlamaConfig(vocab_size=1024, hidden_size=256, head_num=4, kv_head_num=2,
-                        head_size=64, intermediate_size=512, layer_num=2)
-    params0 = M.init_params(cfg, seed=0, device=card)
-    ids = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(0))
-
-    def single():
-        params = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
+    ids = torch.randint(0, 1024, (1, 256), generator=torch.Generator().manual_seed(0))
+    for int8 in (False, True):
+        cfg = M.LlamaConfig(vocab_size=1024, hidden_size=256, head_num=4, kv_head_num=2,
+                            head_size=64, intermediate_size=512, layer_num=2, use_int8=int8)
+        params0 = M.init_params(cfg, seed=0, device=card)
+        one = M._map_tree(lambda t: t.detach().clone().requires_grad_(True), params0)
         init_opt, step = M.make_train_step(cfg)
-        opt = init_opt(params)
-        return params, [float(step(params, opt, (ids.to(card), ids.to(card)))[2])
-                        for _ in range(2)]
-
-    _fused, fused_losses = single()
-    with monkeypatch.context() as m:
-        m.setattr(M, "_norm", M._rms_norm)
-        m.setattr(M, "_norm_residual", _plain_norm_residual)
-        m.setattr(M, "rope", M._rope)
-        one, losses = single()
-    assert all(abs(a - b) <= 1e-3 * abs(b) for a, b in zip(fused_losses, losses))
-    with P.process_group("cuda"):
-        mesh = M.make_mesh(1, tp=1)
-        params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
-        init_opt, step = M.make_train_step(cfg, mesh=mesh, sp=True)
-        opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
-        with CollectiveRecord(mesh) as record:
-            got = [float(step(params, opt, batch)[2]) for _ in range(2)]
-        whole = [p.full_tensor() for p in M.param_leaves(params)]
-    assert got == losses and not record.entries
-    assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(M.param_leaves(one), whole))
+        opt = init_opt(one)
+        losses = [float(step(one, opt, (ids.to(card), ids.to(card)))[2]) for _ in range(2)]
+        with P.process_group("cuda"):
+            mesh = M.make_mesh(1, tp=1)
+            params = M.place_params(params0, mesh, M.param_shardings(cfg, mesh, fsdp=True))
+            init_opt, step = M.make_train_step(cfg, mesh=mesh, sp=True)
+            opt, batch = init_opt(params), M.shard_batch((ids, ids), mesh)
+            before = K.launch_counts()
+            with CollectiveRecord(mesh) as record:
+                got = [float(step(params, opt, batch)[2]) for _ in range(2)]
+            launched = K.take_launches(before)
+            whole = [p.full_tensor() for p in M.param_leaves(params)]
+        assert got == losses and not record.entries
+        assert all(torch.equal(a.detach(), b.detach())
+                   for a, b in zip(M.param_leaves(one), whole))
+        for key in ("rms_norm_fwd", "rms_norm_residual_fwd", "rms_norm_residual_bwd",
+                    "rope_fwd", "rope_bwd", "swiglu_step_fwd", "swiglu_step_bwd"):
+            assert launched[key] > 0, key
+        assert (launched["q8_amax"] > 0 and launched["q8_dequant"] > 0) is int8
 
 
 @pytest.mark.cuda
@@ -1541,10 +1539,10 @@ def test_moe_dispatch_kernels_raise_for_what_they_refuse(card):
 @pytest.mark.parametrize("probs", [False, True], ids=["weighted-combine", "dispatch_probs"])
 def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
     """The MoE layer on the card (top-4, tokens dropped), forward and
-    backward, launches each of the four kernels once, runs no
-    ``index_put`` and no op that syncs the host, and its output and
-    gradients repeat bit for bit; a whole model's loss and gradients
-    launch each once a layer."""
+    backward, launches each of the four kernels once (and the step-mode
+    SwiGLU once each way), runs no ``index_put`` and no op that syncs the
+    host, and its output and gradients repeat bit for bit; a whole
+    model's loss and gradients launch each once a layer."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from simumax_tpu_torch.torchref import moe_model as M
@@ -1572,7 +1570,8 @@ def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
             grads = torch.autograd.grad(out.float().square().sum(),
                                         [y, p["gate"], p["moe_up"], p["moe_down"]])
         assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
-                                     **dict.fromkeys(MOE_KERNELS, 1)}
+                                     **dict.fromkeys(MOE_KERNELS, 1),
+                                     "swiglu_step_fwd": 1, "swiglu_step_bwd": 1}
         assert {"sort", "searchsorted", "scatter_", "bmm"} <= rec.ops
         assert not rec.ops & {"index_put", "index_put_", "nonzero", "masked_select",
                               "_local_scalar_dense", "item"}

@@ -455,8 +455,8 @@ def test_moe_step_through_the_fused_ops_matches_jax(monkeypatch):
 
 
 def test_the_sharded_path_keeps_the_plain_functions(monkeypatch):
-    """``_rms_norm`` and ``_rope`` stay the plain forwards, which the
-    DTensor step takes; the single-device step takes the Functions."""
+    """``_rms_norm`` and ``_rope`` stay the plain forwards (the references
+    the kernels are held against); the step takes the Functions."""
     calls = _Calls(monkeypatch)
     (_jx, tx), (_jw, tw), _dy = _norm_inputs((4, 64), "fp32")
     TM._rms_norm(tx, tw)
