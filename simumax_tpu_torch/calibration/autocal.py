@@ -23,7 +23,9 @@ reduction that moves exactly its counted bytes, as the reference's fused
 one does: it prices every memory-bound op the model does not price
 otherwise, so it is the card's streaming rate, not one eager op's. Each
 other benchmark runs what the port's own step runs for its function (its
-eager ops; for the Adam update the CUDA kernel of ``csrc/adam.cu``), so
+eager ops; for the Adam update the CUDA kernel of ``csrc/adam.cu``; for
+the permute classes the MoE dispatch and combine kernels at the MoE
+row's layer, against the bytes the model charges them there), so
 where eager PyTorch moves more bytes than the model's traffic count (the
 cross-entropy's fp32 copy), the efficiency reads lower. :func:`with_retries` retries only a
 device OOM, where the reference retried every error: a failed kernel
@@ -50,7 +52,16 @@ from simumax_tpu_torch.core.errors import CalibrationError, CardRequiredError
 from simumax_tpu_torch.core.records import Diagnostics
 from simumax_tpu_torch.core.utils import cuda_flash_supported
 from simumax_tpu_torch.observe.report import get_reporter
-from simumax_tpu_torch.torchref.kernels import flash_attention, math_attention
+from simumax_tpu_torch.torchref.kernels import (
+    flash_attention,
+    math_attention,
+    moe_combine_bwd,
+    moe_combine_fwd,
+    moe_index,
+    moe_permute_bwd,
+    moe_permute_fwd,
+    moe_route_fwd,
+)
 from simumax_tpu_torch.torchref.model import adam_update, resolve_device
 from simumax_tpu_torch.torchref.quantized import OPERAND_ORDERS
 from simumax_tpu_torch.torchref.quantized import _mm as int8_mm
@@ -280,16 +291,16 @@ def measure_bandwidth_efficiency(
     package's traffic count for it: 'default' a streaming reduction of
     bf16 elements in fp32 (``elems * 2`` bytes; one kernel that reads
     each element once, as XLA's fused upcast and sum: the class prices
-    every memory-bound op the model prices no other way), 'permute_fwd'
-    a pseudo-random row gather (``rows * 1024 * 2``), 'permute_bwd' the
-    scatter-add that is its backward (3x that), 'ce' a log-softmax
-    cross-entropy over bf16 logits (``tokens * vocab * 4``, two passes
-    over the logits, as ``ParallelCE.op_accessed`` charges), 'fused_adam'
-    the Adam update (:func:`_measure_fused_adam`). The others run the
-    eager ops the port's step runs for that function: the MoE dispatch's
-    row gather, autograd's backward of a gather (``_index_put_impl_``
-    accumulating, its range check off), and the loss of
-    ``torchref/model.py``."""
+    every memory-bound op the model prices no other way), 'ce' a
+    log-softmax cross-entropy over bf16 logits (``tokens * vocab * 4``,
+    two passes over the logits, as ``ParallelCE.op_accessed`` charges),
+    'fused_adam' the Adam update (:func:`_measure_fused_adam`), the
+    others the ops the port's step runs for that function: the loss of
+    ``torchref/model.py``. 'permute_fwd' and 'permute_bwd' price the
+    MoE dispatch and combine of each phase, and time the kernels the
+    step runs for them at the MoE row's layer against the bytes the
+    model charges them there (:func:`_measure_permute`; ``nbytes`` does
+    not apply)."""
     if kind == "ce_fusion":
         raise CalibrationError(
             "ce_fusion is not measurable with the unfused CE benchmark "
@@ -298,24 +309,10 @@ def measure_bandwidth_efficiency(
         )
     if kind == "fused_adam":
         return _measure_fused_adam(peak_gbps, nbytes, device=device)
-    dev = _card(device)
     if kind.startswith("permute"):
-        rows = max(int(nbytes // (2 * 1024)), 16)
-        x = _test_array((rows, 1024), torch.bfloat16, dev)
-        stride = 104729  # prime: pseudo-random, deterministic row order
-        idx = (torch.arange(rows, device=dev) * stride) % rows
-        if kind == "permute_bwd":
-            def op():
-                return torch.ops.aten._index_put_impl_(
-                    torch.zeros_like(x), [idx], x, True, True)
-
-            traffic = 3 * rows * 1024 * 2
-        else:
-            def op():
-                return x[idx]
-
-            traffic = rows * 1024 * 2
-    elif kind.startswith("ce"):
+        return _measure_permute(kind, peak_gbps, device=device)
+    dev = _card(device)
+    if kind.startswith("ce"):
         tokens = max(int(nbytes // (vocab * 2)), 8)
         logits = _test_array((tokens, vocab), torch.bfloat16, dev)
         targets = torch.zeros((tokens, 1), dtype=torch.long, device=dev)
@@ -336,6 +333,72 @@ def measure_bandwidth_efficiency(
     with torch.no_grad():
         t = time_graph(op)
     return min(traffic / t / (peak_gbps * 1e9), 1.0)
+
+
+#: the card's L2 cache (an H100's 50 MB), which the permute classes'
+#: inputs are rotated through twice over
+_L2_BYTES = 50 * 2**20
+#: the layer the permute classes are timed at: the MoE row's
+#: (``bench_moe_0p4b``, seq 2048, mbs 1: 2048 tokens of hidden 1024, 8
+#: experts top-2, capacity factor 2, bf16)
+PERMUTE_LAYER = dict(tokens=2048, hidden=1024, experts=8, topk=2, capacity_factor=2.0)
+
+
+def permute_traffic() -> int:
+    """The bytes the analytical model charges one phase (forward, or the
+    activations' backward) of :data:`PERMUTE_LAYER`'s dispatch and
+    combine, both priced by the permute classes (``models/moe.py``:
+    ``Permutation`` twice its [tokens * topk * cf, hidden] output,
+    ``UnPermutation`` that input and its [tokens, hidden] output), in
+    bf16."""
+    layer = PERMUTE_LAYER
+    tokens, hidden = layer["tokens"], layer["hidden"]
+    permuted = int(tokens * layer["topk"] * layer["capacity_factor"]) * hidden * 2
+    return 2 * permuted + permuted + tokens * hidden * 2
+
+
+def _measure_permute(kind: str, peak_gbps: float, device="cuda") -> float:
+    """Measured efficiency of a permute class: the MoE dispatch and combine
+    kernels of one phase (``kernels.moe_permute_fwd`` and
+    ``moe_combine_fwd``, or ``moe_permute_bwd`` and ``moe_combine_bwd``:
+    what the MoE step launches for the ops the class prices) at
+    :data:`PERMUTE_LAYER`, routed by the port's route and index on
+    seeded logits, against :func:`permute_traffic`. Successive calls
+    take successive copies of the inputs, more of them than the L2 cache
+    holds twice, so each call reads them from device memory as the step
+    does (a product wrote them). The kernels move less than the model
+    charges (the permute reads the kept token rows once, not the whole
+    buffer), so the reading may exceed 1 and is clipped there."""
+    dev = _card(device)
+    t, h, e, k = (PERMUTE_LAYER[key] for key in ("tokens", "hidden", "experts", "topk"))
+    cap = int(PERMUTE_LAYER["capacity_factor"] * t * k / e)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = torch.randn(t, e, generator=gen, device=dev).to(torch.bfloat16)
+    w, topi = moe_route_fwd(logits, k)[:2]
+    idx = moe_index(topi.reshape(t * k), e, cap, k)
+    w = w.reshape(t * k)
+    copies = math.ceil(2 * _L2_BYTES / ((t + e * cap) * h * 2))
+    inputs = [(_test_array((t, h), torch.bfloat16, dev),
+               _test_array((e, cap, h), torch.bfloat16, dev)) for _ in range(copies)]
+    turn = [0]
+
+    def take():
+        turn[0] = (turn[0] + 1) % copies
+        return inputs[turn[0]]
+
+    if kind == "permute_bwd":
+        def op():
+            rows, buf = take()
+            moe_permute_bwd(buf, None, idx)
+            return moe_combine_bwd(rows, buf, w, idx)
+    else:
+        def op():
+            rows, buf = take()
+            moe_permute_fwd(rows, None, idx)
+            return moe_combine_fwd(buf, w, idx)
+    with torch.no_grad():
+        t_op = time_graph(op)
+    return min(permute_traffic() / t_op / (peak_gbps * 1e9), 1.0)
 
 
 def _measure_fused_adam(peak_gbps: float, nbytes: float = 256 * 2**20,

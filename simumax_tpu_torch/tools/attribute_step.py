@@ -70,7 +70,8 @@ WINDOW_PAD_S = 0.05
 #: the spin kernel (``torch.cuda._sleep``) that marks the end of the lead
 MARK = "spin_kernel"
 #: the name of one of the port's own CUDA kernels inside a trace's kernel name
-_OWN_KERNEL = re.compile(r"\w*(?:flash_|q8_|swiglu_|rms_norm_|rope_|moe_permute_|moe_combine_)\w*")
+_OWN_KERNEL = re.compile(r"\w*(?:flash_|q8_|swiglu_|rms_norm_|rope_|moe_permute_|moe_combine_|"
+                         r"moe_route_|moe_index_)\w*")
 TRACE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "build", "attribution")
 

@@ -21,10 +21,16 @@ dtype; ``cap = int(cf * T * k / e)``; a stable argsort by expert with
 1)`` and masks the dropped assignments.
 
 Every shape is static, so a step syncs the host nowhere and can be
-captured in a CUDA graph. The routing (the gate, top-k, the stable sort
-by expert and the segment starts) stays in PyTorch and hands four int64
-index tensors (``kernels.MoeIndex``) to the dispatch and the combine,
-which run as the CUDA kernels of ``csrc/moe_dispatch.cu`` on the card
+captured in a CUDA graph. The gate product stays a matmul (JAX leaves it
+to XLA outside any kernel); the route on its logits (the fp32 softmax,
+top-k, the renormalisation) runs as the CUDA kernels of
+``csrc/moe_route.cu`` on the card (``kernels.moe_route``, forward and
+backward), its softmax summed in a fixed order where the eager route
+took ATen's, so a probability may sit an ulp from the eager one's; the
+stable sort by expert, its inverse and the segment starts as one
+counting-sort kernel of the same file (``kernels.moe_index``). They hand
+four int64 index tensors (``kernels.MoeIndex``) to the dispatch and the
+combine, which run as the CUDA kernels of ``csrc/moe_dispatch.cu`` on the card
 (``kernels.moe_permute`` and ``moe_combine``, forward and backward) and
 as their plain versions on the CPU. The dispatch writes every row of the
 [e, cap, h] capacity buffer by one gather, zeros where no assignment
@@ -44,11 +50,12 @@ from typing import Any, Dict, Optional
 import torch
 
 from simumax_tpu_torch.torchref.kernels import (
-    MoeIndex,
     _moe_sorted,
     math_attention,
     moe_combine,
+    moe_index,
     moe_permute,
+    moe_route,
     rope,
     swiglu_step,
 )
@@ -150,24 +157,8 @@ def _routing(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):
     the combine take)."""
     b, s, h = y.shape
     T, e, k = b * s, cfg.expert_num, cfg.topk
-    logits = y.reshape(T, h) @ gate.to(y.dtype)
-    probs = torch.softmax(logits.float(), -1)
-    topv, topi = torch.topk(probs, k, dim=-1)
-    topw = (topv / (topv.sum(-1, keepdim=True) + 1e-9)).to(y.dtype)
-
+    topw, topi = moe_route(y.reshape(T, h) @ gate.to(y.dtype), k)
     return topw.reshape(T * k), moe_index(topi.reshape(T * k), e, _capacity(cfg, T), k)
-
-
-def moe_index(flat_e: torch.Tensor, experts: int, cap: int, k: int) -> MoeIndex:
-    """The :class:`~simumax_tpu_torch.torchref.kernels.MoeIndex` of the
-    assignments ``flat_e`` [T * k] (each token's k experts, token-major):
-    their stable sort by expert, its inverse, and where each expert's run
-    starts. Static shapes, no host sync."""
-    dev = flat_e.device
-    sorted_e, order = torch.sort(flat_e, stable=True)
-    seg = torch.searchsorted(sorted_e, torch.arange(experts + 1, device=dev))
-    inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=dev))
-    return MoeIndex(flat_e, order, inv, seg, cap, k)
 
 
 def route(y: torch.Tensor, gate: torch.Tensor, cfg: MoeConfig):

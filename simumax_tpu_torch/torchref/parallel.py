@@ -19,7 +19,10 @@ collectives of :mod:`simumax_tpu_torch.torchref.collectives`, over a
 
 SwiGLU goes through :func:`~simumax_tpu_torch.torchref.kernels.swiglu`
 and attention through the three flash kernels when the mesh is on the
-card; on the CPU both run their plain versions.
+card; the MoE gate's route through ``kernels.moe_route``, and the a2a
+layout's sort by destination, send buffer and combine through
+``kernels.moe_index_runs``, ``moe_permute`` and ``moe_combine``; on the
+CPU each runs its plain version.
 
 Gradients are JAX's. ``jax.value_and_grad`` over a ``shard_map`` with
 ``out_specs=P()`` and ``check_vma=False`` seeds every rank's loss with
@@ -57,7 +60,14 @@ import torch.nn.functional as F
 
 from simumax_tpu_torch.core.errors import CardRequiredError
 from simumax_tpu_torch.torchref import collectives as C
-from simumax_tpu_torch.torchref.kernels import attention, swiglu
+from simumax_tpu_torch.torchref.kernels import (
+    attention,
+    moe_combine,
+    moe_index_runs,
+    moe_permute,
+    moe_route,
+    swiglu,
+)
 
 AXES = ("pp", "ep", "dp", "tp")
 
@@ -322,12 +332,11 @@ def _stage_block(x, p, li, cfg: PPConfig, mesh, is_moe: bool):
 
 def _gate(y, p, li, cfg: PPConfig):
     """Shared top-k gating: (topi [T, k], topw [T, k]) with the weights
-    normalized over the selected experts."""
+    normalized over the selected experts (``kernels.moe_route``: the
+    route kernels on the card, their softmax summed in a fixed order)."""
     T = y.shape[0] * y.shape[1]
     gate_logits = y @ p["gate"][li].to(y.dtype)
-    probs = torch.softmax(gate_logits.reshape(T, cfg.expert_num).float(), -1)
-    topv, topi = torch.topk(probs, cfg.topk, dim=-1)
-    topw = (topv / (topv.sum(-1, keepdim=True) + 1e-9)).to(y.dtype)
+    topw, topi = moe_route(gate_logits.reshape(T, cfg.expert_num), cfg.topk)
     return topi, topw
 
 
@@ -336,39 +345,35 @@ def _moe_a2a_dispatch(y, p, li, cfg: PPConfig, mesh):
     goes to the expert's owner with ``all_to_all``, the owner runs its
     local experts on what it received, and the reverse ``all_to_all``
     brings the results back. Dropless (capacity = all assignments), so
-    it computes what the psum layout does."""
+    it computes what the psum layout does. The assignments are sorted
+    stably by destination rank by the index kernel
+    (``kernels.moe_index_runs``, which also writes each destination's run
+    of expert ids, -1 past its count), the send buffer (and the routing
+    weights' under ``dispatch_probs``) is written by the MoE permute and
+    the results come back through the MoE combine: its k rows of a token
+    weighted and summed in fp32 in the order j = 0 .. k - 1, where JAX's
+    scatter-add sums them in the activations' dtype."""
     b, s_loc, h = y.shape
     T, k = b * s_loc, cfg.topk
     ep = C.axis_size(mesh, "ep")
     e_local = cfg.expert_num // ep
     eidx = C.axis_index(mesh, "ep") * e_local
-    dev = y.device
 
     topi, topw = _gate(y, p, li, cfg)
-    yf = y.reshape(T, h)
     flat_e = topi.reshape(T * k)
     flat_w = topw.reshape(T * k)
-    flat_tok = torch.arange(T, device=dev).repeat_interleave(k)
-    dest = flat_e // e_local  # owning ep rank per assignment
-
-    # stable sort by destination; slot = index within the dest segment
-    order = torch.sort(dest, stable=True).indices
-    sorted_dest = dest[order]
-    seg_start = torch.searchsorted(sorted_dest, torch.arange(ep, device=dev))
-    slot = torch.arange(T * k, device=dev) - seg_start[sorted_dest]
     cap = T * k  # dropless capacity per destination row
-    where = (sorted_dest, slot)
-
-    send = torch.zeros((ep, cap, h), dtype=y.dtype, device=dev).index_put(
-        where, yf[flat_tok[order]])
-    send_e = torch.full((ep, cap), -1, dtype=torch.int32, device=dev).index_put(
-        where, flat_e[order].to(torch.int32))
+    # by owning ep rank: a slot is an assignment's place in its
+    # destination's run of the stable order
+    idx, send_e = moe_index_runs(flat_e // e_local, flat_e, ep, cap, k)
+    if cfg.dispatch_probs:
+        # the probs a2a of the analytical Permutation under dispatch_probs
+        send, send_w = moe_permute(y.reshape(T, h), flat_w, idx)
+    else:
+        send = moe_permute(y.reshape(T, h), None, idx)
     recv = C.all_to_all(send, mesh, "ep")
     recv_e = C.all_to_all(send_e, mesh, "ep").reshape(ep * cap)
     if cfg.dispatch_probs:
-        # the probs a2a of the analytical Permutation under dispatch_probs
-        send_w = torch.zeros((ep, cap), dtype=y.dtype, device=dev).index_put(
-            where, flat_w[order])
         recv_w = C.all_to_all(send_w, mesh, "ep")
 
     local_e = recv_e - eidx
@@ -386,10 +391,7 @@ def _moe_a2a_dispatch(y, p, li, cfg: PPConfig, mesh):
     out_tok = torch.einsum("eth,te->th", down, sel)
 
     back = C.all_to_all(out_tok.reshape(ep, cap, h), mesh, "ep")
-    vals = back[sorted_dest, slot]  # values in `order` ordering
-    if not cfg.dispatch_probs:
-        vals = vals * flat_w[order][:, None]
-    o = torch.zeros((T, h), dtype=y.dtype, device=dev).index_add(0, flat_tok[order], vals)
+    o = moe_combine(back, None if cfg.dispatch_probs else flat_w, idx)
     return o.reshape(b, s_loc, h)
 
 

@@ -56,20 +56,45 @@ def fixed_timers(monkeypatch):
     return ran
 
 
+def _moe_row_permute_traffic():
+    """{phase: bytes} the port's analytical model charges one MoE layer of
+    the MoE row for the ops the permute classes price (its
+    ``Permutation`` and ``UnPermutation``)."""
+    from simumax_tpu_torch.torchref import rows
+
+    perf = bench.predict_step(rows.build_moe_model(), "h100_sxm", kind="moe", layers=1)
+    ops = {type(m).__name__: m for m in perf.chunks[(0, 0)].leaves()
+           if type(m).__name__ in ("Permutation", "UnPermutation")}
+    assert all(m.bw_key(ph) == f"permute_{ph[:3]}" for m in ops.values()
+               for ph in ("fwd", "bwd_act"))
+    return {ph: sum(m.op_accessed()[ph] for m in ops.values()) for ph in ("fwd", "bwd_act")}
+
+
 @pytest.mark.parametrize("kind", CLASSES)
 def test_bandwidth_traffic_matches_jax(fixed_timers, kind):
     """Each class counts the JAX package's traffic: the same seconds give
-    the same efficiency (far below 1, so nothing is clipped)."""
+    the same efficiency (far below 1, so nothing is clipped). The permute
+    classes time the port's MoE dispatch and combine kernels at the MoE
+    row's layer against the bytes the port's model charges those ops
+    there, where the JAX package times a row gather of ``nbytes``."""
     gbps = get_system_config("h100_sxm").accelerator.bandwidth["default"].gbps
     got = autocal.measure_bandwidth_efficiency(kind, gbps, NBYTES)
     ref = jax_autocal.measure_bandwidth_efficiency(kind, gbps, NBYTES)
     assert 0 < got < 1e-3
-    assert got == pytest.approx(ref, rel=1e-12)
     out = fixed_timers[-1]
-    if kind == "permute_bwd":  # the gather's backward: the rows scattered back
-        x = autocal._test_array((NBYTES // 2048, 1024), torch.bfloat16, "cpu")
-        assert torch.equal(torch.sort(out.float(), dim=0).values,
-                           torch.sort(x.float(), dim=0).values)
+    if kind.startswith("permute"):
+        traffic = _moe_row_permute_traffic()["fwd" if kind == "permute_fwd" else "bwd_act"]
+        assert traffic == autocal.permute_traffic()
+        assert got == pytest.approx(traffic / SECONDS / (gbps * 1e9), rel=1e-12)
+        layer = autocal.PERMUTE_LAYER
+        t, h, e, k = layer["tokens"], layer["hidden"], layer["experts"], layer["topk"]
+        cap = int(layer["capacity_factor"] * t * k / e)
+        # the combine's output: its forward's token rows, its backward's
+        # capacity buffer and the routing weights' gradient
+        want = (t, h) if kind == "permute_fwd" else (e, cap, h)
+        assert tuple((out if kind == "permute_fwd" else out[0]).shape) == want
+    else:
+        assert got == pytest.approx(ref, rel=1e-12)
     if kind == "ce":  # the loss of torchref/model.py on the test logits
         assert out.dtype == torch.float32 and out.ndim == 0 and torch.isfinite(out)
 
@@ -88,13 +113,20 @@ def test_calibrate_bandwidth_classes_writes_what_jax_writes(fixed_timers):
     want = jax_autocal.calibrate_bandwidth_classes(ref, nbytes=NBYTES)
     assert list(got) == list(want) == ["default", "permute_fwd", "permute_bwd", "ce",
                                        "fused_adam"]
-    for key in want:
+    # the permute classes count the port's model's bytes at the MoE row's
+    # layer (test_bandwidth_traffic_matches_jax), every other class JAX's
+    same = [key for key in want if not key.startswith("permute")]
+    for key in same:
         assert got[key] == pytest.approx(want[key], rel=1e-12)
     for sysc in (port, ref):  # ce_fusion keeps its prior; fused_adam was added
         assert sysc.accelerator.bandwidth["ce_fusion"].efficient_factor == 0.75
-    assert {k: (v.gbps, v.efficient_factor) for k, v in port.accelerator.bandwidth.items()} \
+    assert {k: (v.gbps, v.efficient_factor) for k, v in port.accelerator.bandwidth.items()
+            if k not in got or k in same} \
         == pytest.approx({k: (v.gbps, v.efficient_factor)
-                          for k, v in ref.accelerator.bandwidth.items()})
+                          for k, v in ref.accelerator.bandwidth.items()
+                          if k not in want or k in same})
+    for key in ("permute_fwd", "permute_bwd"):
+        assert port.accelerator.bandwidth[key].efficient_factor == got[key]
 
 
 def test_calibrate_system_writes_a_config_that_loads_back(fixed_timers, tmp_path,

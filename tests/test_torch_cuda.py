@@ -240,7 +240,8 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
                             K.launch_counts())
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
     assert counts == {**dict.fromkeys(K.LAUNCHES, 0), "flash_fwd": 2, "flash_bwd_dq": 2,
-                      "flash_bwd_dkv": 2, "swiglu_fwd": 2, "swiglu_bwd": 2}
+                      "flash_bwd_dkv": 2, "swiglu_fwd": 2, "swiglu_bwd": 2,
+                      "moe_route_fwd": 1, "moe_route_bwd": 1}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -1461,6 +1462,7 @@ def test_the_steps_on_the_card_are_the_eager_ops_steps(card, kind, dtype, remat,
 # -- the MoE dispatch and combine -------------------------------------------------
 
 MOE_KERNELS = ("moe_permute_fwd", "moe_permute_bwd", "moe_combine_fwd", "moe_combine_bwd")
+ROUTE_KERNELS = ("moe_route_fwd", "moe_route_bwd", "moe_index")
 
 
 def _moe_inputs(card, tokens, h, e, k, cf, dtype, seed=9):
@@ -1539,10 +1541,12 @@ def test_moe_dispatch_kernels_raise_for_what_they_refuse(card):
 @pytest.mark.parametrize("probs", [False, True], ids=["weighted-combine", "dispatch_probs"])
 def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
     """The MoE layer on the card (top-4, tokens dropped), forward and
-    backward, launches each of the four kernels once (and the step-mode
-    SwiGLU once each way), runs no ``index_put`` and no op that syncs the
-    host, and its output and gradients repeat bit for bit; a whole
-    model's loss and gradients launch each once a layer."""
+    backward, launches each of the four dispatch kernels and the three
+    route and index kernels once (and the step-mode SwiGLU once each
+    way), runs no ``index_put``, sort, ``searchsorted``, top-k, softmax
+    or scatter and no op that syncs the host, and its output and
+    gradients repeat bit for bit; a whole model's loss and gradients
+    launch each once a layer."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from simumax_tpu_torch.torchref import moe_model as M
@@ -1570,11 +1574,12 @@ def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
             grads = torch.autograd.grad(out.float().square().sum(),
                                         [y, p["gate"], p["moe_up"], p["moe_down"]])
         assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0),
-                                     **dict.fromkeys(MOE_KERNELS, 1),
+                                     **dict.fromkeys(MOE_KERNELS + ROUTE_KERNELS, 1),
                                      "swiglu_step_fwd": 1, "swiglu_step_bwd": 1}
-        assert {"sort", "searchsorted", "scatter_", "bmm"} <= rec.ops
+        assert "bmm" in rec.ops
         assert not rec.ops & {"index_put", "index_put_", "nonzero", "masked_select",
-                              "_local_scalar_dense", "item"}
+                              "_local_scalar_dense", "item", "sort", "searchsorted", "scatter",
+                              "scatter_", "topk", "_softmax", "softmax", "argmax"}
         runs.append([out, *grads])
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -1582,5 +1587,142 @@ def test_the_moe_layer_runs_the_kernels_and_no_index_put(card, probs):
     ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0)).to(card)
     K.reset_launch_counts()
     torch.autograd.grad(M.loss_fn(params, (ids, ids), cfg), M.param_leaves(params))
-    assert {k: K.launch_counts()[k] for k in MOE_KERNELS} == dict.fromkeys(MOE_KERNELS,
-                                                                           cfg.layer_num)
+    assert {k: K.launch_counts()[k] for k in MOE_KERNELS + ROUTE_KERNELS} == dict.fromkeys(
+        MOE_KERNELS + ROUTE_KERNELS, cfg.layer_num)
+
+
+# -- the MoE route and index --------------------------------------------------------
+
+
+def _route_logits(card, tokens, e, dtype, ties, seed=11):
+    """Random logits on the card; with ``ties`` every odd column a copy of
+    the even one before it and each row's largest value in its first and
+    last columns."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(tokens, e, generator=gen, device=card)
+    if ties:
+        x[:, 1::2] = x[:, 0:e - e % 2:2]
+        x[:, 0] = x[:, -1] = x.max(-1).values + 1
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True], ids=["no-ties", "ties"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("tokens,e,k", [
+    (2048, 8, 2),     # the MoE row
+    (64, 4, 2), (256, 8, 4), (4096, 64, 6), (4096, 256, 8), (1024, 400, 8),
+    (77, 33, 3),      # e not a multiple of 32
+    (5, 512, 32),     # the kernels' limits
+    (3, 1, 1),
+])
+def test_moe_route_kernels_are_bit_identical_to_their_plain_versions(card, tokens, e, k, dtype,
+                                                                    ties):
+    """The route's forward (topw, topi, probs) and backward, each launched
+    once, bit for bit their plain versions on the card; topi the lower
+    index first among equal values."""
+    if ties and e < 2:
+        pytest.skip("a tie needs two experts")
+    x = _route_logits(card, tokens, e, dtype, ties)
+    g = torch.randn(tokens, k, generator=torch.Generator(device=card).manual_seed(12),
+                    device=card).to(dtype)
+    K.reset_launch_counts()
+    got = K.moe_route_fwd(x, k)
+    d = K.moe_route_bwd(g, got[2], got[1])
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_route_fwd": 1,
+                                 "moe_route_bwd": 1}
+    ref = K.moe_route_fwd_plain(x, k)
+    d_ref = K.moe_route_bwd_plain(g, ref[2], ref[1])
+    for name, a, b in zip(("topw", "topi", "probs", "d_logits"), (*got, d), (*ref, d_ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    if ties:
+        assert bool((got[1][:, 0] == 0).all() and (got[1][:, 1] == e - 1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", ["random", "all-on-one", "empty-experts"])
+@pytest.mark.parametrize("n,e", [(4096, 8), (600, 1), (600, 2), (600, 4), (8192, 64),
+                                 (32768, 256), (16384, 400), (65536, 512), (65536, 8),
+                                 (1000, 3)])
+def test_moe_index_kernel_equals_its_plain_version(card, n, e, keys):
+    """The counting sort: order, inv and seg (and the runs of values)
+    equal the plain version's (``torch.sort(stable=True)``,
+    ``searchsorted``, ``scatter_``), one launch each."""
+    gen = torch.Generator(device=card).manual_seed(13)
+    if keys == "all-on-one":
+        k_ = torch.full((n,), e // 2, dtype=torch.int64, device=card)
+    elif keys == "empty-experts":
+        k_ = torch.randint(0, max(e // 2, 1), (n,), generator=gen, device=card) * 2 % e
+    else:
+        k_ = torch.randint(0, e, (n,), generator=gen, device=card)
+    values = torch.randint(0, 1000, (n,), generator=gen, device=card)
+    K.reset_launch_counts()
+    idx = K.moe_index(k_, e, n // e + 3, 2)
+    idx_r, runs = K.moe_index_runs(k_, values, e, n // e + 3, 2)
+    assert K.launch_counts()["moe_index"] == 2
+    ref, runs_ref = K.moe_index_runs_plain(k_, values, e, n // e + 3, 2)
+    for a, b, c in zip(idx[:4], idx_r[:4], ref[:4]):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert torch.equal(runs, runs_ref)
+
+
+@pytest.mark.cuda
+def test_moe_route_kernels_raise_for_what_they_refuse(card):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.moe_route_fwd(torch.zeros(4, 8, device=card, dtype=torch.float16), 2)
+    with pytest.raises(ValueError, match="at most 512 experts"):
+        K.moe_route_fwd(torch.zeros(4, 513, device=card), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.moe_route_fwd(torch.zeros(8, 4, device=card).t(), 2)
+    with pytest.raises(ValueError, match="at most 512 experts"):
+        K.moe_index(torch.zeros(8, dtype=torch.int64, device=card), 513, 4, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probs", [False, True], ids=["weighted-combine", "dispatch_probs"])
+def test_the_a2a_dispatch_runs_the_kernels_and_no_index_put(card, probs):
+    """One a2a step of the manual-parallel model on the card (world 1)
+    launches the route, index, permute and combine kernels once a MoE
+    layer each way and records no sort, ``searchsorted``, ``index_add``,
+    top-k or softmax, and no more ``index_put`` calls than the psum
+    step (the embedding's backward, which takes the out-of-place
+    ``index_put`` while a dispatch mode records), and its loss is
+    finite."""
+    from collections import Counter
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from simumax_tpu_torch.torchref import parallel as T
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    ids = torch.randint(0, 512, (2, 128), generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for dispatch in ("psum", "a2a"):
+        cfg = T.PPConfig(vocab_size=512, hidden_size=128, head_num=2, head_size=64,
+                         intermediate_size=256, moe_ffn=128, expert_num=4, dtype=torch.float32,
+                         ep_dispatch=dispatch, dispatch_probs=probs and dispatch == "a2a")
+        with T.process_group("cuda"):
+            mesh = T.make_pp_mesh(1, pp=1, tp=1, ep=1, device="cuda")
+            params, specs = T.init_pp_params(cfg, mesh, torch.Generator().manual_seed(0))
+            K.reset_launch_counts()
+            with Record() as rec:
+                _new, loss = T.make_pp_train_step(cfg, mesh, lr=1.0)(specs)(params, ids, ids)
+            runs[dispatch] = (K.launch_counts(), rec.ops, float(loss))
+    counts, ops, loss = runs["a2a"]
+    assert {k: counts[k] for k in MOE_KERNELS + ROUTE_KERNELS} == dict.fromkeys(
+        MOE_KERNELS + ROUTE_KERNELS, 1)
+    assert not {op for op in ("sort", "searchsorted", "index_add", "index_add_", "topk",
+                              "_softmax") if ops[op]}, ops
+    psum_ops = runs["psum"][1]
+    assert ops["index_put"] <= psum_ops["index_put"] and ops["index_put_"] <= psum_ops[
+        "index_put_"], (ops, psum_ops)
+    assert math.isfinite(loss)
