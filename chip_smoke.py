@@ -122,9 +122,11 @@ Phases, each fatal on failure:
    to the lower index), the index over each case's topi and over ep 1, 2
    and 4 destination ranks with each destination's run of expert ids (the
    manual step's a2a); and time each at the MoE row's shape and at top-8
-   of 256 from CUDA graphs behind a spin kernel, beside its bound, its
-   plain version and, for the index, ``torch.sort(stable=True)`` (the
-   order alone; no single call computes the route);
+   of 256 (the index also at ep 4) from CUDA graphs behind a spin
+   kernel, beside its bound, its plain version, the route forward's and
+   the index's time before their redesign (recorded) and, for the index,
+   ``torch.sort(stable=True)`` (the order alone; no single call computes
+   the route);
 4. check the port's reference models on a small input: the flash path
    (the kernels) and the math path of the Llama give the same loss; the
    MoE reference (fp32) and the int8 Llama (``use_int8``) on the card
@@ -717,10 +719,18 @@ ROUTE_CASES = [
     ("ties, MoE row", 2048, 8, 2, "bfloat16", True, False),
     ("ties, top-8 of 400", 1024, 400, 8, "float32", True, False),
 ]
-#: phase 3f: (case, keys, destinations) of the index over ep destination
-#: ranks with each destination's run of expert ids (the manual step's a2a
-#: dispatch: seq 2048 top-2 a rank, 8 experts), ep 1, 2 and 4
-INDEX_RUNS_CASES = [("ep 1", 4096, 1), ("ep 2", 4096, 2), ("ep 4", 4096, 4)]
+#: phase 3f: (case, keys, destinations, timed) of the index over ep
+#: destination ranks with each destination's run of expert ids (the manual
+#: step's a2a dispatch: seq 2048 top-2 a rank, 8 experts), ep 1, 2 and 4
+#: (the one 10b runs, timed)
+INDEX_RUNS_CASES = [("ep 1", 4096, 1, False), ("ep 2", 4096, 2, False),
+                    ("ep 4", 4096, 4, True)]
+#: phase 3f: the redesigned kernels' ms before their redesign ("NVIDIA
+#: H100 80GB HBM3, 700.00 W", PERF.md's kernel table: the one-block index
+#: and the shuffled route forward of commit 44a39a0, its run J), logged
+#: beside this run's
+EARLIER_MS = {("moe_route_fwd", "MoE row"): 0.0028, ("moe_route_fwd", "top-8 of 256"): 0.0160,
+              ("moe_index", "MoE row"): 0.0124, ("moe_index", "top-8 of 256"): 0.2125}
 #: fp32 operations a token-expert pair of the route: the forward's
 #: subtraction, exp, addition and division (top-k's comparisons left out),
 #: the backward's product and subtraction
@@ -2202,6 +2212,26 @@ def route_bytes(tokens, e, k, el, n):
     }
 
 
+def route_timing(kernel, case_name, need, t_kernel, t_plain, t_lib):
+    """Phase 3f's record of one timed call of a route or index kernel:
+    its ms beside its bound from ``need`` (bytes, fp32 operations), its
+    plain version's, the library call's (or None) and
+    :data:`EARLIER_MS`'s (or None); logged."""
+    nbytes, ops = need
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
+    b_ms = max(t_bytes, t_ops) * 1e3
+    b_by = "bytes" if t_bytes >= t_ops else "operations"
+    earlier = EARLIER_MS.get((kernel, case_name))
+    log(f"time {kernel} [{case_name}]: kernel {t_kernel:.4f} ms"
+        + (f" (before the redesign {earlier:.4f} ms)" if earlier is not None else "")
+        + f", {b_ms / t_kernel:.1%} of its bound {b_ms:.6f} ms ({b_by}: {nbytes / 1e6:.3f} MB, "
+        f"{ops / 1e6:.3f} M fp32 operations); plain {t_plain:.4f} ms; library "
+        + (f"{t_lib:.4f} ms (torch.sort(stable=True): the order alone)"
+           if t_lib is not None else "none"))
+    return {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "library_ms": t_lib, "earlier_ms": earlier}
+
+
 def equal_outputs(torch, got, ref):
     """The number of elements of got that differ from ref, tensor by
     tensor (None where both are equal bit for bit in dtype and shape)."""
@@ -2222,14 +2252,17 @@ def check_moe_route(K):
     bit for bit, at :data:`ROUTE_CASES` (the index over each case's topi)
     and :data:`INDEX_RUNS_CASES` (over ep destination ranks, with each
     destination's run of expert ids); each kernel launched once a call.
-    Timed at the MoE row's shape and at 4096 tokens top-8 of 256, replayed
-    from CUDA graphs behind a spin kernel with the inputs rotated through
-    more than the L2 cache holds, beside its bound (bytes at 3.35 TB/s or
-    fp32 operations at 67 TFLOP/s, the larger), its plain version and, for
-    the index, ``torch.sort(stable=True)`` of the same keys (a yardstick
-    the port never calls: it computes the order alone, not its inverse or
-    the segment starts). No single PyTorch call computes the route.
-    Returns ({kernel: row of the kernel table}, [per-case records])."""
+    Timed at the MoE row's shape and at 4096 tokens top-8 of 256 (the
+    index also at the ep 4 dispatch, with its runs), replayed from CUDA
+    graphs behind a spin kernel with the inputs rotated through more than
+    the L2 cache holds, beside its bound (bytes at 3.35 TB/s or fp32
+    operations at 67 TFLOP/s, the larger), its plain version, its time
+    before the redesign (:data:`EARLIER_MS`, recorded, not measured here)
+    and, for the index, ``torch.sort(stable=True)`` of the same keys (a
+    yardstick the port never calls: it computes the order alone, not its
+    inverse or the segment starts). No single PyTorch call computes the
+    route. Returns ({kernel: row of the kernel table}, [per-case
+    records])."""
     import torch
 
     from simumax_tpu_torch.calibration.timing import time_graph
@@ -2292,27 +2325,17 @@ def check_moe_route(K):
                 t_plain = ms(lambda: call(getattr(K, f"{kernel}_plain")))
                 t_lib = ms(lambda: torch.sort(rk(), stable=True)) if kernel == "moe_index" \
                     else None
-                nbytes, ops = need[kernel]
-                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["float32"]
-                b_ms = max(t_bytes, t_ops) * 1e3
-                b_by = "bytes" if t_bytes >= t_ops else "operations"
-                log(f"time {kernel} [{case_name}]: kernel {t_kernel:.4f} ms, "
-                    f"{b_ms / t_kernel:.1%} of its bound {b_ms:.4f} ms ({b_by}: "
-                    f"{nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} M fp32 operations); plain "
-                    f"{t_plain:.4f} ms; library "
-                    + (f"{t_lib:.4f} ms (torch.sort(stable=True): the order alone)"
-                       if t_lib is not None else "none"))
-                rec["timed"][kernel] = {"ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                                        "bound_by": b_by, "bytes": nbytes, "library_ms": t_lib}
+                rec["timed"][kernel] = route_timing(kernel, case_name, need[kernel], t_kernel,
+                                                    t_plain, t_lib)
                 if case_name == "MoE row":
                     table[kernel] = {**{key: rec["timed"][kernel][key] for key in (
-                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-                        "max_abs_err": 0.0}  # every case equal bit for bit
+                        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                        "earlier_ms")}, "max_abs_err": 0.0}  # every case equal bit for bit
             del rx, rg, rp, rk
         records.append(rec)
         del x, g, got, d, ref, d_ref, idx, idx_ref
         torch.cuda.empty_cache()
-    for case_name, n, ep in INDEX_RUNS_CASES:
+    for case_name, n, ep, timed in INDEX_RUNS_CASES:
         e_local = 8 // ep
         flat_e = torch.randint(0, 8, (n,), generator=gen, device="cuda")
         dest = flat_e // e_local
@@ -2327,7 +2350,21 @@ def check_moe_route(K):
         log(f"check moe index [{case_name}: {n} assignments over {ep} destination ranks]: "
             f"order, inv, seg and each destination's run of expert ids equal their plain "
             f"versions bit for bit")
-        records.append({"case": case_name, "keys": n, "destinations": ep})
+        rec = {"case": case_name, "keys": n, "destinations": ep}
+        if timed:
+            rd = rotating(lambda: dest.clone(), n * 8)
+            rv = rotating(lambda: flat_e.clone(), n * 8)
+
+            def call(f):
+                return f(rd(), rv(), ep, n, 2)
+
+            need = (n * 8 * 2 + 2 * n * 8 + (ep + 1) * 8 + ep * n * 4, 0)
+            rec["timed"] = {"moe_index": route_timing(
+                "moe_index", case_name, need, ms(lambda: call(K.moe_index_runs)),
+                ms(lambda: call(K.moe_index_runs_plain)),
+                ms(lambda: torch.sort(rd(), stable=True)))}
+            del rd, rv
+        records.append(rec)
     log("library_ms: none for the route (no single PyTorch call computes the softmax, top-k "
         "and renormalisation); torch.sort(stable=True) for the index")
     return table, records

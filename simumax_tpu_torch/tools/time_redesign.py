@@ -1,11 +1,12 @@
-"""The fp32 flash-attention kernels, the ragged int8 quantize or the rms
-norm's backward against another commit's, on the same calls.
+"""The fp32 flash-attention kernels, the ragged int8 quantize, the rms
+norm's backward or the MoE route's forward and index against another
+commit's, on the same calls.
 
 The baseline is the source ``csrc/flash_attn.cu`` (``--kernels flash``,
-the default), ``csrc/quant8.cu`` (``--kernels q8``) or
-``csrc/rms_norm.cu`` (``--kernels norm``) of another commit, built here
-with the port's nvcc flags into ``build/baseline/`` and loaded beside the
-current kernels.
+the default), ``csrc/quant8.cu`` (``--kernels q8``),
+``csrc/rms_norm.cu`` (``--kernels norm``) or ``csrc/moe_route.cu``
+(``--kernels route``) of another commit, built here with the port's nvcc
+flags into ``build/baseline/`` and loaded beside the current kernels.
 
 Flash: the baseline's entry points are those of commit 2f9d7b8:
 ``flash_fwd`` with the kv split (dtype, d, q, k, v, o, lse, b*h, sq, skv,
@@ -52,6 +53,22 @@ largest share of that limit, in bf16 ulps and absolute, is reported.
 Each row reports both shares of the bound (x and dy read, dx written, w,
 rstd and dw besides, over 3.35 TB/s) and their ratio.
 
+route: the baseline's ``moe_route_fwd`` and ``moe_index`` entry points
+are the current ones (those of commit 44a39a0, whose index ran on one
+block and whose route summed through shuffles). At ``ROUTE_CASES`` (the
+MoE row's [2048, 8] top-2, and [4096, 256] and [4096, 384] top-8, bf16:
+the kernel's sorted lane keys and its tree of them) the route's
+forward, and the index over each route case's assignments and at
+``INDEX_RUNS_CASE`` (the manual step's ep 4 dispatch: 4096 keys over 4
+destinations with their runs of expert ids), are timed in the
+same turns from CUDA graph replays (``calibration.timing.time_graph``),
+each captured call taking the next of copies of its inputs that exceed
+twice the L2 cache, as ``chip_smoke.py``'s phase 3f times them; every
+output must equal the baseline's bit for bit. Each row reports its bound
+(bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s for the route,
+the larger), both shares of it, and for the index
+``torch.sort(stable=True)`` of the same keys, timed the same way.
+
 Usage. Write the baseline's source where git is (the card's machine has
 no repository), then run on the card::
 
@@ -63,6 +80,9 @@ no repository), then run on the card::
     python -m simumax_tpu_torch.tools.time_redesign --kernels norm --extract fd7ecb3
     python -m simumax_tpu_torch.tools.time_redesign --kernels norm \\
         --baseline build/baseline/fd7ecb3
+    python -m simumax_tpu_torch.tools.time_redesign --kernels route --extract 44a39a0
+    python -m simumax_tpu_torch.tools.time_redesign --kernels route \\
+        --baseline build/baseline/44a39a0
 
 Prints one JSON object and writes it to ``--out`` when given.
 """
@@ -80,7 +100,8 @@ import torch
 
 from simumax_tpu_torch.torchref import kernels as K
 
-SOURCES = {"flash": "flash_attn.cu", "q8": "quant8.cu", "norm": "rms_norm.cu"}
+SOURCES = {"flash": "flash_attn.cu", "q8": "quant8.cu", "norm": "rms_norm.cu",
+           "route": "moe_route.cu"}
 FP32_CASES = {"fp32, 16 kv blocks": dict(b=1, s=1024, h=2, d=64, causal=True),
               "fp32 full width": dict(b=1, s=2048, h=16, d=128, causal=True)}
 RTOL = 1e-4
@@ -96,6 +117,16 @@ NORM_CASES = [("dense rows", 2048, 2048, torch.bfloat16),
               ("Llama3-8B width", 2048, 4096, torch.bfloat16),
               ("Llama3-70B width", 2048, 8192, torch.bfloat16)]
 RTOL_NORM = 1e-6
+#: (case, tokens, experts, k) of the route rows, bf16 logits
+ROUTE_CASES = [("MoE row", 2048, 8, 2), ("top-8 of 256", 4096, 256, 8),
+               ("top-8 of 384", 4096, 384, 8)]
+#: (case, keys, destinations) of the index row with runs of expert ids:
+#: the manual step's ep 4 dispatch (seq 2048 top-2 over 8 experts)
+INDEX_RUNS_CASE = ("ep 4", 4096, 4)
+PEAK_FP32_FLOPS = 67e12  # H100 SXM datasheet, outside the tensor cores
+#: fp32 operations a token-expert pair of the route's forward (as
+#: ``chip_smoke.ROUTE_FLOPS``)
+ROUTE_FWD_FLOPS = 4
 #: backwards a norm sample times back to back (each launch's own start
 #: amortised, as in a step and in ``chip_smoke.py``'s graph timings)
 NORM_CALLS = 10
@@ -103,7 +134,7 @@ L2_BYTES = 50 * 2 ** 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: the baseline's entry points: the flash kernels' of 2f9d7b8, the
-#: quantize's of f51bffb
+#: quantize's of f51bffb, the norm's of fd7ecb3, the route's of 44a39a0
 BASELINE_ARGTYPES = {
     "flash": {
         "flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P, _P],
@@ -112,6 +143,8 @@ BASELINE_ARGTYPES = {
     },
     "q8": {"q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P]},
     "norm": {"rms_norm_bwd": [_I] + [_P] * 7 + [_L, _I, _I, _P]},
+    "route": {"moe_route_fwd": [_I] + [_P] * 4 + [_L, _I, _I, _P],
+              "moe_index": [_P] * 6 + [_L, _I, _I, _P]},
 }
 
 
@@ -375,6 +408,118 @@ def norm_rows(lib) -> dict:
     return out
 
 
+def graph_turns(new, old) -> dict:
+    """``turns`` of two calls from CUDA graph replays (``time_graph``)."""
+    from simumax_tpu_torch.calibration.timing import time_graph
+
+    def ms(fn):
+        return time_graph(fn) * 1e3
+
+    t = [ms(new), ms(old), ms(old), ms(new)]
+    return {"new_ms": (t[0] + t[3]) / 2, "baseline_ms": (t[1] + t[2]) / 2, "turns_ms": t}
+
+
+def rotated_copies(t) -> list:
+    """Copies of t exceeding twice the L2 cache."""
+    return [t.clone() for _ in range(max(1, -(-2 * L2_BYTES // (t.numel() * t.element_size()))))]
+
+
+def cycle(copies):
+    """A call that returns the next of ``copies`` each time."""
+    state = {"i": 0}
+
+    def pick():
+        state["i"] = (state["i"] + 1) % len(copies)
+        return copies[state["i"]]
+
+    return pick
+
+
+def _shares(rec: dict, nbytes: int, ops: int) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    rec.update(bytes=nbytes, bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec.update(new_share=rec["bound_ms"] / rec["new_ms"],
+               baseline_share=rec["bound_ms"] / rec["baseline_ms"],
+               speedup=rec["baseline_ms"] / rec["new_ms"])
+    return rec
+
+
+def route_rows(lib) -> dict:
+    """The route's forward at :data:`ROUTE_CASES` and the index over
+    their assignments and at :data:`INDEX_RUNS_CASE`, the current kernels
+    against the baseline's, on the same inputs."""
+    from simumax_tpu_torch.calibration.timing import time_graph
+
+    out = {}
+    new_lib = K._lib("moe_route")
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+
+    def stream():  # the capturing stream inside a capture
+        return torch.cuda.current_stream().cuda_stream
+
+    def index_row(label, keys, values, e, cap):
+        n = keys.numel()
+        bufs = {w: (torch.empty(n, dtype=torch.int64, device="cuda"),
+                    torch.empty(n, dtype=torch.int64, device="cuda"),
+                    torch.empty(e + 1, dtype=torch.int64, device="cuda"),
+                    None if values is None else
+                    torch.empty(e, cap, dtype=torch.int32, device="cuda")) for w in "nb"}
+        rk = cycle(rotated_copies(keys))
+        rv = cycle(rotated_copies(values)) if values is not None else (lambda: None)
+
+        def call(which, k_, v_):
+            order, inv, seg, runs = bufs[which]
+            lib_ = new_lib if which == "n" else lib
+            checked(f"{which} moe_index", lib_.moe_index(
+                k_.data_ptr(), K._ptr(v_), order.data_ptr(), inv.data_ptr(), seg.data_ptr(),
+                K._ptr(runs), n, e, cap, stream()))
+
+        call("n", keys, values)
+        call("b", keys, values)
+        torch.cuda.synchronize()
+        if not all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(bufs["n"], bufs["b"])):
+            raise AssertionError(f"moe_index [{label}]: the kernels' outputs differ")
+        rec = {"keys": n, "experts": e, "runs": values is not None,
+               **graph_turns(lambda: call("n", rk(), rv()), lambda: call("b", rk(), rv())),
+               "torch_sort_ms": time_graph(lambda: torch.sort(rk(), stable=True)) * 1e3}
+        nbytes = n * 8 * 3 + (e + 1) * 8 + (n * 8 + e * cap * 4 if values is not None else 0)
+        out[f"moe_index [{label}]"] = _shares(rec, nbytes, 0)
+
+    for label, tokens, e, k in ROUTE_CASES:
+        x = torch.randn(tokens, e, generator=gen, device="cuda").to(torch.bfloat16)
+        bufs = {w: (torch.empty(tokens, k, dtype=torch.bfloat16, device="cuda"),
+                    torch.empty(tokens, k, dtype=torch.int64, device="cuda"),
+                    torch.empty(tokens, e, device="cuda")) for w in "nb"}
+        rx = cycle(rotated_copies(x))
+
+        def route(which, x_, k=k, bufs=bufs):
+            topw, topi, probs = bufs[which]
+            lib_ = new_lib if which == "n" else lib
+            checked(f"{which} moe_route_fwd", lib_.moe_route_fwd(
+                1, x_.data_ptr(), topw.data_ptr(), topi.data_ptr(), probs.data_ptr(),
+                x_.shape[0], x_.shape[1], k, stream()))
+
+        route("n", x)
+        route("b", x)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(bufs["n"], bufs["b"])):
+            raise AssertionError(f"moe_route_fwd [{label}]: the kernels' outputs differ")
+        rec = {"tokens": tokens, "experts": e, "k": k, "dtype": "bfloat16",
+               **graph_turns(lambda: route("n", rx()), lambda: route("b", rx()))}
+        nbytes = tokens * e * 2 + tokens * k * (2 + 8) + tokens * e * 4
+        out[f"moe_route_fwd [{label}]"] = _shares(rec, nbytes, ROUTE_FWD_FLOPS * tokens * e)
+        keys = bufs["n"][1].reshape(-1).clone()
+        index_row(label, keys, None, e, int(2.0 * tokens * k / e))
+        del x, bufs, rx, keys
+        torch.cuda.empty_cache()
+    label, n, ep = INDEX_RUNS_CASE
+    flat_e = torch.randint(0, 8, (n,), generator=gen, device="cuda")
+    index_row(label, flat_e // (8 // ep), flat_e, ep, n)
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels", choices=sorted(SOURCES), default="flash",
@@ -400,8 +545,10 @@ def main(argv=None) -> dict:
         result["flash_fp32"] = flash_rows(lib)
     elif args.kernels == "q8":
         result["q8"] = q8_rows(lib)
-    else:
+    elif args.kernels == "norm":
         result["norm"] = norm_rows(lib)
+    else:
+        result["route"] = route_rows(lib)
     print(json.dumps(result))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

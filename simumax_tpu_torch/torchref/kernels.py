@@ -85,7 +85,8 @@ its sum in a fixed order, top-k with ties to the lower index, the
 weights renormalised with ``+ 1e-9``), ``moe_route_bwd_kernel`` (its
 gradient) and ``moe_index_kernel`` (a stable counting sort of the
 assignments by expert: the order, its inverse and the segment starts,
-no atomics), in ``csrc/moe_route.cu``, wrapped by
+spread over the SMs in one launch, no atomic deciding a place), in
+``csrc/moe_route.cu``, wrapped by
 :func:`moe_route_fwd`, :func:`moe_route_bwd`, the autograd Function
 :func:`moe_route`, :func:`moe_index` and :func:`moe_index_runs` (the
 same launch writing each destination's run of expert ids). Bound by
@@ -2222,10 +2223,11 @@ def moe_index(keys, experts: int, cap: int, k: int) -> MoeIndex:
     """The :class:`MoeIndex` of the assignments ``keys`` [T * k] (each
     token's k experts, token-major, in [0, experts)): their stable sort by
     expert, its inverse and where each expert's run starts. Static shapes,
-    no host sync. Launches ``moe_index_kernel`` (a counting sort, no
-    atomics) for a CUDA tensor (contiguous, at most 512 experts), equal
-    to :func:`moe_index_plain` (integers: the stable sort by definition),
-    which runs for a CPU tensor."""
+    no host sync. Launches ``moe_index_kernel`` (a counting sort over up
+    to one block an SM, whose atomics only count) for a CUDA tensor
+    (contiguous, at most 512 experts), equal to :func:`moe_index_plain`
+    (integers: the stable sort by definition), which runs for a CPU
+    tensor."""
     _check_index("moe_index", keys, experts, cap, k)
     if keys.device.type == "cpu":
         return moe_index_plain(keys, experts, cap, k)

@@ -1667,6 +1667,116 @@ def test_moe_index_kernel_equals_its_plain_version(card, n, e, keys):
     assert torch.equal(runs, runs_ref)
 
 
+def _edge_keys(case, card):
+    """(keys, experts) of an index edge case: n about one chunk of the
+    kernel (a tile of 1024 keys a block while the tiles fit one a SM) and
+    below it, several tiles a block, a chunk without a key, descending
+    keys, every key in the last expert, e = 1 and e = 512."""
+    gen = torch.Generator(device=card).manual_seed(17)
+    n, e = {"chunk-1": (1023, 8), "chunk": (1024, 8), "chunk+1": (1025, 8),
+            "below-a-chunk": (100, 8), "two-chunks+1": (2049, 64),
+            "several-tiles-a-block": (300000, 256), "a-chunk-without-a-key": (4096, 8),
+            "descending": (5000, 64), "all-in-the-last": (3000, 16), "e-1": (2049, 1),
+            "e-512": (40000, 512)}[case]
+    keys = torch.randint(0, e, (n,), generator=gen, device=card)
+    if case == "a-chunk-without-a-key":  # keys 1024 .. 2047 hold no 0 and no 5
+        keys[1024:2048] = torch.tensor([1, 2, 3, 4, 6, 7], device=card)[keys[1024:2048] % 6]
+    elif case == "descending":
+        keys = keys.sort(descending=True).values
+    elif case == "all-in-the-last":
+        keys.fill_(e - 1)
+    return keys, e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", ["at-most-count", "below-count"])
+@pytest.mark.parametrize("case", ["chunk-1", "chunk", "chunk+1", "below-a-chunk", "two-chunks+1",
+                                  "several-tiles-a-block", "a-chunk-without-a-key",
+                                  "descending", "all-in-the-last", "e-1", "e-512"])
+def test_moe_index_kernel_at_its_chunk_edges_equals_its_plain_version(card, case, cap):
+    """The counting sort spread over the SMs at the edges of its chunks
+    (each block's whole tiles), and runs whose cap is above every key's
+    count or below the largest: order, inv, seg and runs equal the plain
+    version's, one launch a call."""
+    keys, e = _edge_keys(case, card)
+    n = keys.numel()
+    most = int(torch.bincount(keys, minlength=e).max())
+    c = most + 3 if cap == "at-most-count" else max(1, most // 2)
+    values = torch.randint(0, 1000, (n,), generator=torch.Generator(device=card).manual_seed(18),
+                           device=card)
+    K.reset_launch_counts()
+    idx = K.moe_index(keys, e, c, 1)
+    idx_r, runs = K.moe_index_runs(keys, values, e, c, 1)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_index": 2}
+    ref, runs_ref = K.moe_index_runs_plain(keys, values, e, c, 1)
+    for a, b, r in zip(idx[1:4], idx_r[1:4], ref[1:4]):
+        assert torch.equal(a, r) and torch.equal(b, r)
+    assert torch.equal(runs, runs_ref)
+
+
+@pytest.mark.cuda
+def test_moe_index_kernel_captured_in_a_graph_replays_as_eager(card):
+    """moe_index_runs captured in a CUDA graph on a static key buffer:
+    each replay, after new keys are copied in, equals the eager call on
+    those keys (and so the plain version)."""
+    gen = torch.Generator(device=card).manual_seed(19)
+    n, e, cap = 32768, 256, 200
+    static_k = torch.randint(0, e, (n,), generator=gen, device=card)
+    static_v = torch.randint(0, 1000, (n,), generator=gen, device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.moe_index_runs(static_k, static_v, e, cap, 8)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        idx, runs = K.moe_index_runs(static_k, static_v, e, cap, 8)
+    for seed in range(3):
+        g = torch.Generator(device=card).manual_seed(100 + seed)
+        static_k.copy_(torch.randint(0, e - seed * 100, (n,), generator=g, device=card))
+        static_v.copy_(torch.randint(0, 1000, (n,), generator=g, device=card))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager, eager_runs = K.moe_index_runs(static_k, static_v, e, cap, 8)
+        ref, ref_runs = K.moe_index_runs_plain(static_k, static_v, e, cap, 8)
+        for a, b, r in zip(idx[1:4], eager[1:4], ref[1:4]):
+            assert torch.equal(a, b) and torch.equal(a, r)
+        assert torch.equal(runs, eager_runs) and torch.equal(runs, ref_runs)
+
+
+#: (experts, k) of the route's forward cases: every e of the kernel's
+#: instances and their edges, each k up to 32 that e takes
+ROUTE_FWD_CASES = [(e, k) for e in (8, 33, 64, 160, 256, 400, 512) for k in (1, 2, 8, 32)
+                   if k <= e]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["random", "ties", "underflow"])
+@pytest.mark.parametrize("e,k", ROUTE_FWD_CASES, ids=[f"e{e}-k{k}" for e, k in ROUTE_FWD_CASES])
+def test_moe_route_forward_selection_is_bit_identical_to_its_plain_version(card, e, k, rows):
+    """The route's forward (topw, topi, probs) bit for bit its plain
+    version's, one launch a call: rows with exact ties (the lower index
+    first) and rows whose smallest probabilities underflow to +0 (top-k
+    then takes +0 entries, lowest index first, never a taken one), in
+    bf16 and fp32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _route_logits(card, 96, e, dtype, rows == "ties", seed=e * 100 + k)
+        if rows == "underflow":  # about three quarters of each row's logits far below its max
+            far = torch.rand(96, e, generator=torch.Generator(device=card).manual_seed(e + k),
+                             device=card) < 0.75
+            far[:, 0] = False
+            x = torch.where(far, x.float() - 300, x.float()).to(dtype)
+        K.reset_launch_counts()
+        got = K.moe_route_fwd(x, k)
+        assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_route_fwd": 1}
+        ref = K.moe_route_fwd_plain(x, k)
+        for name, a, b in zip(("topw", "topi", "probs"), got, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, b), (name, dtype, int((a != b).sum()))
+        if rows == "underflow":
+            assert bool((got[2] == 0).any())
+
+
 @pytest.mark.cuda
 def test_moe_route_kernels_raise_for_what_they_refuse(card):
     with pytest.raises(TypeError, match="float32 or bfloat16"):

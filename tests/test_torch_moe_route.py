@@ -352,3 +352,76 @@ def test_route_ties_tool_counts_only_tied_tokens_apart():
     assert got["tokens"] == 64 and got["tokens_tied"] == 64
     assert got["tokens_topi_differ"] == got["of_them_tied_logits"]
     assert got["topw_max_ulps_same_topi"] <= 1.0
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("tokens,e,k", [(8, 8, 2), (16, 33, 32), (16, 64, 8)])
+def test_route_forward_takes_underflowed_probabilities_as_jax_does(tokens, e, k, dtype):
+    """Rows whose logits lie mostly far below their max, so that their
+    probabilities underflow to +0 and top-k has to take some of them:
+    ``topi`` equals ``jax.lax.top_k``'s (the +0 entries in index order,
+    none taken twice), ``topw`` as in :func:`test_route_forward_matches_jax`."""
+    a, _jl, _tl = _logits(tokens, e, dtype, seed=7)
+    far = np.random.RandomState(8).rand(tokens, e) < 0.75
+    far[:, 0] = False
+    a = np.where(far, a - 300, a).astype(np.float32)
+    jl = jnp.asarray(a, DTYPES[dtype][0])
+    tl = torch.tensor(a).to(DTYPES[dtype][1])
+    jw, ji = _jax_route(jl, k, dtype)
+    with torch.no_grad():
+        topw, topi = K.moe_route(tl, k)
+        probs = K.moe_route_fwd_plain(tl, k)[2]
+    assert bool((probs == 0).any())
+    assert np.array_equal(topi.numpy(), np.asarray(ji))
+    assert all(len(set(row)) == k for row in topi.tolist())
+    ref = torch.tensor(np.asarray(jw.astype(jnp.float32))).to(tl.dtype)
+    if dtype == "fp32":
+        assert float((topw - ref).abs().max()) <= 1e-6
+    else:
+        assert bool(((topw.float() - ref.float()).abs() <= _ulps(ref)).all())
+
+
+@pytest.mark.parametrize("case", ["no-baseline", "no-card", "unknown-kernels", "extract",
+                                  "entry-points"])
+def test_time_redesign_takes_the_route_kernels(case, tmp_path, monkeypatch, capsys):
+    """``tools/time_redesign --kernels route``: the parent's
+    ``csrc/moe_route.cu`` is what ``--extract`` writes and the baseline's
+    entry points are bound as the port binds its own; without
+    ``--baseline``, without a card or with an unknown set of kernels it
+    stops before building anything."""
+    from simumax_tpu_torch.tools import time_redesign as TR
+
+    def no_build(*_a, **_k):
+        raise AssertionError("nothing may be built")
+
+    monkeypatch.setattr(TR, "build_baseline", no_build)
+    if case == "no-baseline":
+        with pytest.raises(SystemExit, match="--baseline"):
+            TR.main(["--kernels", "route"])
+    elif case == "no-card":
+        monkeypatch.setattr(TR.torch.cuda, "is_available", lambda: False)
+        with pytest.raises(SystemExit, match="needs a CUDA card"):
+            TR.main(["--kernels", "route", "--baseline", str(tmp_path)])
+    elif case == "unknown-kernels":
+        with pytest.raises(SystemExit) as exc:
+            TR.main(["--kernels", "routes", "--baseline", str(tmp_path)])
+        assert exc.value.code == 2
+        assert "invalid choice" in capsys.readouterr().err
+    elif case == "extract":
+        monkeypatch.setenv("SIMUMAX_TPU_TORCH_BUILD_DIR", str(tmp_path / "kernels"))
+        shown = []
+
+        def git(cmd, **_k):
+            shown.append(cmd)
+            return TR.subprocess.CompletedProcess(cmd, 0, stdout="// the parent's source\n")
+
+        monkeypatch.setattr(TR.subprocess, "run", git)
+        assert TR.main(["--kernels", "route", "--extract", "44a39a0"]) == {}
+        out = tmp_path / "baseline" / "44a39a0"
+        assert capsys.readouterr().out.strip() == str(out)
+        assert shown == [["git", "show", "44a39a0:simumax_tpu_torch/csrc/moe_route.cu"]]
+        assert (out / "moe_route.cu").read_text() == "// the parent's source\n"
+    else:
+        assert TR.SOURCES["route"] == K._SOURCES["moe_route"]
+        for fn, argtypes in TR.BASELINE_ARGTYPES["route"].items():
+            assert argtypes == K._ENTRY_POINTS["moe_route"][fn], fn
