@@ -44,15 +44,35 @@
 // It writes topw [T, k], topi [T, k] (int64) and probs [T, e] (fp32), which
 // the backward reads.
 //
-// moe_route_bwd_kernel: one warp a token, the gradient of the same
-// function from d_topw [T, k], probs and topi, in the plain backward's
-// order: g_j = d_topw_j as fp32 (the cast's gradient); v_j = probs at
-// topi_j; S and D = S + 1e-9 again; dD = the sum over j of (-g_j * v_j) /
-// (D * D); dv_j = g_j / D + dD (the renormalisation's); dp = dv_j at
-// topi_j and 0 elsewhere (top-k's scatter into a zero row); c = the sum
-// over j of dv_j * v_j; dx_i = probs_i * (dp_i - c) (the softmax's: the
-// terms of its sum over e that are not top-k are +0); cast to the logits'
-// type. Every sum runs over j = 0 .. k - 1 from +0.
+// moe_route_bwd_kernel: the gradient of the same function from d_topw [T,
+// k], probs and topi, in the plain backward's order: g_j = d_topw_j as
+// fp32 (the cast's gradient); v_j = probs at topi_j; S and D = S + 1e-9
+// again; dD = the sum over j of (-g_j * v_j) / (D * D); dv_j = g_j / D +
+// dD (the renormalisation's); dp = dv_j at topi_j and 0 elsewhere (top-k's
+// scatter into a zero row); c = the sum over j of dv_j * v_j; dx_i =
+// probs_i * (dp_i - c) (the softmax's: the terms of its sum over e that
+// are not top-k are +0); cast to the logits' type. Every sum runs over j =
+// 0 .. k - 1 from +0. A token's L lanes (a warp past 32 experts, lane l
+// holding the groups of 4 experts w * 32 + l, w < 4, so a warp's 16-byte
+// load of group w reads 512 contiguous bytes; up to 32 experts one a lane
+// and 8, 16 or 32 lanes a token, four or two tokens a warp at 8 or 16)
+// load the token's probs and stage them in a row of shared memory;
+// lane j < k loads topi_j and d_topw_j at the same time and reads v_j from
+// the row, not from device memory: one trip to device memory before the
+// arithmetic, where the gather after topi made two. Lane j forms its term
+// of each sum with one IEEE division at most (k lanes side by side), and
+// every lane adds the k terms in order after k shuffles that wait on
+// nothing (no shuffle waits on an addition, where the loop of shuffles
+// and additions ran 3k steps). dp goes through the same row: cleared, dv_j
+// written at topi_j by lane j, each lane's groups read back; dx is stored by
+// 8-byte (bf16) or 16-byte (fp32) words, one a group, where the rows are
+// aligned, element by element otherwise. Timed slower on this card
+// (PERF.md, PR 27): every lane taking all k choices and sums in registers
+// with no shuffle (k divisions twice and R k selects in every warp), runs
+// of 8 or 16 consecutive experts a lane (each 16-byte load instruction of
+// a warp touching 8 to 16 lines), two tokens a warp past 32 experts, one
+// token a warp up to 16, and at one expert a lane v_j and dp by shuffles
+// in place of the row.
 //
 // moe_index_kernel: a stable counting sort of n int64 keys in [0, e), in one
 // launch of B blocks of 1024 threads (B = the tiles of 1024 keys, at most
@@ -81,7 +101,9 @@
 // index moves 96 KB, microseconds at HBM's rate. At wide routers (T 4096,
 // e 256, k 8) every token runs in one wave, so the route takes about one
 // token's chain of dependent steps: its e serial additions and its k
-// rounds, each a redux.sync and a ballot. The index's count is repeated by
+// rounds, each a redux.sync and a ballot; the backward its one trip to
+// device memory, its three sums of k additions, two divisions and the
+// streams of its 6.6 MB. The index's count is repeated by
 // every block over all n keys (B * n * 8 bytes of L2 reads, each thread
 // keeping 8 loads in flight) in place of any wait on another block.
 //
@@ -95,9 +117,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int WARPS = 8;             // tokens a block of the route kernels
+constexpr int WARPS = 8;             // warps a block of the route kernels (the forward: a token each)
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_E = 512;           // experts a token (16 logits a lane)
 constexpr int MAX_K = 32;            // a token's choices sit in the lanes of one warp
@@ -114,13 +138,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// the sum over j = 0 .. k - 1 from +0 of lane j's x, in every lane
-__device__ __forceinline__ float lane_sum(float x, int k) {
-  float s = 0.f;
-  for (int j = 0; j < k; ++j) s = __fadd_rn(s, __shfl_sync(FULL, x, j));
-  return s;
 }
 
 // ---------------------------------------------------------------------------
@@ -340,44 +357,133 @@ moe_route_fwd_kernel(const T* __restrict__ logits, T* __restrict__ topw,
 }
 
 // ---------------------------------------------------------------------------
-// route backward: warp t of the grid writes d_logits[t]
+// route backward: L lanes a token, W groups of G experts a lane
 // ---------------------------------------------------------------------------
-template <typename T, int R>
+
+// the sum over j = 0 .. k - 1 from +0 of lane j's x (of the token's L
+// lanes), in every lane: k shuffles that wait on nothing, then k
+// additions in order
+template <int L, int KMAX>
+__device__ __forceinline__ float choice_sum(float x, int k) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j)
+    if (j < k) s = __fadd_rn(s, __shfl_sync(FULL, x, j, L));
+  return s;
+}
+
+// G (1 or 4) values of T from fp32 x to dst, the first n of them: one
+// 8-byte (bf16) or 16-byte (fp32) store where all 4 are whole and `vec`
+// says the row is aligned
+template <typename T, int G>
+__device__ __forceinline__ void store_group(T* dst, int n, bool vec, const float* x) {
+  if constexpr (G == 4) {
+    if (vec && n >= 4) {
+      using Word = typename std::conditional<sizeof(T) == 4, uint4, uint2>::type;
+      Word raw;
+      T* el = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) el[q] = from_f<T>(x[q]);
+      *reinterpret_cast<Word*>(dst) = raw;
+      return;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < G; ++q)
+    if (q < n) dst[q] = from_f<T>(x[q]);
+}
+
+// Token t's L lanes (consecutive threads of one warp): lane l owns W groups
+// of G consecutive experts, group w at experts G (w L + l) .. + G - 1, so a
+// warp's 16-byte loads of a group each read L * 16 contiguous bytes; lane
+// j < k the token's j-th choice. Each lane loads its groups of probs and
+// stages them in the token's row of shared memory (expert i at i); lane j
+// loads topi_j and d_topw_j meanwhile and reads v_j from the row (no second
+// trip to device memory). S, dD and c: lane j's term, then k shuffles and
+// k additions in order in every lane; each lane divides once for dD's term
+// and once for dv_j. dp: the row cleared, dv_j written at topi_j, each lane
+// reads its groups back.
+template <typename T, int G, int W, int L, int KMAX>
 __global__ void __launch_bounds__(THREADS)
 moe_route_bwd_kernel(const T* __restrict__ d_topw, const float* __restrict__ probs,
                      const long long* __restrict__ topi, T* __restrict__ d_logits,
                      long long tokens, int e, int k) {
-  const long long t = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (t >= tokens) return;
-  const int lane = threadIdx.x & 31;
-  const float* prow = probs + t * e;
-  float g = 0.f, v = 0.f;
+  constexpr int R = G * W;
+  __shared__ __align__(16) float rows[THREADS * R];  // a token's L * R: probs, then dp
+  const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) / L;
+  const bool live = t < tokens;
+  const int lj = threadIdx.x % L;  // the lane's place in its token's lanes
+  float* row = rows + (threadIdx.x - lj) * R;
   int ij = -1;
-  if (lane < k) {
-    g = to_f(d_topw[t * k + lane]);
-    ij = (int)topi[t * k + lane];
-    v = prow[ij];
+  float g = 0.f;
+  if (live && lj < k) {
+    ij = (int)__ldg(topi + t * k + lj);
+    g = to_f(d_topw[t * k + lj]);
   }
-  const float d = __fadd_rn(lane_sum(v, k), RENORM_EPS);
+  const float* prow = probs + t * e;
+  const bool vec = ((reinterpret_cast<uintptr_t>(probs) | (e * 4)) & 15) == 0;
+  float p[R];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const int i = G * (w * L + lj), n = live ? e - i : 0;
+    float* pw = p + G * w;
+    if constexpr (G == 4) {
+      if (vec && n >= 4) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(prow + i));
+        pw[0] = q.x;
+        pw[1] = q.y;
+        pw[2] = q.z;
+        pw[3] = q.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pw[q] = q < n ? __ldg(prow + i + q) : 0.f;
+      }
+      *reinterpret_cast<float4*>(row + i) = make_float4(pw[0], pw[1], pw[2], pw[3]);
+    } else {
+      pw[0] = n > 0 ? __ldg(prow + i) : 0.f;
+      row[i] = pw[0];
+    }
+  }
+  __syncwarp();
+  const bool chosen = ij >= 0 && ij < e;
+  const float v = chosen ? row[ij] : 0.f;
+  const float d = __fadd_rn(choice_sum<L, KMAX>(v, k), RENORM_EPS);
   const float dd = __fmul_rn(d, d);
-  const float d_d = lane_sum(__fdiv_rn(__fmul_rn(-g, v), dd), k);
+  const float d_d = choice_sum<L, KMAX>(__fdiv_rn(__fmul_rn(-g, v), dd), k);
   const float dv = __fadd_rn(__fdiv_rn(g, d), d_d);
-  const float c = lane_sum(__fmul_rn(dv, v), k);
-  float dp[R];
+  const float c = choice_sum<L, KMAX>(__fmul_rn(dv, v), k);
+  __syncwarp();  // every v_j read before the row is cleared
 #pragma unroll
-  for (int r = 0; r < R; ++r) dp[r] = 0.f;
-  for (int j = 0; j < k; ++j) {
-    const int i = __shfl_sync(FULL, ij, j);
-    const float dvj = __shfl_sync(FULL, dv, j);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r * 32 + lane == i) dp[r] = dvj;
+  for (int w = 0; w < W; ++w) {
+    const int i = G * (w * L + lj);
+    if constexpr (G == 4)
+      *reinterpret_cast<float4*>(row + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    else
+      row[i] = 0.f;
   }
-  T* out = d_logits + t * e;
+  __syncwarp();
+  if (chosen) row[ij] = dv;
+  __syncwarp();
+  if (!live) return;
+  const bool vec_out =
+      ((reinterpret_cast<uintptr_t>(d_logits) | (e * sizeof(T))) & (4 * sizeof(T) - 1)) == 0;
+  T* orow = d_logits + t * e;
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int i = r * 32 + lane;
-    if (i < e) out[i] = from_f<T>(__fmul_rn(prow[i], __fsub_rn(dp[r], c)));
+  for (int w = 0; w < W; ++w) {
+    const int i = G * (w * L + lj);
+    float dp[G], o[G];
+    if constexpr (G == 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + i);
+      dp[0] = q.x;
+      dp[1] = q.y;
+      dp[2] = q.z;
+      dp[3] = q.w;
+    } else {
+      dp[0] = row[i];
+    }
+#pragma unroll
+    for (int q = 0; q < G; ++q) o[q] = __fmul_rn(p[G * w + q], __fsub_rn(dp[q], c));
+    store_group<T, G>(orow + i, e - i, vec_out, o);
   }
 }
 
@@ -531,12 +637,40 @@ cudaError_t route_fwd(const void* logits, void* topw, void* topi, void* probs, l
   return cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, int G, int W, int L>
+cudaError_t route_bwd_lanes(const void* d_topw, const void* probs, const void* topi,
+                            void* d_logits, long long tokens, int e, int k, cudaStream_t st) {
+  const unsigned int blocks = (unsigned int)((tokens * L + THREADS - 1) / THREADS);
+  if (k <= 8)
+    moe_route_bwd_kernel<T, G, W, L, 8><<<blocks, THREADS, 0, st>>>(
+        (const T*)d_topw, (const float*)probs, (const long long*)topi, (T*)d_logits, tokens, e,
+        k);
+  else
+    moe_route_bwd_kernel<T, G, W, L, MAX_K><<<blocks, THREADS, 0, st>>>(
+        (const T*)d_topw, (const float*)probs, (const long long*)topi, (T*)d_logits, tokens, e,
+        k);
+  return cudaGetLastError();
+}
+
+// the backward's layout for e experts: up to 32, one expert a lane and the
+// fewest lanes of 8, 16 or 32 that hold them, several tokens a warp; past
+// 32, a warp a token and W = 1 to 4 groups of 4 experts a lane
+template <typename T>
 cudaError_t route_bwd(const void* d_topw, const void* probs, const void* topi, void* d_logits,
                       long long tokens, int e, int k, cudaStream_t st) {
-  moe_route_bwd_kernel<T, R><<<blocks_for(tokens), THREADS, 0, st>>>(
-      (const T*)d_topw, (const float*)probs, (const long long*)topi, (T*)d_logits, tokens, e, k);
-  return cudaGetLastError();
+  if (e <= 8)
+    return route_bwd_lanes<T, 1, 1, 8>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  if (e <= 16)
+    return route_bwd_lanes<T, 1, 1, 16>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  if (e <= 32)
+    return route_bwd_lanes<T, 1, 1, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  if (e <= 128)
+    return route_bwd_lanes<T, 4, 1, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  if (e <= 256)
+    return route_bwd_lanes<T, 4, 2, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  if (e <= 384)
+    return route_bwd_lanes<T, 4, 3, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+  return route_bwd_lanes<T, 4, 4, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
 }
 
 // the instance for e experts: R = 1, 2, 4, 8 or 16 logits a lane
@@ -569,12 +703,9 @@ extern "C" int moe_route_bwd(int dtype, const void* d_topw, const void* probs, c
                              void* d_logits, long long tokens, int e, int k, void* stream) {
   if (!route_ok(tokens, e, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return (int)ROUTE_DISPATCH(route_bwd, float, d_topw, probs, topi, d_logits, tokens, e, k,
-                               st);
+  if (dtype == 0) return (int)route_bwd<float>(d_topw, probs, topi, d_logits, tokens, e, k, st);
   if (dtype == 1)
-    return (int)ROUTE_DISPATCH(route_bwd, __nv_bfloat16, d_topw, probs, topi, d_logits, tokens,
-                               e, k, st);
+    return (int)route_bwd<__nv_bfloat16>(d_topw, probs, topi, d_logits, tokens, e, k, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,6 +1,6 @@
 """The fp32 flash-attention kernels, the ragged int8 quantize, the rms
-norm's backward or the MoE route's forward and index against another
-commit's, on the same calls.
+norm's backward or the MoE route's forward, backward and index against
+another commit's, on the same calls.
 
 The baseline is the source ``csrc/flash_attn.cu`` (``--kernels flash``,
 the default), ``csrc/quant8.cu`` (``--kernels q8``),
@@ -53,21 +53,23 @@ largest share of that limit, in bf16 ulps and absolute, is reported.
 Each row reports both shares of the bound (x and dy read, dx written, w,
 rstd and dw besides, over 3.35 TB/s) and their ratio.
 
-route: the baseline's ``moe_route_fwd`` and ``moe_index`` entry points
-are the current ones (those of commit 44a39a0, whose index ran on one
-block and whose route summed through shuffles). At ``ROUTE_CASES`` (the
-MoE row's [2048, 8] top-2, and [4096, 256] and [4096, 384] top-8, bf16:
-the kernel's sorted lane keys and its tree of them) the route's
-forward, and the index over each route case's assignments and at
-``INDEX_RUNS_CASE`` (the manual step's ep 4 dispatch: 4096 keys over 4
-destinations with their runs of expert ids), are timed in the
-same turns from CUDA graph replays (``calibration.timing.time_graph``),
-each captured call taking the next of copies of its inputs that exceed
-twice the L2 cache, as ``chip_smoke.py``'s phase 3f times them; every
-output must equal the baseline's bit for bit. Each row reports its bound
-(bytes over 3.35 TB/s, or fp32 operations over 67 TFLOP/s for the route,
-the larger), both shares of it, and for the index
-``torch.sort(stable=True)`` of the same keys, timed the same way.
+route: the baseline's ``moe_route_fwd``, ``moe_route_bwd`` and
+``moe_index`` entry points are the current ones (those of commit
+44a39a0, whose index ran on one block and whose route summed through
+shuffles, or of 35c6504, whose route backward ran one warp a token and
+summed through shuffles). At ``ROUTE_CASES`` (the MoE row's [2048, 8]
+top-2, [4096, 256] and [4096, 384] top-8 and [1024, 400] top-8, bf16)
+the route's forward and backward (on the forward's probs and topi, with
+a random d_topw), and the index over each route case's assignments and
+at ``INDEX_RUNS_CASE`` (the manual step's ep 4 dispatch: 4096 keys over 4
+destinations with their runs of expert ids), are timed in the same turns
+from CUDA graph replays (``calibration.timing.time_graph``), each
+captured call taking the next of copies of its inputs that exceed twice
+the L2 cache, as ``chip_smoke.py``'s phase 3f times them; every output
+must equal the baseline's bit for bit. Each row reports its bound (bytes
+over 3.35 TB/s, or fp32 operations over 67 TFLOP/s for the route, the
+larger), both shares of it, and for the index ``torch.sort(stable=True)``
+of the same keys, timed the same way.
 
 Usage. Write the baseline's source where git is (the card's machine has
 no repository), then run on the card::
@@ -83,6 +85,9 @@ no repository), then run on the card::
     python -m simumax_tpu_torch.tools.time_redesign --kernels route --extract 44a39a0
     python -m simumax_tpu_torch.tools.time_redesign --kernels route \\
         --baseline build/baseline/44a39a0
+    python -m simumax_tpu_torch.tools.time_redesign --kernels route --extract 35c6504
+    python -m simumax_tpu_torch.tools.time_redesign --kernels route \\
+        --baseline build/baseline/35c6504
 
 Prints one JSON object and writes it to ``--out`` when given.
 """
@@ -119,14 +124,15 @@ NORM_CASES = [("dense rows", 2048, 2048, torch.bfloat16),
 RTOL_NORM = 1e-6
 #: (case, tokens, experts, k) of the route rows, bf16 logits
 ROUTE_CASES = [("MoE row", 2048, 8, 2), ("top-8 of 256", 4096, 256, 8),
-               ("top-8 of 384", 4096, 384, 8)]
+               ("top-8 of 384", 4096, 384, 8), ("top-8 of 400", 1024, 400, 8)]
 #: (case, keys, destinations) of the index row with runs of expert ids:
 #: the manual step's ep 4 dispatch (seq 2048 top-2 over 8 experts)
 INDEX_RUNS_CASE = ("ep 4", 4096, 4)
 PEAK_FP32_FLOPS = 67e12  # H100 SXM datasheet, outside the tensor cores
-#: fp32 operations a token-expert pair of the route's forward (as
-#: ``chip_smoke.ROUTE_FLOPS``)
+#: fp32 operations a token-expert pair of the route's forward and backward
+#: (as ``chip_smoke.ROUTE_FLOPS``)
 ROUTE_FWD_FLOPS = 4
+ROUTE_BWD_FLOPS = 2
 #: backwards a norm sample times back to back (each launch's own start
 #: amortised, as in a step and in ``chip_smoke.py``'s graph timings)
 NORM_CALLS = 10
@@ -135,6 +141,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM datasheet
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 #: the baseline's entry points: the flash kernels' of 2f9d7b8, the
 #: quantize's of f51bffb, the norm's of fd7ecb3, the route's of 44a39a0
+#: and 35c6504 (the backward's entry point has not changed since 44a39a0)
 BASELINE_ARGTYPES = {
     "flash": {
         "flash_fwd": [_I, _I] + [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P, _P],
@@ -144,6 +151,7 @@ BASELINE_ARGTYPES = {
     "q8": {"q8_quantize": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _P]},
     "norm": {"rms_norm_bwd": [_I] + [_P] * 7 + [_L, _I, _I, _P]},
     "route": {"moe_route_fwd": [_I] + [_P] * 4 + [_L, _I, _I, _P],
+              "moe_route_bwd": [_I] + [_P] * 4 + [_L, _I, _I, _P],
               "moe_index": [_P] * 6 + [_L, _I, _I, _P]},
 }
 
@@ -446,9 +454,9 @@ def _shares(rec: dict, nbytes: int, ops: int) -> dict:
 
 
 def route_rows(lib) -> dict:
-    """The route's forward at :data:`ROUTE_CASES` and the index over
-    their assignments and at :data:`INDEX_RUNS_CASE`, the current kernels
-    against the baseline's, on the same inputs."""
+    """The route's forward and backward at :data:`ROUTE_CASES` and the
+    index over their assignments and at :data:`INDEX_RUNS_CASE`, the
+    current kernels against the baseline's, on the same inputs."""
     from simumax_tpu_torch.calibration.timing import time_graph
 
     out = {}
@@ -510,6 +518,7 @@ def route_rows(lib) -> dict:
                **graph_turns(lambda: route("n", rx()), lambda: route("b", rx()))}
         nbytes = tokens * e * 2 + tokens * k * (2 + 8) + tokens * e * 4
         out[f"moe_route_fwd [{label}]"] = _shares(rec, nbytes, ROUTE_FWD_FLOPS * tokens * e)
+        out.update(route_bwd_rows(label, lib, new_lib, bufs["n"], gen, stream))
         keys = bufs["n"][1].reshape(-1).clone()
         index_row(label, keys, None, e, int(2.0 * tokens * k / e))
         del x, bufs, rx, keys
@@ -518,6 +527,35 @@ def route_rows(lib) -> dict:
     flat_e = torch.randint(0, 8, (n,), generator=gen, device="cuda")
     index_row(label, flat_e // (8 // ep), flat_e, ep, n)
     return out
+
+
+def route_bwd_rows(label, lib, new_lib, fwd, gen, stream) -> dict:
+    """The route's backward on one case's forward outputs ``fwd`` (topw,
+    topi, probs) and a random d_topw: the current kernel against the
+    baseline's, every output bit equal."""
+    _topw, topi, probs = fwd
+    tokens, e = probs.shape
+    k = topi.shape[1]
+    g = torch.randn(tokens, k, generator=gen, device="cuda").to(torch.bfloat16)
+    libs = {"n": new_lib, "b": lib}
+    outs = {w: torch.empty(tokens, e, dtype=torch.bfloat16, device="cuda") for w in libs}
+    rg, rp = cycle(rotated_copies(g)), cycle(rotated_copies(probs))
+
+    def bwd(which, g_, p_):
+        checked(f"{which} moe_route_bwd", libs[which].moe_route_bwd(
+            1, g_.data_ptr(), p_.data_ptr(), topi.data_ptr(), outs[which].data_ptr(), tokens, e,
+            k, stream()))
+
+    for w in libs:
+        bwd(w, g, probs)
+    torch.cuda.synchronize()
+    if not torch.equal(outs["n"], outs["b"]):
+        raise AssertionError(f"moe_route_bwd [{label}]: the kernels' outputs differ")
+    nbytes = tokens * k * (2 + 8) + tokens * e * 4 + tokens * e * 2
+    return {f"moe_route_bwd [{label}]": _shares(
+        {"tokens": tokens, "experts": e, "k": k, "dtype": "bfloat16",
+         **graph_turns(lambda: bwd("n", rg(), rp()), lambda: bwd("b", rg(), rp()))},
+        nbytes, ROUTE_BWD_FLOPS * tokens * e)}
 
 
 def main(argv=None) -> dict:

@@ -19,7 +19,11 @@ collectives of :mod:`simumax_tpu_torch.torchref.collectives`, over a
 
 SwiGLU goes through :func:`~simumax_tpu_torch.torchref.kernels.swiglu`
 and attention through the three flash kernels when the mesh is on the
-card; the MoE gate's route through ``kernels.moe_route``, and the a2a
+card; the weightless rms norm (JAX's ``_rms``) through the rms norm
+kernels without a weight (``kernels.rms_norm_residual(x, None, add)``),
+with the mid-block residual add inside the second norm of each layer and
+its gradient summed into the norm's backward; the MoE gate's route
+through ``kernels.moe_route``, and the a2a
 layout's sort by destination, send buffer and combine through
 ``kernels.moe_index_runs``, ``moe_permute`` and ``moe_combine``; on the
 CPU each runs its plain version.
@@ -66,6 +70,8 @@ from simumax_tpu_torch.torchref.kernels import (
     moe_index_runs,
     moe_permute,
     moe_route,
+    rms_norm,
+    rms_norm_residual,
     swiglu,
 )
 
@@ -278,11 +284,18 @@ def gather_pp_params(params: Mapping[str, torch.Tensor], mesh) -> Dict[str, torc
 # -- the model --------------------------------------------------------------------
 
 
-def _rms(x, eps=1e-5):
-    """RMS norm with no weight: the variance in fp32, its rsqrt cast to
-    the input dtype before the multiply."""
-    var = x.float().square().mean(-1, keepdim=True)
-    return x * torch.rsqrt(var + eps).to(x.dtype)
+def _rms(x, add=None):
+    """(s, y): the residual sum s = x + add (x itself without ``add``) and
+    its RMS norm with no weight, y = s * rstd, rounded as JAX's ``_rms``:
+    the variance in fp32, rstd = 1 / sqrt(var + 1e-5) cast to the input
+    dtype before the one product. Through the rms norm kernels without a
+    weight (``kernels.rms_norm_residual``; their plain versions on the
+    CPU), inside a ``norm`` profiler range: s's gradient comes back into
+    the norm's backward kernel and is added to its dx there, so the
+    residual stream has one autograd consumer. The kernels take contiguous
+    tensors, as every caller's are."""
+    with torch.profiler.record_function("norm"):
+        return rms_norm_residual(x, None, add)
 
 
 def _stage_block(x, p, li, cfg: PPConfig, mesh, is_moe: bool):
@@ -291,8 +304,8 @@ def _stage_block(x, p, li, cfg: PPConfig, mesh, is_moe: bool):
     ([L, ...]; expert dim already local)."""
     d = cfg.head_size
 
-    res = x
-    y = C.all_gather(_rms(x), mesh, "tp", 1)  # SP -> full seq
+    res, y = _rms(x)
+    y = C.all_gather(y, mesh, "tp", 1)  # SP -> full seq
     qkv = y @ p["qkv"][li]  # [b, s, 3q/tp]
     qq, kk, vv = qkv.chunk(3, dim=-1)
     b, s, qloc = qq.shape
@@ -300,10 +313,9 @@ def _stage_block(x, p, li, cfg: PPConfig, mesh, is_moe: bool):
     o = attention(qq.reshape(b, s, hl, d), kk.reshape(b, s, hl, d), vv.reshape(b, s, hl, d),
                   causal=True, use_flash=cfg.use_flash)
     o = o.reshape(b, s, qloc) @ p["attn_out"][li]  # partial sums over tp
-    x = res + C.psum_scatter(o, mesh, "tp", 1)
-
-    res = x
-    y = _rms(x)
+    # the mid-block add res + o inside the second norm; psum_scatter's
+    # result is a view moved back from dim 0, a copy at tp > 1
+    res, y = _rms(res, C.psum_scatter(o, mesh, "tp", 1).contiguous())
     if is_moe and cfg.ep_dispatch == "a2a":
         o = _moe_a2a_dispatch(y, p, li, cfg, mesh)
     elif is_moe:
@@ -408,7 +420,8 @@ def spmd_loss(params, ids, targets, cfg: PPConfig, mesh):
     pp, tp = C.axis_size(mesh, "pp"), C.axis_size(mesh, "tp")
     s = ids.shape[1]
     x = params["embedding"][ids]  # [b, s, h]
-    x = x.narrow(1, C.axis_index(mesh, "tp") * (s // tp), s // tp)  # SP: seq shard
+    # SP: seq shard, a copy at tp > 1 (the norm kernels take contiguous x)
+    x = x.narrow(1, C.axis_index(mesh, "tp") * (s // tp), s // tp).contiguous()
     # this stage's local layer shard (pp-sharded leading dim -> [0])
     my_p = {k: v[0] for k, v in params.items() if k not in ("embedding", "lm_head")}
     # sequential pipeline: every stage applies its layers, then the
@@ -423,8 +436,10 @@ def spmd_loss(params, ids, targets, cfg: PPConfig, mesh):
     if pp > 1:
         on_zero = float(C.axis_index(mesh, "pp") == 0)
         h = C.psum(h * on_zero, mesh, "pp")
-    h = C.all_gather(h, mesh, "tp", 1)  # [b, s, h]
-    logits = (_rms(h) @ params["lm_head"]).float()
+    h = C.all_gather(h, mesh, "tp", 1).contiguous()  # [b, s, h]
+    with torch.profiler.record_function("norm"):
+        y = rms_norm(h, None)
+    logits = (y @ params["lm_head"]).float()
     logits = C.all_gather(logits, mesh, "tp", 2)
     ll = torch.log_softmax(logits, -1).gather(-1, targets[..., None])
     return C.pmean(-ll.mean(), mesh, "dp")

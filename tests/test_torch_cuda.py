@@ -239,9 +239,16 @@ def test_parallel_step_on_the_card_matches_the_cpu(card):
             runs[device] = (float(loss), {k: v.cpu() for k, v in new.items()},
                             K.launch_counts())
     (loss_gpu, new_gpu, counts), (loss_cpu, new_cpu, _) = runs["cuda"], runs["cpu"]
+    # the weightless norms of L = 2 layers: each layer's first norm
+    # forward (and the final one) without the residual, its second with
+    # the mid-block add; backward every layer norm with its output's
+    # second gradient, the final one without
+    L = cfg.layers_per_stage
     assert counts == {**dict.fromkeys(K.LAUNCHES, 0), "flash_fwd": 2, "flash_bwd_dq": 2,
                       "flash_bwd_dkv": 2, "swiglu_fwd": 2, "swiglu_bwd": 2,
-                      "moe_route_fwd": 1, "moe_route_bwd": 1}
+                      "moe_route_fwd": 1, "moe_route_bwd": 1,
+                      "rms_norm_weightless_fwd": L + 1, "rms_norm_weightless_residual_fwd": L,
+                      "rms_norm_weightless_residual_bwd": 2 * L, "rms_norm_weightless_bwd": 1}
     assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
     for name in new_cpu:
         assert _within(new_gpu[name], new_cpu[name], 1e-4), name
@@ -1395,6 +1402,100 @@ def test_rms_norm_residual_kernels_match_their_plain_versions(card, dtype, rows,
         assert torch.equal(got.detach(), ref.detach())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("residual", [False, True], ids=["norm", "residual"])
+@pytest.mark.parametrize("rows,h", [(2048, 1024), (21, 1000), (37, 8192), (0, 1024)])
+def test_weightless_rms_norm_kernels_match_plain_and_unit_weight(card, dtype, residual, rows, h):
+    """The norm kernels without a weight (w None, the manual step's
+    ``_rms``), with and without the residual: bit for bit their plain
+    versions and the weighted kernels at a unit weight; one launch each
+    way on the weightless keys (none at 0 rows), no dw. 21 and 37 rows are not a multiple of a
+    backward block's rows (8 at h 1000 and 1024 in bf16; 2 at 8192); h
+    1000 takes the scalar accesses."""
+    gen = torch.Generator(device=card).manual_seed(14)
+    x, a, dy, gs = ((torch.randn(rows, h, generator=gen, device=card) * sc).to(dtype)
+                    for sc in (2, 2, 1, 1))
+    ones = torch.ones(h, dtype=dtype, device=card)
+    if residual:
+        names = ("rms_norm_weightless_residual_fwd", "rms_norm_weightless_residual_bwd")
+        K.reset_launch_counts()
+        got_fwd = K.rms_norm_residual_fwd(x, None, a)
+        s, _y, rstd = got_fwd
+        got_bwd = K.rms_norm_residual_bwd(s, None, rstd, dy, gs)
+        launched = K.launch_counts()
+        ref_fwd = K.rms_norm_residual_fwd_plain(x, None, a)
+        ref_bwd = K.rms_norm_residual_bwd_plain(s, None, rstd, dy, gs)
+        unit_fwd = K.rms_norm_residual_fwd(x, ones, a)
+        unit_bwd = K.rms_norm_residual_bwd(s, ones, rstd, dy, gs)
+    else:
+        names = ("rms_norm_weightless_fwd", "rms_norm_weightless_bwd")
+        K.reset_launch_counts()
+        got_fwd = K.rms_norm_fwd(x, None)
+        rstd = got_fwd[1]
+        got_bwd = K.rms_norm_bwd(x, None, rstd, dy)
+        launched = K.launch_counts()
+        ref_fwd = K.rms_norm_fwd_plain(x, None)
+        ref_bwd = K.rms_norm_bwd_plain(x, None, rstd, dy)
+        unit_fwd = K.rms_norm_fwd(x, ones)
+        unit_bwd = K.rms_norm_bwd(x, ones, rstd, dy)
+    torch.cuda.synchronize()
+    assert launched == {**dict.fromkeys(K.LAUNCHES, 0), **dict.fromkeys(names, int(rows > 0))}
+    assert got_bwd[1] is None and ref_bwd[1] is None
+    for got, ref, unit in zip(got_fwd + got_bwd[:1], ref_fwd + ref_bwd[:1],
+                              unit_fwd + unit_bwd[:1]):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert torch.equal(got, ref), int((got != ref).sum())
+        assert torch.equal(got, unit), int((got != unit).sum())
+
+
+@pytest.mark.cuda
+def test_weightless_norm_and_route_backward_replay_from_a_cuda_graph(card):
+    """The weightless norm kernels (with and without the residual) and
+    the route's backward captured in one CUDA graph: a replay on new
+    inputs, written into the captured tensors, gives their plain
+    versions' bits; no tensor is made during the capture beyond the
+    outputs."""
+    gen = torch.Generator(device=card).manual_seed(15)
+
+    def norm_inputs():
+        return [(torch.randn(300, 1024, generator=gen, device=card) * sc).to(torch.bfloat16)
+                for sc in (2, 2, 1, 1)]
+
+    def route_inputs():
+        x = _route_logits(card, 2048, 8, torch.bfloat16, False, seed=int(
+            torch.randint(0, 1000, (), generator=gen, device=card)))
+        _topw, topi, probs = K.moe_route_fwd(x, 2)
+        return [torch.randn(2048, 2, generator=gen, device=card).to(torch.bfloat16), probs, topi]
+
+    x, a, dy, gs = norm_inputs()
+    g, probs, topi = route_inputs()
+    s, y, rstd = K.rms_norm_residual_fwd(x, None, a)  # warm each path before the capture
+    K.rms_norm_residual_bwd(s, None, rstd, dy, gs)
+    K.rms_norm_bwd(x, None, K.rms_norm_fwd(x, None)[1], dy)
+    K.moe_route_bwd(g, probs, topi)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s, y, rstd = K.rms_norm_residual_fwd(x, None, a)
+        d, _ = K.rms_norm_residual_bwd(s, None, rstd, dy, gs)
+        y1, rstd1 = K.rms_norm_fwd(x, None)
+        dx1, _ = K.rms_norm_bwd(x, None, rstd1, dy)
+        d_logits = K.moe_route_bwd(g, probs, topi)
+    for t, new in zip((x, a, dy, gs, g, probs, topi), norm_inputs() + route_inputs()):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    s_ref, y_ref, rstd_ref = K.rms_norm_residual_fwd_plain(x, None, a)
+    d_ref, _ = K.rms_norm_residual_bwd_plain(s_ref, None, rstd_ref, dy, gs)
+    y1_ref, rstd1_ref = K.rms_norm_fwd_plain(x, None)
+    dx1_ref, _ = K.rms_norm_bwd_plain(x, None, rstd1_ref, dy)
+    for got, ref in ((s, s_ref), (y, y_ref), (rstd, rstd_ref), (d, d_ref), (y1, y1_ref),
+                     (rstd1, rstd1_ref), (dx1, dx1_ref),
+                     (d_logits, K.moe_route_bwd_plain(g, probs, topi))):
+        assert torch.equal(got, ref), int((got != ref).sum())
+
+
 def _eager_ops(monkeypatch):
     """What the blocks ran before the SwiGLU and residual fusions: the
     residual add as its own op before the norm kernel, and ``F.silu(gate)
@@ -1787,6 +1888,73 @@ def test_moe_route_kernels_raise_for_what_they_refuse(card):
         K.moe_route_fwd(torch.zeros(8, 4, device=card).t(), 2)
     with pytest.raises(ValueError, match="at most 512 experts"):
         K.moe_index(torch.zeros(8, dtype=torch.int64, device=card), 513, 4, 2)
+
+
+#: (tokens, experts, k), each run in both dtypes, that with the rows above
+#: them in ``ROUTE_BWD_CASES`` reach every instance of the route backward
+#: that a call can reach: 16 and 32 lanes a token (up to 16 and 17 to 32
+#: experts) at k up to 8 and past it, and 1 to 4 groups of 4 experts a
+#: lane at k up to 8 and past it
+ROUTE_BWD_INSTANCE_CASES = [(100, 12, 2), (100, 16, 12), (300, 24, 2), (300, 32, 8),
+                            (100, 32, 20), (200, 100, 4), (100, 33, 9), (200, 200, 16),
+                            (200, 256, 8), (200, 384, 8), (100, 300, 12)]
+#: (tokens, experts, k, dtype, ties) of the route's backward: the cases of
+#: ``chip_smoke.py``'s phase 3f (``ROUTE_CASES``), the kernels' limits (512
+#: experts top-32, in both dtypes), rows of 5 experts (no row 16-byte
+#: aligned), of 16 (two tokens a warp), and ``ROUTE_BWD_INSTANCE_CASES``
+ROUTE_BWD_CASES = [
+    (2048, 8, 2, torch.bfloat16, False), (2048, 8, 2, torch.float32, False),
+    (128, 4, 2, torch.float32, False), (64, 4, 2, torch.bfloat16, False),
+    (256, 8, 4, torch.bfloat16, False), (4096, 64, 6, torch.bfloat16, False),
+    (4096, 256, 8, torch.bfloat16, False), (1024, 400, 8, torch.bfloat16, False),
+    (2048, 8, 2, torch.bfloat16, True), (1024, 400, 8, torch.float32, True),
+    (5, 512, 32, torch.bfloat16, False), (5, 512, 32, torch.float32, False),
+    (300, 5, 2, torch.bfloat16, False), (300, 5, 3, torch.float32, False),
+    (100, 16, 2, torch.bfloat16, False),
+] + [(t, e, k, dtype, False) for t, e, k in ROUTE_BWD_INSTANCE_CASES
+     for dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "probs-off-16-bytes"])
+@pytest.mark.parametrize("tokens,e,k,dtype,ties", ROUTE_BWD_CASES,
+                         ids=[f"T{t}-e{e}-k{k}-{str(d)[6:]}{'-ties' if ties else ''}"
+                              for t, e, k, d, ties in ROUTE_BWD_CASES])
+def test_moe_route_backward_is_bit_identical_to_its_plain_version(card, tokens, e, k, dtype,
+                                                                   ties, offset):
+    """``moe_route_bwd`` on the forward's probs and topi, launched once, bit
+    for bit ``moe_route_bwd_plain`` on the card and on the CPU; with probs
+    one element into its buffer, the loads of the same kernel without
+    16-byte words."""
+    x = _route_logits(card, tokens, e, dtype, ties, seed=16)
+    _topw, topi, probs = K.moe_route_fwd(x, k)
+    if offset:
+        probs = torch.empty(probs.numel() + offset, device=card)[offset:].view(tokens, e)
+        probs.copy_(K.moe_route_fwd(x, k)[2])
+    g = torch.randn(tokens, k, generator=torch.Generator(device=card).manual_seed(17),
+                    device=card).to(dtype)
+    K.reset_launch_counts()
+    d = K.moe_route_bwd(g, probs, topi)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_route_bwd": 1}
+    d_ref = K.moe_route_bwd_plain(g, probs, topi)
+    assert d.dtype == dtype and d.shape == (tokens, e)
+    assert torch.equal(d, d_ref), int((d != d_ref).sum())
+    assert torch.equal(K.moe_route_bwd_plain(g.cpu(), probs.cpu(), topi.cpu()), d.cpu())
+
+
+@pytest.mark.cuda
+def test_moe_route_backward_refuses_what_the_kernel_does_not_take(card):
+    topi = torch.zeros(4, 2, dtype=torch.int64, device=card)
+    with pytest.raises(ValueError, match="at most 512 experts"):
+        K.moe_route_bwd(torch.zeros(4, 2, device=card), torch.zeros(4, 513, device=card), topi)
+    with pytest.raises(ValueError, match="at most 512 experts and 32 a token"):
+        K.moe_route_bwd(torch.zeros(4, 33, device=card), torch.zeros(4, 64, device=card),
+                        torch.zeros(4, 33, dtype=torch.int64, device=card))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.moe_route_bwd(torch.zeros(4, 2, device=card, dtype=torch.float16),
+                        torch.zeros(4, 8, device=card), topi)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.moe_route_bwd(torch.zeros(2, 4, device=card).t(), torch.zeros(4, 8, device=card), topi)
 
 
 @pytest.mark.cuda

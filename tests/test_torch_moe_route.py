@@ -386,9 +386,9 @@ def test_route_forward_takes_underflowed_probabilities_as_jax_does(tokens, e, k,
 def test_time_redesign_takes_the_route_kernels(case, tmp_path, monkeypatch, capsys):
     """``tools/time_redesign --kernels route``: the parent's
     ``csrc/moe_route.cu`` is what ``--extract`` writes and the baseline's
-    entry points are bound as the port binds its own; without
-    ``--baseline``, without a card or with an unknown set of kernels it
-    stops before building anything."""
+    entry points, the backward's among them, are bound as the port binds
+    its own; without ``--baseline``, without a card or with an
+    unknown set of kernels it stops before building anything."""
     from simumax_tpu_torch.tools import time_redesign as TR
 
     def no_build(*_a, **_k):
@@ -423,5 +423,6 @@ def test_time_redesign_takes_the_route_kernels(case, tmp_path, monkeypatch, caps
         assert (out / "moe_route.cu").read_text() == "// the parent's source\n"
     else:
         assert TR.SOURCES["route"] == K._SOURCES["moe_route"]
+        assert set(TR.BASELINE_ARGTYPES["route"]) == set(K._ENTRY_POINTS["moe_route"])
         for fn, argtypes in TR.BASELINE_ARGTYPES["route"].items():
             assert argtypes == K._ENTRY_POINTS["moe_route"][fn], fn
