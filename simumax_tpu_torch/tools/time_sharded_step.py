@@ -122,15 +122,20 @@ def child_sharded() -> dict:
     return out
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` of this tool's tree (the baseline's package has
-    none of its own), for phase 10b's widths."""
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+def _own(name: str, *path: str):
+    """The module at ``path`` under this tool's tree's root, loaded from its
+    file, whatever package is on ``sys.path``."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(root, *path))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` of this tool's tree (the baseline's package has
+    none of its own), for phase 10b's widths."""
+    return _own("chip_smoke", "chip_smoke.py")
 
 
 def child_manual(tag: str) -> dict:
@@ -145,11 +150,13 @@ def child_manual(tag: str) -> dict:
     from simumax_tpu_torch.torchref import parallel as P
 
     cs = _chip_smoke()
+    # this tree's spans (they import nothing of the port; a baseline may have none)
+    spans = _own("simumax_tpu_torch_spans", "simumax_tpu_torch", "torchref", "spans.py")
     K.build()
     rms = P._rms
 
     def marked(*args, **kwargs):
-        with torch.profiler.record_function("norm"):
+        with spans.op_family("norm"):
             return rms(*args, **kwargs)
 
     P._rms = marked

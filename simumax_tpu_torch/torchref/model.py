@@ -99,21 +99,8 @@ from simumax_tpu_torch.torchref.kernels import (
 )
 from simumax_tpu_torch.torchref.parallel import mesh_device, mesh_over_ranks
 from simumax_tpu_torch.torchref.quantized import Int8Split, int8_matmul, int8_matmul_sharded
-
-
-#: the op families whose profiler ranges (:func:`op_family`) the reference
-#: models mark; what runs in none of them is elementwise work
-OP_FAMILIES = ("gemm", "attention", "norm", "cross_entropy", "optimizer", "moe_dispatch")
-
-
-def op_family(name: str):
-    """A ``torch.profiler`` range that marks what runs inside it as one of
-    :data:`OP_FAMILIES`, so a profile of a step can be summed by family
-    beside the analytical ledger's. Without a profiler it costs a
-    function call; a CUDA graph capture records nothing of it."""
-    if name not in OP_FAMILIES:
-        raise ValueError(f"unknown op family {name!r} (known: {OP_FAMILIES})")
-    return torch.profiler.record_function(name)
+# OP_FAMILIES and op_family stay importable from here (tools/attribute_step.py, moe_model.py)
+from simumax_tpu_torch.torchref.spans import OP_FAMILIES, op_family, span  # noqa: F401
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -712,16 +699,19 @@ def make_fused_adam(loss: Callable, lr: float = 1e-4):
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     def train_step(params, opt_state, batch):
-        leaves = param_leaves(params)
-        loss_val = loss(params, batch)
-        grads = torch.autograd.grad(loss_val, leaves)
-        with op_family("optimizer"):
-            opt_state["step"].add_(1)
-        mu, nu = param_leaves(opt_state["mu"]), param_leaves(opt_state["nu"])
-        if isinstance(leaves[0], DTensor):
-            leaves, grads, mu, nu = _local_shards(leaves, grads, mu, nu)
-        adam_update(leaves, grads, mu, nu, opt_state["step"], lr)
-        return params, opt_state, loss_val.detach()
+        with span("step"):
+            leaves = param_leaves(params)
+            with span("forward"):
+                loss_val = loss(params, batch)
+            with span("backward"):
+                grads = torch.autograd.grad(loss_val, leaves)
+            with op_family("optimizer"):
+                opt_state["step"].add_(1)
+            mu, nu = param_leaves(opt_state["mu"]), param_leaves(opt_state["nu"])
+            if isinstance(leaves[0], DTensor):
+                leaves, grads, mu, nu = _local_shards(leaves, grads, mu, nu)
+            adam_update(leaves, grads, mu, nu, opt_state["step"], lr)
+            return params, opt_state, loss_val.detach()
 
     return init_opt, train_step
 

@@ -68,6 +68,7 @@ from simumax_tpu_torch.torchref.model import (  # noqa: F401  (params_from_jax: 
     params_from_jax,
     resolve_device,
 )
+from simumax_tpu_torch.torchref.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,13 +194,13 @@ def _moe_mlp(y, p, cfg: MoeConfig):
         else:
             xin = moe_permute(y.reshape(b * s, h), None, idx)
     # grouped GEMMs (balanced groups = one batched matmul each)
-    with op_family("gemm"):
+    with op_family("gemm"), span("expert_gemm"):
         up = torch.bmm(xin, p["moe_up"])
     act = swiglu_step(up)
     if cfg.dispatch_probs:
         # weighted-SiLU: the routing weights fold into the activation
         act = act * wbuf[..., None]
-    with op_family("gemm"):
+    with op_family("gemm"), span("expert_gemm"):
         down = torch.bmm(act, p["moe_down"])
     with op_family("moe_dispatch"):
         # unpermute (combine): each token's k rows, weighted (by keep

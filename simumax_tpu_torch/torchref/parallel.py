@@ -74,6 +74,7 @@ from simumax_tpu_torch.torchref.kernels import (
     rms_norm_residual,
     swiglu,
 )
+from simumax_tpu_torch.torchref.spans import op_family
 
 AXES = ("pp", "ep", "dp", "tp")
 
@@ -294,7 +295,7 @@ def _rms(x, add=None):
     the norm's backward kernel and is added to its dx there, so the
     residual stream has one autograd consumer. The kernels take contiguous
     tensors, as every caller's are."""
-    with torch.profiler.record_function("norm"):
+    with op_family("norm"):
         return rms_norm_residual(x, None, add)
 
 
@@ -437,7 +438,7 @@ def spmd_loss(params, ids, targets, cfg: PPConfig, mesh):
         on_zero = float(C.axis_index(mesh, "pp") == 0)
         h = C.psum(h * on_zero, mesh, "pp")
     h = C.all_gather(h, mesh, "tp", 1).contiguous()  # [b, s, h]
-    with torch.profiler.record_function("norm"):
+    with op_family("norm"):
         y = rms_norm(h, None)
     logits = (y @ params["lm_head"]).float()
     logits = C.all_gather(logits, mesh, "tp", 2)

@@ -9,7 +9,9 @@ self-calibration loop measures the kernel mix the analytical
 JAX's ``lax.dot_general`` is; the quantization and the epilogue that
 scales the int32 product back (``q8_dequant``: one pass, bit for bit
 JAX's ``astype(float32) * (s_a * s_b)`` and cast) have kernels of their
-own.
+own. Each ``torch._int_mm`` runs in an ``int8_mm`` span and each
+quantization and dequantization in a ``q8`` span (``torchref/spans.py``),
+inside the caller's ``gemm`` range.
 
 ``torch._int_mm`` multiplies 2-D operands only, and on the card it wants
 more than 16 rows and inner and outer sizes that are multiples of 8
@@ -52,6 +54,7 @@ import torch
 
 from simumax_tpu_torch.torchref import collectives as C
 from simumax_tpu_torch.torchref.kernels import q8_amax, q8_dequant, q8_quantize
+from simumax_tpu_torch.torchref.spans import span
 
 #: per product layout (NN forward, NT dgrad, TN wgrad), whether its first
 #: and its second operand are quantized column-major: the order that
@@ -64,9 +67,17 @@ def _q8(x: torch.Tensor, column_major: bool = False):
     """Per-tensor symmetric int8 quantization of a 2-D tensor -> (q,
     scale): the scale is (amax + 1e-6) / 127 in fp32, q rounded half to
     even and clipped to ±127, row-major or (``column_major``)
-    column-major."""
-    x = x.contiguous()
-    return q8_quantize(x, q8_amax(x), column_major)
+    column-major. In a ``q8`` span."""
+    with span("q8"):
+        x = x.contiguous()
+        return q8_quantize(x, q8_amax(x), column_major)
+
+
+def _in_q8(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one of the q8 kernels' wrappers
+    (``q8_amax``, ``q8_quantize``, ``q8_dequant``), in a ``q8`` span."""
+    with span("q8"):
+        return fn(*args, **kwargs)
 
 
 def check_int_mm_shape(m: int, k: int, n: int) -> None:
@@ -87,7 +98,8 @@ def _mm(a: torch.Tensor, b: torch.Tensor, ta: bool = False, tb: bool = False) ->
     say so), and must be in its full-rate order: the first row-major, the
     second column-major, as :func:`_q8` writes them for the int8 path.
     Anything else raises (cuBLASLt refuses some other orders outright,
-    and runs the rest slower); nothing is copied."""
+    and runs the rest slower); nothing is copied. The product runs in an
+    ``int8_mm`` span."""
     lhs = a.t() if ta else a
     rhs = b.t() if tb else b
     check_int_mm_shape(lhs.shape[0], lhs.shape[1], rhs.shape[1])
@@ -96,7 +108,8 @@ def _mm(a: torch.Tensor, b: torch.Tensor, ta: bool = False, tb: bool = False) ->
             f"int8 matmul: the first operand must be row-major and the second column-major "
             f"(strides {lhs.stride()} and {rhs.stride()}); quantize each operand into the "
             f"order its product takes")
-    return torch._int_mm(lhs, rhs)
+    with span("int8_mm"):
+        return torch._int_mm(lhs, rhs)
 
 
 def _int8_fwd_only(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -104,7 +117,7 @@ def _int8_fwd_only(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x_cols, w_cols = OPERAND_ORDERS["NN"]
     qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
     qw, sw = _q8(w, w_cols)
-    y = q8_dequant(_mm(qx, qw), sx, sw, torch.bfloat16)
+    y = _in_q8(q8_dequant, _mm(qx, qw), sx, sw, torch.bfloat16)
     return y.reshape(*shape[:-1], w.shape[-1])
 
 
@@ -121,13 +134,14 @@ class _Int8Matmul(torch.autograd.Function):
         (g_cols_nt, w_cols), (x_cols, g_cols_tn) = OPERAND_ORDERS["NT"], OPERAND_ORDERS["TN"]
         g2 = g.reshape(-1, g.shape[-1]).contiguous()
         # g quantized once, as JAX does, into both of its orders
-        g_rows, g_cols, sg = q8_quantize(g2, q8_amax(g2), both=True)
+        with span("q8"):
+            g_rows, g_cols, sg = q8_quantize(g2, q8_amax(g2), both=True)
         qg = g_cols if g_cols_nt else g_rows
         qg_tn = g_cols if g_cols_tn else g_rows
         qw, sw = _q8(w, w_cols)
         qx, sx = _q8(x.reshape(-1, shape[-1]), x_cols)
-        dx = q8_dequant(_mm(qg, qw, tb=True), sg, sw, x.dtype)  # dgrad: g @ w^T, NT
-        dw = q8_dequant(_mm(qx, qg_tn, ta=True), sx, sg, w.dtype)  # wgrad: x^T @ g, TN
+        dx = _in_q8(q8_dequant, _mm(qg, qw, tb=True), sg, sw, x.dtype)  # dgrad: g @ w^T, NT
+        dw = _in_q8(q8_dequant, _mm(qx, qg_tn, ta=True), sx, sg, w.dtype)  # wgrad: x^T @ g, TN
         return dx.reshape(shape), dw
 
 
@@ -205,19 +219,19 @@ class _ShardedInt8Matmul(torch.autograd.Function):
         b = x.shape[0]
         x_cols, w_cols = OPERAND_ORDERS["NN"]
         x2 = _rows(x, b)
-        amax_x = _pmax(q8_amax(x2), mesh, split.x)
-        amax_w = _pmax(q8_amax(w), mesh, split.w)
-        qx, sx = q8_quantize(x2, amax_x, x_cols)
+        amax_x = _pmax(_in_q8(q8_amax, x2), mesh, split.x)
+        amax_w = _pmax(_in_q8(q8_amax, w), mesh, split.w)
+        qx, sx = _in_q8(q8_quantize, x2, amax_x, x_cols)
         gathered = split.seq is not None and split.n == split.seq
         if gathered:  # SP, column parallel: the whole sequence's int8 rows
             qx = _seq_gather(qx, b, mesh, split.seq)
-        qw, sw = q8_quantize(w, amax_w, w_cols)
+        qw, sw = _in_q8(q8_quantize, w, amax_w, w_cols)
         acc = _reduce(_mm(qx, qw), b, mesh, split.k, split.seq)
         ctx.mesh, ctx.split, ctx.b, ctx.x_shape, ctx.x_dtype = mesh, split, b, x.shape, x.dtype
         # the wgrad's x: the gathered int8 rows, or x, quantized in its
         # order in the backward
         ctx.save_for_backward(qx if gathered else x2, w, amax_x, amax_w, sx)
-        return q8_dequant(acc, sx, sw, torch.bfloat16).reshape(b, -1, w.shape[1])
+        return _in_q8(q8_dequant, acc, sx, sw, torch.bfloat16).reshape(b, -1, w.shape[1])
 
     @staticmethod
     def backward(ctx, g):
@@ -225,27 +239,27 @@ class _ShardedInt8Matmul(torch.autograd.Function):
         mesh, split, b = ctx.mesh, ctx.split, ctx.b
         (g_cols_nt, w_cols), (x_cols, g_cols_tn) = OPERAND_ORDERS["NT"], OPERAND_ORDERS["TN"]
         g2 = _rows(g, b)
-        amax_g = _pmax(q8_amax(g2), mesh, split.g)
+        amax_g = _pmax(_in_q8(q8_amax, g2), mesh, split.g)
         if split.seq is not None and split.k == split.seq:
             # SP, row parallel: the whole sequence's int8 rows of g
-            g_rows, sg = q8_quantize(g2, amax_g)
+            g_rows, sg = _in_q8(q8_quantize, g2, amax_g)
             g_rows = _seq_gather(g_rows, b, mesh, split.seq)
             g_cols = _column_major(g_rows)
         else:  # g quantized once, as JAX does, into both of its orders
-            g_rows, g_cols, sg = q8_quantize(g2, amax_g, both=True)
+            g_rows, g_cols, sg = _in_q8(q8_quantize, g2, amax_g, both=True)
         qg = g_cols if g_cols_nt else g_rows
         qg_tn = g_cols if g_cols_tn else g_rows
-        qw, sw = q8_quantize(w, amax_w, w_cols)
+        qw, sw = _in_q8(q8_quantize, w, amax_w, w_cols)
         if x2.dtype == torch.int8:
             qx = _column_major(x2) if x_cols else x2
         else:
-            qx, _ = q8_quantize(x2, amax_x, x_cols)
+            qx, _ = _in_q8(q8_quantize, x2, amax_x, x_cols)
         dx = _reduce(_mm(qg, qw, tb=True), b, mesh, split.n, split.seq)  # dgrad: g @ w^T, NT
-        dx = q8_dequant(dx, sg, sw, ctx.x_dtype)
+        dx = _in_q8(q8_dequant, dx, sg, sw, ctx.x_dtype)
         dw = _mm(qx, qg_tn, ta=True)  # wgrad: x^T @ g, TN
         for axis in split.rows:
             dw = C.psum(dw, mesh, axis)
-        return dx.reshape(ctx.x_shape), q8_dequant(dw, sx, sg, w.dtype), None, None
+        return dx.reshape(ctx.x_shape), _in_q8(q8_dequant, dw, sx, sg, w.dtype), None, None
 
 
 def int8_matmul_sharded(x: torch.Tensor, w: torch.Tensor, mesh, split: Int8Split) -> torch.Tensor:
