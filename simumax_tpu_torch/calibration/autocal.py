@@ -167,7 +167,7 @@ def measure_gemm_efficiency(
     ``groups > 1`` (balanced grouped GEMM, as ``bmm``). The product's
     type is its operands' (``out_dtype`` is part of the key only).
     ``dtype="int8"`` times the int8 path's own product
-    (``torchref.quantized._mm``: ``torch._int_mm`` with int32 results) on
+    (``torchref.quantized._mm``: ``kernels.int8_gemm``, int32 results) on
     operands in the memory order the path's quantizer writes for that
     layout (``torchref.quantized.OPERAND_ORDERS``)."""
     dev = _card(device)

@@ -10,7 +10,7 @@ launched it):
   analytical ledger's families (:func:`op_family`); what runs in none of
   them is elementwise work.
 * :data:`GEMM_PARTS`, nested inside a ``gemm`` range and never in place of
-  it: ``int8_mm`` around each ``torch._int_mm`` of the int8 products,
+  it: ``int8_mm`` around each int8 product (``kernels.int8_gemm``),
   ``q8`` around each quantization (amax with its quantize) and each
   dequantization, ``expert_gemm`` around each MoE expert product.
 * :data:`PHASES` of ``make_fused_adam``'s step: ``step`` around the whole

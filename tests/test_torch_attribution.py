@@ -107,8 +107,9 @@ def test_profiled_int8_and_moe_steps_land_each_op_in_its_family(tmp_path):
     opt = init_opt(params)
     ids = torch.randint(0, 256, (1, 32), generator=torch.Generator().manual_seed(0))
     ops = _profiled_ops(lambda: train_step(params, opt, (ids, ids)), tmp_path / "int8.json")
-    # the int8 path's products and its quantization, forward and backward
-    assert _families_of(ops, "aten::_int_mm") == {"GEMM"}
+    # the int8 path's products (the port's int8 GEMM, whose plain version
+    # runs aten::mm here) and its quantization, forward and backward
+    assert _families_of(ops, "aten::mm") == {"GEMM"}
     assert _families_of(ops, "aten::round") == {"GEMM"}
 
     mcfg = MoE.MoeConfig(vocab_size=256, hidden_size=64, head_num=2, kv_head_num=2,

@@ -346,6 +346,104 @@ def test_int_mm_shape_rules_raise_on_the_card(card):
         torch._int_mm(ones(2, 32, 8), ones(8, 8))
 
 
+#: the int8 cell's linear layers (Aquila2-7B, 8192 tokens a step): (k, n)
+#: of qkv, out, up (gate and up), down and the LM head
+INT8_CELL_LINEAR = {"qkv": (4096, 12288), "out": (4096, 4096), "up": (4096, 22016),
+                    "down": (11008, 4096), "head": (4096, 100008)}
+#: the cell's 15 product shapes (m, k, n): each layer's forward x @ w,
+#: dgrad g @ w^T and wgrad x^T @ g
+INT8_CELL_PRODUCTS = {f"{name}-{layout}": shape for name, (k, n) in INT8_CELL_LINEAR.items()
+                      for layout, shape in (("forward", (8192, k, n)), ("dgrad", (8192, n, k)),
+                                            ("wgrad", (k, 8192, n)))}
+#: (m, k, n, row stride or None): tails of m, n and k, rows of 1, 24 and
+#: 8200, strides 8 mod 16 (the odd rows by 8-byte copies) and padded rows
+INT8_EDGE_PRODUCTS = [(24, 48, 40, None), (24, 16, 8, None), (8200, 4112, 264, None),
+                      (8200, 160, 100, 176), (8200, 136, 100, None), (17, 8, 8, None),
+                      (33, 24, 12, None), (25, 40, 36, None), (130, 1000, 260, None),
+                      (64, 48, 40, 56), (24, 100008, 72, None), (1, 16, 4, None),
+                      (1, 24, 8, None)]
+
+
+def _int8_operands(card, m, k, n, seed, ld=None, fill=None):
+    """a [m, k] row-major and b [k, n] column-major (rows ``ld`` bytes
+    apart where given), random int8 in [-127, 127] or ``fill``'s values."""
+    ld = ld or k
+    if fill is None:
+        gen = torch.Generator(device=card).manual_seed(seed)
+        a, bt = (torch.randint(-127, 128, (rows, ld), generator=gen, device=card,
+                               dtype=torch.int8) for rows in (m, n))
+    else:
+        a, bt = (torch.full((rows, ld), v, device=card, dtype=torch.int8)
+                 for rows, v in ((m, fill[0]), (n, fill[1])))
+    return a[:, :k], bt[:, :k].t()
+
+
+def _int8_reference(a, b):
+    """The exact product: ``torch._int_mm`` where it takes the shape, else
+    the plain version (float64) on the card."""
+    (m, k), n = a.shape, b.shape[1]
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        return torch._int_mm(a.contiguous(), b.t().contiguous().t())
+    return K.int8_gemm_plain(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(INT8_CELL_PRODUCTS))
+def test_int8_gemm_is_int_mm_at_the_int8_cells_products(card, case):
+    """Bit for bit ``torch._int_mm``, in one launch, at each of the int8
+    cell's product shapes (the LM head's dgrad through the 8-byte copies:
+    its rows are 100008 bytes long)."""
+    m, k, n = INT8_CELL_PRODUCTS[case]
+    a, b = _int8_operands(card, m, k, n, seed=m + k + n)
+    K.reset_launch_counts()
+    got = K.int8_gemm(a, b)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "int8_gemm": 1}
+    assert got.dtype == torch.int32 and torch.equal(got, torch._int_mm(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,ld", INT8_EDGE_PRODUCTS)
+def test_int8_gemm_is_exact_at_the_edges(card, m, k, n, ld):
+    a, b = _int8_operands(card, m, k, n, seed=m * n + k, ld=ld)
+    assert torch.equal(K.int8_gemm(a, b), _int8_reference(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [133120, 100008])  # TMA's loads; the 8-byte copies
+@pytest.mark.parametrize("fill", [(127, 127), (127, -127)])
+def test_int8_gemm_holds_the_largest_sums(card, k, fill):
+    """Every operand at +-127: each sum is +-127^2 k, at k 133120 within
+    391,168 of int32's limit."""
+    a, b = _int8_operands(card, 256, k, 64, seed=0, fill=fill)
+    want = torch.full((256, 64), fill[0] * fill[1] * k, dtype=torch.int32, device=card)
+    got = K.int8_gemm(a, b)
+    assert torch.equal(got, want) and torch.equal(got, torch._int_mm(a, b))
+
+
+@pytest.mark.cuda
+def test_int8_gemm_refuses_what_its_loads_do_not_take(card):
+    a, b = _int8_operands(card, 32, 12, 8, seed=0)
+    with pytest.raises(ValueError, match="row strides"):
+        K.int8_gemm(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vocab", [1024, 1064])  # 1064: 8 mod 16, as Aquila2's 100008
+def test_one_int8_step_on_the_card_runs_every_product_on_the_int8_gemm(card, vocab):
+    from simumax_tpu_torch.torchref import model as M
+
+    cfg = M.LlamaConfig(vocab_size=vocab, hidden_size=256, head_num=4, kv_head_num=2,
+                        head_size=64, intermediate_size=512, layer_num=2, use_int8=True)
+    params = M.init_params(cfg, seed=0, device=card)
+    init_opt, step = M.make_train_step(cfg)
+    opt = init_opt(params)
+    ids = torch.randint(0, vocab, (1, 256), generator=torch.Generator().manual_seed(0)).to(card)
+    K.reset_launch_counts()
+    step(params, opt, (ids, ids))
+    torch.cuda.synchronize()
+    assert K.launch_counts()["int8_gemm"] == 3 * (4 * cfg.layer_num + 1)
+
+
 def _events_s(calls, fn, samples=1):
     """Seconds per call of ``samples`` back-to-back windows of ``calls``
     eager calls of ``fn`` between CUDA events, queued behind the graph

@@ -21,6 +21,9 @@ from simumax_tpu_torch.torchref import spans  # noqa: E402
 
 #: the marker each q8 kernel wrapper's call leaves in a profile here
 Q8_CALL = "test_q8_call"
+#: the marker each call of the int8 path's GEMM (``kernels.int8_gemm``)
+#: leaves in a profile here
+GEMM_CALL = "test_int8_gemm_call"
 
 
 def _dense(use_int8: bool, layers: int = 1):
@@ -90,6 +93,19 @@ def _in_gemm(events, ranges) -> bool:
 
 
 @pytest.fixture
+def gemm_marked(monkeypatch):
+    """The int8 GEMM's wrapper, as ``quantized.py`` calls it, each call
+    marked by a :data:`GEMM_CALL` range."""
+    fn = Q.int8_gemm
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function(GEMM_CALL):
+            return fn(*args, **kwargs)
+
+    monkeypatch.setattr(Q, "int8_gemm", marked)
+
+
+@pytest.fixture
 def q8_marked(monkeypatch):
     """The q8 kernels' wrappers, as ``quantized.py`` calls them, each call
     marked by a :data:`Q8_CALL` range."""
@@ -103,10 +119,10 @@ def q8_marked(monkeypatch):
         monkeypatch.setattr(Q, name, marked)
 
 
-def test_each_int_mm_runs_in_an_int8_mm_span_inside_gemm(tmp_path):
+def test_each_int_mm_runs_in_an_int8_mm_span_inside_gemm(tmp_path, gemm_marked):
     events = _step_events(lambda: _dense(True), tmp_path / "t.json")
     products = 4 + 1  # qkv, out, up, down and the LM head
-    int_mm, int8_mm = _ops(events, "aten::_int_mm"), _ranges(events, "int8_mm")
+    int_mm, int8_mm = _ranges(events, GEMM_CALL), _ranges(events, "int8_mm")
     assert len(int_mm) == len(int8_mm) == 3 * products  # forward, dgrad, wgrad
     assert all(_inside(e, int8_mm) for e in int_mm)
     assert _in_gemm(events, int8_mm)
@@ -125,7 +141,7 @@ def test_each_q8_call_runs_in_a_q8_span_inside_gemm(tmp_path, q8_marked):
     assert not any(_inside(r, _ranges(events, "int8_mm")) for r in q8)
 
 
-def test_the_product_on_local_shards_has_the_same_spans(tmp_path, q8_marked):
+def test_the_product_on_local_shards_has_the_same_spans(tmp_path, q8_marked, gemm_marked):
     """``int8_matmul_sharded`` with no mesh axis (its one-rank case, which
     needs no process group), inside a ``gemm`` range as the DTensor step
     calls it."""
@@ -141,7 +157,7 @@ def test_the_product_on_local_shards_has_the_same_spans(tmp_path, q8_marked):
     events = _profile(product, tmp_path / "t.json")
     calls, q8, int8_mm = (_ranges(events, Q8_CALL), _ranges(events, "q8"),
                           _ranges(events, "int8_mm"))
-    assert len(int8_mm) == len(_ops(events, "aten::_int_mm")) == 3
+    assert len(int8_mm) == len(_ranges(events, GEMM_CALL)) == 3
     assert calls and all(_inside(e, q8) for e in calls)
     forward = [r for r in q8 + int8_mm if _inside(r, _ranges(events, "gemm"))]
     assert len(forward) == 5 + 1  # amax x and w, quantize x and w, dequantize; the product
