@@ -4,9 +4,11 @@
 (``workloads``) and the metrics; each cell's traffic is
 ``portbench/cells/<cell>.json``, each configuration
 ``portbench/configs/<config>.json`` and each metric a reader of its own,
-``portbench/metrics/<metric>.py``. A later change adds a cell, a
-configuration or a metric by adding files and entries, without editing
-one that is there.
+``portbench/metrics/<metric>.py``. A configuration's ``model`` names its
+kind, ``portbench/kinds/<kind>.py``: the model's sizes, weights, port
+step, plain reference and work counts. A later change adds a cell, a
+configuration, a metric or a model kind by adding files and entries,
+without editing one that is there.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import importlib.util
 import json
 import os
 import re
+import sys
 from types import ModuleType
 from typing import Dict, List, Optional
 
@@ -23,6 +26,11 @@ BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+#: what a model kind's module gives: its sizes (``sizes(config)``, the
+#: run's ``weights.Model``), its leaves, the port's step, the plain
+#: reference's loss and the work counts
+KIND_API = ("sizes", "leaf_specs", "build", "loss", "linear_shapes", "attention_ops",
+            "attention_elements", "param_count", "touched_params")
 
 
 @dataclasses.dataclass
@@ -53,6 +61,28 @@ def load_reader(name: str, bench_dir: str = BENCH_DIR) -> ModuleType:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def load_kind(name: str) -> ModuleType:
+    """The model kind ``kinds/<name>.py``, loaded from its file once a
+    process (registered before it runs, so its dataclasses resolve)."""
+    key = f"portbench_kind_{name}"
+    if key not in sys.modules:
+        path = os.path.join(BENCH_DIR, "kinds", f"{name}.py")
+        if not NAME.match(name) or not os.path.exists(path):
+            raise FileNotFoundError(f"no model kind {name!r} at {path}")
+        spec = importlib.util.spec_from_file_location(key, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[key] = module
+        try:
+            spec.loader.exec_module(module)
+            missing = [attr for attr in KIND_API if not hasattr(module, attr)]
+            if missing:
+                raise AttributeError(f"model kind {name!r} lacks {missing}")
+        except BaseException:
+            del sys.modules[key]
+            raise
+    return sys.modules[key]
 
 
 def _applies(metric: Dict, workload: str) -> bool:

@@ -6,31 +6,24 @@ with TF32 off, and gives what the comparison reads: each step's loss, each
 leaf's first gradient norm and each leaf's change after the steps. It
 imports nothing of the program and takes nothing the program made.
 
-What it computes, for both models:
+What it computes: the kind's loss (``portbench/kinds/<kind>.py``), built
+from the pieces here:
 
 * the embedding lookup; RMS norms ``x * rsqrt(mean(x^2) + eps) * w``;
   split-half RoPE by ``pos * theta^(-2i/d)``; causal softmax attention
   scaled by ``1 / sqrt(d)``, kv head ``n // (heads / kv_heads)`` read by
-  query head n;
-* the dense MLP ``down(silu(gate) * val)`` with ``[gate | val] = up(y)``;
-  the MoE MLP: gate logits, a float32 softmax, the top-k experts,
-  weights renormalised as ``v / (sum v + 1e-9)``, each expert's
-  assignments in token-major order kept up to ``int(cf * T * k / e)``
-  and the rest dropped, each kept assignment through its expert's
-  SwiGLU MLP and added to its token weighted;
+  query head n; ``silu(gate) * val`` over ``[gate | val]``;
 * the LM head and the mean next-token cross-entropy;
 * Adam as the configuration states it: float32 moments, bias-corrected,
   the update computed in float32 and the parameter rounded to bfloat16
   after every step (the served type keeps no float32 master copy).
 
-``levels`` selects the linear layers' arithmetic (every product but the
-MoE router's): None for float32, 127 for the int8 rule (per-tensor
+``levels`` selects the linear layers' arithmetic (every product but an MoE
+router's): None for float32, 127 for the int8 rule (per-tensor
 symmetric, scale ``(amax + 1e-6) / 127``, rounded half to even and
 clipped; every product quantizes both operands in the forward, the dgrad
 and the wgrad), 7 for the same rule at int4. ``router_levels`` selects
-the MoE router's product alike: float32 in the reference itself, the int8
-rule in the MoE cell's control, which computes every product of the step
-one precision below the configuration's bf16.
+a router's product alike, for the kinds that have one.
 
 Each block is recomputed for its backward (``torch.utils.checkpoint``),
 so the reference fits on the card beside nothing but itself.
@@ -39,18 +32,17 @@ so the reference fits on the card beside nothing but itself.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from portbench.manifest import load_kind
 from portbench.weights import Model, Path, change_norms, get_path, leaf_stream, set_path
 
 #: query heads of one attention chunk (the chunks bound the scores' memory)
 HEAD_CHUNK = 8
-#: the MoE route's renormalisation term
-RENORM_EPS = 1e-9
 
 
 def quantize(t: torch.Tensor, levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -105,7 +97,8 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Causal attention: q [b, s, n, d], k and v [b, s, kv, d] -> [b, s, n d]."""
+    """Causal attention: q [b, s, n, d], k [b, s, kv, d] and v [b, s, kv,
+    dv] -> [b, s, n dv]."""
     b, s, n, d = q.shape
     group = n // k.shape[2]
     k = k.repeat_interleave(group, dim=2).transpose(1, 2)
@@ -117,7 +110,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor
         scores = (q[:, c:c + HEAD_CHUNK] @ k[:, c:c + HEAD_CHUNK].transpose(-1, -2)) / math.sqrt(d)
         probs = torch.softmax(scores.masked_fill(future, float("-inf")), dim=-1)
         outs.append(probs @ v[:, c:c + HEAD_CHUNK])
-    return torch.cat(outs, 1).transpose(1, 2).reshape(b, s, n * d)
+    return torch.cat(outs, 1).transpose(1, 2).reshape(b, s, n * v.shape[-1])
 
 
 def swiglu(up: torch.Tensor) -> torch.Tensor:
@@ -125,47 +118,27 @@ def swiglu(up: torch.Tensor) -> torch.Tensor:
     return F.silu(up[..., :f]) * up[..., f:]
 
 
-def moe_mlp(y: torch.Tensor, p: Dict, m: Model, levels: Optional[int],
-            router_levels: Optional[int]) -> torch.Tensor:
-    b, s, h = y.shape
-    T, k, e = b * s, m.topk, m.experts
-    y2 = y.reshape(T, h)
-    probs = torch.softmax(linear(y2, p["gate"], router_levels), dim=-1)
-    topv, topi = probs.topk(k, dim=-1)
-    w = (topv / (topv.sum(-1, keepdim=True) + RENORM_EPS)).reshape(T * k)
-    expert = topi.reshape(T * k)  # assignment a = token * k + j
-    onehot = F.one_hot(expert, e)
-    rank = (onehot.cumsum(0) * onehot).sum(-1) - 1  # its place in its expert's run
-    keep = rank < int(m.capacity_factor * T * k / e)
-    out = torch.zeros_like(y2)
-    for x in range(e):
-        a = torch.nonzero((expert == x) & keep).squeeze(1)
-        tok = a // k
-        down = linear(swiglu(linear(y2[tok], p["moe_up"][x], levels)), p["moe_down"][x], levels)
-        out = out.index_add(0, tok, down * w[a, None])
-    return out.reshape(b, s, h)
-
-
-def block(x: torch.Tensor, p: Dict, m: Model, levels: Optional[int],
-          router_levels: Optional[int]) -> torch.Tensor:
+def self_attention(x: torch.Tensor, p: Dict, m: Model, levels: Optional[int]) -> torch.Tensor:
+    """The residual stream after a block's attention: ``x`` plus the out
+    projection of causal GQA attention over the RoPE'd q and k of
+    ``qkv(rms_norm(x))``."""
     b, s, _ = x.shape
     d, n, kv = m.head_dim, m.heads, m.kv_heads
     y = rms_norm(x, p["input_norm"], m.eps)
     q, kk, v = torch.split(linear(y, p["qkv"], levels), [n * d, kv * d, kv * d], dim=-1)
     q = rope(q.reshape(b, s, n, d), m.rope_theta)
     kk = rope(kk.reshape(b, s, kv, d), m.rope_theta)
-    x = x + linear(attention(q, kk, v.reshape(b, s, kv, d)), p["out"], levels)
-    y = rms_norm(x, p["pre_mlp_norm"], m.eps)
-    if m.kind == "moe":
-        return x + moe_mlp(y, p, m, levels, router_levels)
-    return x + linear(swiglu(linear(y, p["up"], levels)), p["down"], levels)
+    return x + linear(attention(q, kk, v.reshape(b, s, kv, d)), p["out"], levels)
 
 
-def loss_fn(params: Dict, ids: torch.Tensor, targets: torch.Tensor, m: Model,
-            levels: Optional[int], router_levels: Optional[int] = None) -> torch.Tensor:
+def decoder_loss(params: Dict, ids: torch.Tensor, targets: torch.Tensor, m: Model,
+                 levels: Optional[int], block: Callable, *block_args) -> torch.Tensor:
+    """The mean next-token cross-entropy of a decoder: the embedding, each
+    layer's ``block(x, p, m, levels, *block_args)`` recomputed for its
+    backward, the final norm and the LM head."""
     x = params["embedding"][ids]
     for p in params["layers"]:
-        x = checkpoint(block, x, p, m, levels, router_levels, use_reentrant=False)
+        x = checkpoint(block, x, p, m, levels, *block_args, use_reentrant=False)
     logits = linear(rms_norm(x, params["final_norm"], m.eps), params["lm_head"], levels)
     return F.cross_entropy(logits.reshape(-1, m.vocab), targets.reshape(-1))
 
@@ -191,6 +164,7 @@ def follow(m: Model, opt: Dict, seed: int, batches, steps: int = 3,
     seed's weights on ``batches`` [(ids, targets)]: {"loss": [each
     step's loss], "grad1": {path: norm of the first step's gradient},
     "change": {path: norm of the change after the steps}}."""
+    loss_fn = load_kind(m.kind).loss
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -6,33 +6,28 @@ each cell's control and faults are caught. Run on the card:
 import pytest
 
 from portbench import compare, faults, readings, run
-from portbench.tests.test_portbench_cpu_run import TINY_LIMITS
 from portbench.tests.tiny import CELLS, tiny_spec
-
-
-def _spec(workload):
-    spec = tiny_spec(workload)
-    spec.cell["limits"] = dict(TINY_LIMITS[workload])
-    return spec
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_tiny_run_on_the_card_is_correct(card, workload):
-    result = run.run_cell(_spec(workload), 3000000123, 0.2, True, device=card)
+    spec = tiny_spec(workload)
+    result = run.run_cell(spec, 3000000123, 0.2, True, device=card)
     assert result["correct"], result["compared"]
     assert result["device"]["platform"] == "gpu" and result["device"]["busy_s"] > 0
-    assert set(result["metrics"]) == set(_spec(workload).per_layer)
+    assert set(result["metrics"]) == set(spec.per_layer)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_control_and_the_faults_fail_on_the_card(card, workload):
+    spec = tiny_spec(workload)
     for seed in (1, 2, 3):
-        nums = readings.compare_seed(_spec(workload), seed, ["control", "half_batch"], card)
+        nums = readings.compare_seed(spec, seed, ["control", "half_batch"], card)
         for kind, (found, _side, _ref, _s) in nums.items():
-            ok, compared = compare.judge(found, TINY_LIMITS[workload])
+            ok, compared = compare.judge(found, spec.cell["limits"])
             assert not ok, (kind, compared)
-    result = run.run_cell(_spec(workload), 5, 0.1, False, device=card,
+    result = run.run_cell(tiny_spec(workload), 5, 0.1, False, device=card,
                           wrap_step=faults.unchanged)
     assert not result["correct"]

@@ -1,9 +1,12 @@
 """The harness end to end at a tiny size on the CPU, through the port's
-plain kernel versions: each cell's path held to its plain reference, the
-faults a training cell can have caught, no JAX loaded, and a reference
-that imports nothing of the program."""
+plain kernel versions: each cell's path held to its plain reference at its
+kind's tiny limits (``portbench/tests/kinds/<kind>.py``), the faults a
+training cell can have caught, no JAX loaded, and a reference that imports
+nothing of the program."""
 
 import ast
+import glob
+import json
 import os
 import subprocess
 import sys
@@ -13,30 +16,10 @@ import pytest
 from portbench import compare, faults, manifest, readings, run
 from portbench.tests.tiny import CELLS, tiny_spec
 
-#: limits for the tiny sizes, set as the cells' own are (between the
-#: sound runs' largest reading and the control's or a fault's smallest)
-#: from CPU readings at these sizes: seeds 1-12 sound, 1-4 control and
-#: half batch. Sound / control / half batch: bf16 loss 3.7e-4 / 7.5e-4 /
-#: 9.1e-3, grad1 1.6e-3 / 9.8e-3 / 0.40, change 2.3e-3 / 3.4e-3 / 0.22;
-#: int8 loss 2.5e-3 / 6.9e-3 / 9.9e-3, grad1 1.3e-2 / 0.10 / 0.40, change
-#: 7.5e-3 / 0.29 / 0.22; MoE (the control's router in int8 too) loss 6.7e-5 /
-#: 8.3e-5 / 3.0e-3, grad1 1.5e-2 / 7.0e-2 / 0.41, change 1.5e-3 / 2.0e-2 / 0.22
-TINY_LIMITS = {
-    "aquila2-7b.bf16-flash-s2048x4": {"loss_gap": 2e-3, "grad1_gap": 5e-3, "change_gap": 0.02},
-    "aquila2-7b.int8-flash-s2048x4": {"loss_gap": 8e-3, "grad1_gap": 0.04, "change_gap": 0.05},
-    "mixtral-8x7b.bf16-s4096x2": {"loss_gap": 1e-3, "grad1_gap": 0.04, "change_gap": 8e-3},
-}
-
-
-def _spec(workload):
-    spec = tiny_spec(workload)
-    spec.cell["limits"] = dict(TINY_LIMITS[workload])
-    return spec
-
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_tiny_run_is_correct(workload):
-    result = run.run_cell(_spec(workload), 3000000123, 0.2, False, device="cpu")
+    result = run.run_cell(tiny_spec(workload), 3000000123, 0.2, False, device="cpu")
     assert result["correct"], result["compared"]
     assert result["attempted"] >= 1 and result["failed"] == 0
     assert set(result["metrics"]) == {"tokens_per_s", "step_ms_p90", "setup_s"}
@@ -46,16 +29,17 @@ def test_a_tiny_run_is_correct(workload):
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 @pytest.mark.parametrize("workload", CELLS)
 def test_a_fault_under_the_timed_path_is_caught(workload, fault):
-    result = run.run_cell(_spec(workload), 7, 0.1, False, device="cpu",
+    result = run.run_cell(tiny_spec(workload), 7, 0.1, False, device="cpu",
                           wrap_step=faults.FAULTS[fault])
     assert not result["correct"], result["compared"]
 
 
 @pytest.mark.parametrize("workload", CELLS)
 def test_the_control_fails(workload):
+    spec = tiny_spec(workload)
     for seed in (1, 2, 3):
-        nums = readings.compare_seed(_spec(workload), seed, ["control"], "cpu")["control"][0]
-        ok, compared = compare.judge(nums, TINY_LIMITS[workload])
+        nums = readings.compare_seed(spec, seed, ["control"], "cpu")["control"][0]
+        ok, compared = compare.judge(nums, spec.cell["limits"])
         assert not ok, compared
 
 
@@ -77,25 +61,64 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
     assert {"simumax_tpu.fake", "jaxlib.fake"} <= set(run.forbidden_modules())
 
 
-def _imports(path):
+#: what reference.py and weights.py may import, at any depth: torch, the
+#: weights and the manifest, which loads the kinds
+REFERENCE_IMPORTS = {"__future__", "dataclasses", "math", "typing", "torch", "torch.nn.functional",
+                     "torch.utils.checkpoint", "portbench.weights", "portbench.manifest"}
+#: what a kind module may import at module level: the reference's list, and
+#: the harness's modules that import nothing of the program at module level
+#: (``program`` imports the port inside ``build``, which a kind calls from
+#: its own ``build``)
+KIND_IMPORTS = REFERENCE_IMPORTS | {"portbench.reference", "portbench.work",
+                                    "portbench.program"}
+#: a tiny run of every kind's reference loss, then the top-level names of
+#: every module loaded
+REFERENCE_ONLY = """
+import glob, json, os, sys
+from portbench import manifest, reference, weights
+from portbench.tests.tiny import tiny_config
+for path in sorted(glob.glob(os.path.join(manifest.BENCH_DIR, "configs", "*.json"))):
+    config = tiny_config(manifest.read_json(path))
+    m = weights.Model.from_config(config)
+    batches = weights.make_batches(5, 1, 2, 16, m.vocab, "cpu")
+    reference.follow(m, config["optimizer"], 5, batches, 1, None, "cpu")
+for path in glob.glob(os.path.join(manifest.BENCH_DIR, "kinds", "*.py")):
+    manifest.load_kind(os.path.basename(path)[:-3])
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def _imports(path, top_level=False):
+    """The modules a file imports (``portbench.<name>`` for ``from
+    portbench import <name>``), at module level only if ``top_level``."""
     tree = ast.parse(open(path).read())
-    for node in ast.walk(tree):
+    for node in tree.body if top_level else ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module == "portbench":
+            yield from (f"portbench.{a.name}" for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             yield node.module
 
 
 def test_the_reference_imports_nothing_of_the_program():
+    """reference.py and weights.py anywhere, each kind module at module level
+    (its ``build`` imports the port when called), and every kind's reference
+    run in a process of its own."""
     for name in ("reference.py", "weights.py"):
         mods = set(_imports(os.path.join(manifest.BENCH_DIR, name)))
-        assert mods <= {"__future__", "dataclasses", "math", "typing", "torch",
-                        "torch.nn.functional", "torch.utils.checkpoint", "portbench.weights"}
-    code = "import sys, portbench.reference; print(sorted({m.split('.')[0] for m in sys.modules}))"
-    out = subprocess.run([sys.executable, "-c", code], cwd=manifest.ROOT, capture_output=True,
-                         text=True, timeout=300, env=dict(os.environ, PYTHONPATH=manifest.ROOT))
+        assert mods <= REFERENCE_IMPORTS, (name, sorted(mods - REFERENCE_IMPORTS))
+    kinds = sorted(glob.glob(os.path.join(manifest.BENCH_DIR, "kinds", "*.py")))
+    assert {os.path.basename(k) for k in kinds} >= {"dense.py", "moe.py"}
+    for path in kinds:
+        mods = set(_imports(path, top_level=True))
+        assert mods <= KIND_IMPORTS, (path, sorted(mods - KIND_IMPORTS))
+    out = subprocess.run([sys.executable, "-c", REFERENCE_ONLY], cwd=manifest.ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=manifest.ROOT))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "simumax_tpu_torch" not in out.stdout and "'jax'" not in out.stdout
+    loaded = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert "portbench" in loaded and not loaded & {"simumax_tpu_torch", "simumax_tpu", "jax"}
 
 
 def test_the_command_fails_without_a_card_or_without_the_program(tmp_path):

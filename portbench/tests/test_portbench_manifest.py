@@ -78,6 +78,8 @@ def test_configs_and_cells(bench):
         assert c["file"].startswith(tuple(p + "/" for p in bench["paths"]))
         config = manifest.read_json(os.path.join(manifest.ROOT, c["file"]))
         assert config["name"] == c["name"] and config["source"] == c["source"]
+        kind = manifest.load_kind(config["model"])
+        assert os.path.dirname(kind.__file__) == os.path.join(manifest.BENCH_DIR, "kinds")
         assert len(c["reduced"]) <= 16 and set(c["reduced"]) == set(config["reduced"])
         for key in c["reduced"]:
             assert manifest.NAME.match(key) and not WIDTH.search(key)

@@ -15,7 +15,8 @@ from portbench.weights import Model
 DENSE = Model(kind="dense", vocab=10, hidden=4, heads=2, kv_heads=1, head_dim=2, layers=3,
               ffn=6, rope_theta=1e4, eps=1e-5)
 MOE = Model(kind="moe", vocab=10, hidden=4, heads=2, kv_heads=1, head_dim=2, layers=2, ffn=3,
-            rope_theta=1e4, eps=1e-5, experts=4, topk=2, capacity_factor=2.0)
+            rope_theta=1e4, eps=1e-5,
+            own=manifest.load_kind("moe").Own(experts=4, topk=2, capacity_factor=2.0))
 
 
 def _kernel(name, ts, dur, corr):

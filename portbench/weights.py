@@ -11,9 +11,11 @@ device gives the same bits. Nothing here imports the program.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+
+from portbench.manifest import load_kind
 
 #: offset of the batch generator's seed from the weights' (both generators
 #: take any seed the benchmark is given; this keeps their streams apart)
@@ -22,9 +24,10 @@ BATCH_SEED_OFFSET = 1 << 40
 
 @dataclasses.dataclass(frozen=True)
 class Model:
-    """A configuration file's run sizes, in the names the harness uses."""
+    """A configuration file's run sizes, in the names the harness uses: the
+    sizes every kind has, and in ``own`` those only its kind uses."""
 
-    kind: str  # "dense" or "moe"
+    kind: str  # the configuration's ``model``: portbench/kinds/<kind>.py
     vocab: int
     hidden: int
     heads: int
@@ -34,13 +37,17 @@ class Model:
     ffn: int  # the dense intermediate size, or one expert's
     rope_theta: float
     eps: float
-    experts: int = 0
-    topk: int = 0
-    capacity_factor: float = 0.0
+    own: Any = None  # the kind's own sizes, as its module defines them
 
     @classmethod
     def from_config(cls, cfg: Dict) -> "Model":
-        moe = cfg["model"] == "moe"
+        """The sizes of ``cfg``, as its kind reads them."""
+        return load_kind(cfg["model"]).sizes(cfg)
+
+    @classmethod
+    def common(cls, cfg: Dict, own: Any = None) -> "Model":
+        """The sizes every kind reads from the same keys, with the kind's
+        ``own``."""
         return cls(
             kind=cfg["model"],
             vocab=int(cfg["vocab_size"]),
@@ -52,9 +59,7 @@ class Model:
             ffn=int(cfg["intermediate_size"]),
             rope_theta=float(cfg["rope_theta"]),
             eps=float(cfg["rms_norm_eps"]),
-            experts=int(cfg["num_local_experts"]) if moe else 0,
-            topk=int(cfg["num_experts_per_tok"]) if moe else 0,
-            capacity_factor=float(cfg["capacity_factor"]) if moe else 0.0,
+            own=own,
         )
 
 
@@ -63,38 +68,9 @@ Path = Tuple  # ("layers", 3, "qkv") and the like
 
 def leaf_specs(m: Model) -> List[Tuple[Path, Tuple[int, ...], float]]:
     """(path, shape, scale) of every parameter in the program's layout,
-    in the order they are made; scale 0 marks a norm weight (ones). The
-    scales are the program's own initialisers': the dense model's
-    1 / sqrt(fan in) (0.02 for the embedding), the MoE model's 0.02."""
-    h, d = m.hidden, m.head_dim
-    qkv = (h, (m.heads + 2 * m.kv_heads) * d)
-    if m.kind == "dense":
-        specs = [(("embedding",), (m.vocab, h), 0.02)]
-        for i in range(m.layers):
-            specs += [
-                (("layers", i, "input_norm"), (h,), 0.0),
-                (("layers", i, "qkv"), qkv, h ** -0.5),
-                (("layers", i, "out"), (m.heads * d, h), (m.heads * d) ** -0.5),
-                (("layers", i, "pre_mlp_norm"), (h,), 0.0),
-                (("layers", i, "up"), (h, 2 * m.ffn), h ** -0.5),
-                (("layers", i, "down"), (m.ffn, h), m.ffn ** -0.5),
-            ]
-        return specs + [(("final_norm",), (h,), 0.0), (("lm_head",), (h, m.vocab), h ** -0.5)]
-    if m.kind != "moe":
-        raise ValueError(f"unknown model kind {m.kind!r}")
-    e = m.experts
-    specs = [(("embedding",), (m.vocab, h), 0.02)]
-    for i in range(m.layers):
-        specs += [
-            (("layers", i, "input_norm"), (h,), 0.0),
-            (("layers", i, "qkv"), qkv, 0.02),
-            (("layers", i, "out"), (m.heads * d, h), 0.02),
-            (("layers", i, "pre_mlp_norm"), (h,), 0.0),
-            (("layers", i, "gate"), (h, e), 0.02),
-            (("layers", i, "moe_up"), (e, h, 2 * m.ffn), 0.02),
-            (("layers", i, "moe_down"), (e, m.ffn, h), 0.02),
-        ]
-    return specs + [(("final_norm",), (h,), 0.0), (("lm_head",), (h, m.vocab), 0.02)]
+    in the order they are made, as the kind gives them; scale 0 marks a
+    norm weight (ones)."""
+    return load_kind(m.kind).leaf_specs(m)
 
 
 def leaf_stream(m: Model, seed: int, device) -> Iterator[Tuple[Path, torch.Tensor]]:

@@ -13,13 +13,16 @@ What is counted is what the step needs, not what an implementation does:
 the causal half of attention and no recompute; the MoE experts' products
 over the routed assignments (tokens x top-k), not the padded capacity
 buffer; Adam's bytes at one read of the parameter, gradient and both
-moments and one write of the parameter and both moments.
+moments and one write of the parameter and both moments. The shapes come
+from the model's kind (``portbench/kinds/<kind>.py``): its linear layers,
+attention's operations and elements, its parameters.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+from portbench.manifest import load_kind
 from portbench.weights import Model
 
 #: published peaks of one NVIDIA H100 SXM (dense, no sparsity)
@@ -34,19 +37,7 @@ def linear_shapes(m: Model) -> List[Tuple[str, int, int, int, int]]:
     top-k, the routed assignments over all experts), ``weights`` [k, n]
     matrices read (the experts'). The MoE router's product runs in the
     route's range, not among these."""
-    h, d = m.hidden, m.head_dim
-    out = []
-    for _ in range(m.layers):
-        out.append(("qkv", 1, h, (m.heads + 2 * m.kv_heads) * d, 1))
-        out.append(("out", 1, m.heads * d, h, 1))
-        if m.kind == "moe":
-            out.append(("expert_up", m.topk, h, 2 * m.ffn, m.experts))
-            out.append(("expert_down", m.topk, m.ffn, h, m.experts))
-        else:
-            out.append(("up", 1, h, 2 * m.ffn, 1))
-            out.append(("down", 1, m.ffn, h, 1))
-    out.append(("lm_head", 1, h, m.vocab, 1))
-    return out
+    return load_kind(m.kind).linear_shapes(m)
 
 
 def product_ideal_s(rows: int, k: int, n: int, linear: str, weights: int = 1) -> float:
@@ -68,48 +59,52 @@ def gemm_ideal_s(m: Model, tokens: int, linear: str) -> float:
 
 
 def attention_ops(m: Model, mbs: int, seq: int) -> float:
-    """Causal attention's operations a step: the forward's two products
-    and the backward's four over the causal half, 6 b s^2 heads d a layer."""
-    return 6.0 * mbs * seq * seq * m.heads * m.head_dim * m.layers
+    """Causal attention's operations a step, as the kind counts them."""
+    return load_kind(m.kind).attention_ops(m, mbs, seq)
 
 
 def attention_ideal_s(m: Model, mbs: int, seq: int) -> float:
     """Attention's ideal seconds a step: its operations at the bf16 peak,
-    or q, k, v, o and their gradients read or written once (bf16),
-    whichever is longer."""
-    tokens = mbs * seq
+    or the elements it reads and writes (the kind's count) once each in
+    bf16, whichever is longer."""
+    bytes_ = BF16 * load_kind(m.kind).attention_elements(m, mbs * seq)
+    return max(attention_ops(m, mbs, seq) / PEAK_OPS["bf16"], bytes_ / HBM_BYTES_PER_S)
+
+
+def gqa_shapes(m: Model) -> List[Tuple[str, int, int, int, int]]:
+    """The linear layers of one GQA attention block, as :func:`linear_shapes`
+    gives them."""
+    h, d = m.hidden, m.head_dim
+    return [("qkv", 1, h, (m.heads + 2 * m.kv_heads) * d, 1), ("out", 1, m.heads * d, h, 1)]
+
+
+def gqa_attention_ops(m: Model, mbs: int, seq: int) -> float:
+    """Causal GQA attention's operations a step: the forward's two products
+    and the backward's four over the causal half, 6 b s^2 heads d a layer."""
+    return 6.0 * mbs * seq * seq * m.heads * m.head_dim * m.layers
+
+
+def gqa_attention_elements(m: Model, tokens: int) -> int:
+    """The elements GQA attention reads and writes a step: q, k, v and o
+    and their gradients once each."""
     q_elems = tokens * m.heads * m.head_dim
     kv_elems = tokens * m.kv_heads * m.head_dim
     # forward: q, k, v read, o written; backward: q, k, v, o, do read and
     # dq, dk, dv written
     elems = (q_elems + 2 * kv_elems + q_elems) + (3 * q_elems + 2 * kv_elems) \
         + (q_elems + 2 * kv_elems)
-    bytes_ = BF16 * elems * m.layers
-    return max(attention_ops(m, mbs, seq) / PEAK_OPS["bf16"], bytes_ / HBM_BYTES_PER_S)
+    return elems * m.layers
 
 
 def param_count(m: Model) -> int:
-    h, d = m.hidden, m.head_dim
-    attn = h * (m.heads + 2 * m.kv_heads) * d + m.heads * d * h + 2 * h
-    if m.kind == "moe":
-        mlp = h * m.experts + m.experts * 3 * h * m.ffn
-    else:
-        mlp = 3 * h * m.ffn
-    return m.layers * (attn + mlp) + 2 * m.vocab * h + h
+    return load_kind(m.kind).param_count(m)
 
 
 def touched_params(m: Model) -> Dict[str, int]:
     """The parameters one token touches, by the type their products run
-    in: the embedding lookup left out, only the top-k experts counted."""
-    h, d = m.hidden, m.head_dim
-    linear = m.layers * (h * (m.heads + 2 * m.kv_heads) * d + m.heads * d * h)
-    other = m.layers * 2 * h + h  # the norms' weights
-    if m.kind == "moe":
-        linear += m.layers * m.topk * 3 * h * m.ffn
-        other += m.layers * h * m.experts  # the router's product stays bf16
-    else:
-        linear += m.layers * 3 * h * m.ffn
-    return {"linear": linear + h * m.vocab, "other": other}
+    in (``linear``, ``other``): the embedding lookup left out, only the
+    experts a token is routed to counted."""
+    return load_kind(m.kind).touched_params(m)
 
 
 def model_ideal_s(m: Model, mbs: int, seq: int, linear: str) -> float:
