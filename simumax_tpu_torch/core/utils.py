@@ -6,7 +6,7 @@ the gate of the CUDA flash kernels."""
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
 
 def dp_comm_buckets(numel: float, group_size: int) -> List[float]:
@@ -63,20 +63,25 @@ def humanize_result(d: Any) -> Any:
 #: block owns 64 query (or key) rows and streams 64-row tiles of the
 #: other operand through shared memory
 CUDA_FLASH_BLOCK = 64
-#: head sizes the CUDA flash kernels are instantiated for
+#: head sizes the CUDA flash kernels are instantiated for, q, k and v alike
 CUDA_FLASH_HEAD_SIZES = (64, 128)
+#: (q and k head, v head) pairs the kernels are instantiated for: the equal
+#: sizes, and latent attention's 192-wide q and k heads over 128-wide values
+#: (bf16 only)
+CUDA_FLASH_HEAD_PAIRS = tuple((d, d) for d in CUDA_FLASH_HEAD_SIZES) + ((192, 128),)
 
 
-def cuda_flash_supported(sq: int, skv: int, d: int) -> bool:
+def cuda_flash_supported(sq: int, skv: int, d: int, dv: Optional[int] = None) -> bool:
     """Shape gate of the hand-written CUDA flash kernels, shared by the
     runtime dispatcher (``torchref.kernels.attention``), the calibration
     sweep, and the analytical ``sdp_backend="cuda"`` sanity check —
     one predicate so prediction and measurement cannot silently pick
     different backends. It admits exactly the shapes the kernels take:
     sequence lengths that tile into whole 64-row blocks (the kernels
-    mask no ragged edge) and the head sizes they are compiled for."""
+    mask no ragged edge) and the head sizes they are compiled for: q and
+    k heads of ``d``, v heads of ``dv`` (``d`` where not given)."""
     return (
         sq > 0 and skv > 0
         and sq % CUDA_FLASH_BLOCK == 0 and skv % CUDA_FLASH_BLOCK == 0
-        and d in CUDA_FLASH_HEAD_SIZES
+        and (d, d if dv is None else dv) in CUDA_FLASH_HEAD_PAIRS
     )

@@ -10,7 +10,11 @@
 //   * the max(l, 1e-30) guard; O, dq, dk, dv in the input dtype, LSE fp32.
 //
 // Layout: every tensor is [b*h, s, d] contiguous (MHA: GQA kv heads are
-// repeated upstream), LSE and delta are [b*h, s] fp32.
+// repeated upstream), LSE and delta are [b*h, s] fp32. V, O and their
+// gradients may be narrower than Q and K (dv < d): latent attention (MLA)
+// scores 192-wide q and k heads (128 without rotation, 64 with) and reads
+// 128-wide values. The bf16 kernels take (d, dv) = (64, 64), (128, 128)
+// and (192, 128); the fp32 ones d = dv only.
 //
 // What bounds them on this card. At the slice shapes (b=1, h=16, s=2048,
 // d=128, causal) each kernel does 17-34 GFLOP over ~34 MB, far above the
@@ -176,6 +180,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// d[64 x 16] (+)= A[64 x 16] . B[16 x 16]: A and B in shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d[64 x 32] (+)= A[64 x 16] . B[16 x 32]: A and B in shared memory, both K-major
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
                                          int accumulate) {
@@ -239,6 +253,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 192] += A[64 x 16] . B[16 x 192]: A in registers, B in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // bf16 forward: one CTA (one warpgroup) per (64-row q tile, b*h). Q is copied
 // once; 64-key K/V tiles stream through a two-stage ring, the copy of tile
@@ -246,19 +287,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 // times sm_scale; the causal mask only on tiles that cross the diagonal; the
 // online softmax in the accumulator's registers; P rounded to bf16 into the A
 // fragments of O += P.V (RS wgmma, V MN-major); l summed from the fp32 P.
+// Q and K tiles are D wide, V and O tiles DV wide.
 // Shared memory: Q, then K and V of stage 0 and of stage 1 (5 tiles).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(WG)
 flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int sq, int skv, float sm_scale, int causal) {
-  constexpr int TB = BQ * D * 2;  // bytes of a 64-row tile
+  constexpr int TB = BQ * D * 2, TV = BK * DV * 2;  // bytes of a 64-row tile of Q or K, of V
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t Qs = base;
-  auto Ks = [&](int st) { return base + TB * (1 + 2 * st); };
-  auto Vs = [&](int st) { return base + TB * (2 + 2 * st); };
+  auto Ks = [&](int st) { return base + TB + (TB + TV) * st; };
+  auto Vs = [&](int st) { return base + 2 * TB + (TB + TV) * st; };
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
@@ -266,24 +308,24 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const size_t bh = blockIdx.y;
   const __nv_bfloat16* kb = k + bh * skv * D;
-  const __nv_bfloat16* vb = v + bh * skv * D;
+  const __nv_bfloat16* vb = v + bh * skv * DV;
   int nkb = skv / BK;
   if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
 
   cp_tile<BQ, D>(Qs, q + (bh * sq + qi * BQ) * D, tid);
   cp_tile<BK, D>(Ks(0), kb, tid);
-  cp_tile<BK, D>(Vs(0), vb, tid);
+  cp_tile<BK, DV>(Vs(0), vb, tid);
   cp_async_commit();
 
-  float acc[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DV / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  for (int e = 0; e < DV / 2; ++e) acc[e] = 0.f;
 
   for (int kt = 0; kt < nkb; ++kt) {
     const int st = kt & 1;
     if (kt + 1 < nkb) {
       cp_tile<BK, D>(Ks(st ^ 1), kb + (size_t)(kt + 1) * BK * D, tid);
-      cp_tile<BK, D>(Vs(st ^ 1), vb + (size_t)(kt + 1) * BK * D, tid);
+      cp_tile<BK, DV>(Vs(st ^ 1), vb + (size_t)(kt + 1) * BK * DV, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // Q and tile kt have landed
@@ -328,7 +370,7 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       l[i] = l[i] * corr + quad_sum(rs);
       m[i] = m_new;
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DV / 8; ++nb) {
         acc[nb * 4 + i * 2] *= corr;
         acc[nb * 4 + i * 2 + 1] *= corr;
       }
@@ -351,9 +393,9 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int i = 0; i < 2; ++i) {
     const int row = qi * BQ + r0 + 8 * i;
     const float denom = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow = o + (bh * sq + row) * D + (lane % 4) * 2;
+    __nv_bfloat16* orow = o + (bh * sq + row) * DV + (lane % 4) * 2;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb)
+    for (int nb = 0; nb < DV / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) = __floats2bfloat162_rn(
           acc[nb * 4 + i * 2] / denom, acc[nb * 4 + i * 2 + 1] / denom);
     if (lane % 4 == 0) lse[bh * sq + row] = ((m[i] == -INFINITY) ? 0.f : m[i]) + logf(denom);
@@ -362,15 +404,23 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 // ---------------------------------------------------------------------------
 // bf16 dq: one CTA (one warpgroup) per (64-row q tile, b*h), heaviest first
-// when causal. Q and dO are copied once; 64-key K/V tiles stream through the
-// forward's two-stage ring. S = Q.K^T and dP = dO.V^T (SS wgmma, fp32), both
+// when causal. Q and dO are copied once; K/V tiles stream through a
+// two-stage ring as in the forward. S = Q.K^T and dP = dO.V^T (SS wgmma, fp32), both
 // issued before one wait; P = exp(S sm_scale - lse), set to 0 above the
 // diagonal only on tiles that cross it; dS = P (dP - delta) in fp32, rounded
 // to bf16 into the A fragments of dQ += dS.K (RS wgmma, the same K tile read
 // MN-major: its rows are the reduction); dq = dQ sm_scale at the end.
+// Q, dQ and K tiles are D wide, dO and V tiles DV wide. The K/V tiles hold
+// dq_key_tile<D>() keys: 64, and 32 at D = 192, where the 64 x 192 fp32 dQ
+// accumulator (96 registers a thread) beside 64-key S and dP blocks spilled.
 // Shared memory: Q, dO, then K and V of stage 0 and of stage 1 (6 tiles).
 // ---------------------------------------------------------------------------
 template <int D>
+__host__ __device__ constexpr int dq_key_tile() {
+  return D > 128 ? 32 : BK;
+}
+
+template <int D, int DV>
 __global__ void __launch_bounds__(WG)
 flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -379,12 +429,14 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dq, int sq, int skv, float sm_scale,
                           int causal) {
-  constexpr int TB = BQ * D * 2;  // bytes of a 64-row tile
+  constexpr int KT = dq_key_tile<D>();
+  // tile bytes: Q, dO, a K tile, a V tile
+  constexpr int QB = BQ * D * 2, GB = BQ * DV * 2, KB = KT * D * 2, VB = KT * DV * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t Qs = base, Gs = base + TB;
-  auto Ks = [&](int st) { return base + TB * (2 + 2 * st); };
-  auto Vs = [&](int st) { return base + TB * (3 + 2 * st); };
+  const uint32_t Qs = base, Gs = base + QB;
+  auto Ks = [&](int st) { return base + QB + GB + (KB + VB) * st; };
+  auto Vs = [&](int st) { return base + QB + GB + KB + (KB + VB) * st; };
 
   const int tid = threadIdx.x, lane = tid % 32;
   const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
@@ -392,14 +444,14 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   const int qi = causal ? nqb - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const size_t bh = blockIdx.y;
   const __nv_bfloat16* kb = k + bh * skv * D;
-  const __nv_bfloat16* vb = v + bh * skv * D;
-  int nkb = skv / BK;
-  if (causal) nkb = min((qi * BQ + BQ + BK - 1) / BK, nkb);
+  const __nv_bfloat16* vb = v + bh * skv * DV;
+  int nkb = skv / KT;
+  if (causal) nkb = min((qi * BQ + BQ + KT - 1) / KT, nkb);
 
   cp_tile<BQ, D>(Qs, q + (bh * sq + qi * BQ) * D, tid);
-  cp_tile<BQ, D>(Gs, dout + (bh * sq + qi * BQ) * D, tid);
-  cp_tile<BK, D>(Ks(0), kb, tid);
-  cp_tile<BK, D>(Vs(0), vb, tid);
+  cp_tile<BQ, DV>(Gs, dout + (bh * sq + qi * BQ) * DV, tid);
+  cp_tile<KT, D>(Ks(0), kb, tid);
+  cp_tile<KT, DV>(Vs(0), vb, tid);
   cp_async_commit();
 
   float lse_r[2], dl_r[2];
@@ -416,45 +468,45 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int kt = 0; kt < nkb; ++kt) {
     const int st = kt & 1;
     if (kt + 1 < nkb) {
-      cp_tile<BK, D>(Ks(st ^ 1), kb + (size_t)(kt + 1) * BK * D, tid);
-      cp_tile<BK, D>(Vs(st ^ 1), vb + (size_t)(kt + 1) * BK * D, tid);
+      cp_tile<KT, D>(Ks(st ^ 1), kb + (size_t)(kt + 1) * KT * D, tid);
+      cp_tile<KT, DV>(Vs(st ^ 1), vb + (size_t)(kt + 1) * KT * DV, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // Q, dO and tile kt have landed
     __syncthreads();
 
-    float s[BK / 2], dp[BK / 2];
+    float s[KT / 2], dp[KT / 2];
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(s, kmajor_desc<BQ>(Qs, kk), kmajor_desc<BK>(Ks(st), kk), kk > 0);
+      wgmma_ss(s, kmajor_desc<BQ>(Qs, kk), kmajor_desc<KT>(Ks(st), kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss(dp, kmajor_desc<BQ>(Gs, kk), kmajor_desc<BK>(Vs(st), kk), kk > 0);
+    for (int kk = 0; kk < DV / 16; ++kk)
+      wgmma_ss(dp, kmajor_desc<BQ>(Gs, kk), kmajor_desc<KT>(Vs(st), kk), kk > 0);
     wgmma_commit_and_wait();
     fence_regs(s);
     fence_regs(dp);
 
-    const bool diag = causal && kt * BK + BK - 1 > qi * BQ;
+    const bool diag = causal && kt * KT + KT - 1 > qi * BQ;
 #pragma unroll
-    for (int e = 0; e < BK / 2; ++e) {
+    for (int e = 0; e < KT / 2; ++e) {
       const int i = (e / 2) % 2;
-      const int kpos = kt * BK + (e / 4) * 8 + (lane % 4) * 2 + e % 2;
+      const int kpos = kt * KT + (e / 4) * 8 + (lane % 4) * 2 + e % 2;
       const float p = (diag && kpos > qi * BQ + r0 + 8 * i)
                           ? 0.f
                           : exp_fast(s[e] * sm_scale - lse_r[i]);
       dp[e] = p * (dp[e] - dl_r[i]);
     }
 
-    uint32_t da[BK / 16][4];  // written before the fence: wgmma reads them
+    uint32_t da[KT / 16][4];  // written before the fence: wgmma reads them
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) a_frag(da[kk], dp, kk);
+    for (int kk = 0; kk < KT / 16; ++kk) a_frag(da[kk], dp, kk);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(acc, da[kk], mnmajor_desc<BK>(Ks(st), kk));
+    for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs(acc, da[kk], mnmajor_desc<KT>(Ks(st), kk));
     wgmma_commit_and_wait();
     fence_regs(acc);
     __syncthreads();  // stage st is refilled in the next iteration
@@ -479,11 +531,15 @@ flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 // only on tiles that cross the diagonal; dS^T = P^T (dP^T - delta) in fp32;
 // dV += bf16(P^T).dO and dK += bf16(dS^T).Q (RS wgmma, dO and Q MN-major);
 // dK times sm_scale at the end. QT = 32 at d = 128 keeps the two 64 x 128
-// fp32 accumulators and the two 64 x 32 score blocks in registers.
+// fp32 accumulators and the two 64 x 32 score blocks in registers; at (d, dv)
+// = (192, 128) the dK accumulator is 64 x 192 (96 registers a thread beside
+// dV's 64) and QT = 32 still compiles without a spill, 21% faster than QT =
+// 16 at b 1, s 8192, h 16 on an H100 (1.67 against 2.13 ms, equal bits).
+// K, Q and dK are D wide; V, dO and dV DV wide.
 // Shared memory: K, V, then Q and dO of stage 0 and of stage 1, then lse and
 // delta of both stages.
 // ---------------------------------------------------------------------------
-template <int D, int QT>
+template <int D, int DV, int QT>
 __global__ void __launch_bounds__(WG)
 flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
@@ -492,13 +548,14 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                            int sq, int skv, float sm_scale, int causal) {
-  constexpr int KB = BK * D * 2, QB = QT * D * 2;  // tile bytes
+  // tile bytes: K, V, a Q tile, a dO tile
+  constexpr int KB = BK * D * 2, VB = BK * DV * 2, QB = QT * D * 2, GB = QT * DV * 2;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t Ks = base, Vs = base + KB;
-  auto Qs = [&](int st) { return base + 2 * KB + 2 * QB * st; };
-  auto Gs = [&](int st) { return base + 2 * KB + 2 * QB * st + QB; };
-  const uint32_t vec0 = base + 2 * KB + 4 * QB;  // [stage][lse | delta][QT] fp32
+  auto Qs = [&](int st) { return base + KB + VB + (QB + GB) * st; };
+  auto Gs = [&](int st) { return base + KB + VB + (QB + GB) * st + QB; };
+  const uint32_t vec0 = base + KB + VB + 2 * (QB + GB);  // [stage][lse | delta][QT] fp32
   const float* vecs = reinterpret_cast<const float*>(smem_raw + (vec0 - smem_u32(smem_raw)));
 
   const int tid = threadIdx.x, lane = tid % 32;
@@ -511,7 +568,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   auto load_q_tile = [&](int qt, int st) {
     const size_t row0 = bh * sq + (size_t)qt * QT;
     cp_tile<QT, D>(Qs(st), q + row0 * D, tid);
-    cp_tile<QT, D>(Gs(st), dout + row0 * D, tid);
+    cp_tile<QT, DV>(Gs(st), dout + row0 * DV, tid);
     if (tid < 2 * QT) {
       const float* src = tid < QT ? lse + row0 + tid : delta + row0 + tid - QT;
       cp_async4(vec0 + (st * 2 * QT + tid) * 4, src);
@@ -519,13 +576,15 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   cp_tile<BK, D>(Ks, k + (bh * skv + (size_t)ki * BK) * D, tid);
-  cp_tile<BK, D>(Vs, v + (bh * skv + (size_t)ki * BK) * D, tid);
+  cp_tile<BK, DV>(Vs, v + (bh * skv + (size_t)ki * BK) * DV, tid);
   if (start < nqb) load_q_tile(start, 0);
   cp_async_commit();
 
-  float gk[D / 2], gv[D / 2];
+  float gk[D / 2], gv[DV / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) gk[e] = gv[e] = 0.f;
+  for (int e = 0; e < D / 2; ++e) gk[e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < DV / 2; ++e) gv[e] = 0.f;
 
   for (int qt = start; qt < nqb; ++qt) {
     const int st = (qt - start) & 1;
@@ -542,7 +601,7 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss(s, kmajor_desc<BK>(Ks, kk), kmajor_desc<QT>(Qs(st), kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < DV / 16; ++kk)
       wgmma_ss(dp, kmajor_desc<BK>(Vs, kk), kmajor_desc<QT>(Gs(st), kk), kk > 0);
     wgmma_commit_and_wait();
     fence_regs(s);
@@ -584,13 +643,15 @@ flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const size_t row = bh * skv + (size_t)ki * BK + r0 + 8 * i;
     __nv_bfloat16* dkrow = dk + row * D + (lane % 4) * 2;
-    __nv_bfloat16* dvrow = dv + row * D + (lane % 4) * 2;
+    __nv_bfloat16* dvrow = dv + row * DV + (lane % 4) * 2;
 #pragma unroll
     for (int nb = 0; nb < D / 8; ++nb) {
       const int e = nb * 4 + i * 2;
       *reinterpret_cast<__nv_bfloat162*>(dkrow + nb * 8) =
           __floats2bfloat162_rn(gk[e] * sm_scale, gk[e + 1] * sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + nb * 8) = __floats2bfloat162_rn(gv[e], gv[e + 1]);
+      if (nb < DV / 8)
+        *reinterpret_cast<__nv_bfloat162*>(dvrow + nb * 8) =
+            __floats2bfloat162_rn(gv[e], gv[e + 1]);
     }
   }
 }
@@ -1315,18 +1376,21 @@ bool split(int rows, int n, const float* part, int* chunk, int* n_chunks) {
   return true;
 }
 
-template <typename T, int D>
+// D: the width of the q and k heads; DV: of the v and o heads (DV == D but
+// for the bf16 pair (192, 128))
+template <typename T, int D, int DV>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                 int sq, int skv, float scale, int causal, int kv_chunk, float* part,
                 cudaStream_t st) {
   if (!aligned16({q, k, v, o})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const size_t smem = 1024 + 5 * BQ * D * sizeof(T);
-    cudaError_t e = prepare(flash_fwd_wgmma_kernel<D>, smem);
+    const size_t smem = 1024 + (3 * D + 2 * DV) * BQ * sizeof(T);
+    cudaError_t e = prepare(flash_fwd_wgmma_kernel<D, DV>, smem);
     if (e != cudaSuccess) return e;
-    flash_fwd_wgmma_kernel<D><<<dim3(sq / BQ, bh), WG, smem, st>>>(
+    flash_fwd_wgmma_kernel<D, DV><<<dim3(sq / BQ, bh), WG, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, sq, skv, scale, causal);
   } else {
+    static_assert(D == DV, "the fp32 kernels take equal head widths");
     using C = Fp32Fwd<D>;
     static_assert(C::BKF == BQ, "split() counts 64-row tiles");
     int chunk, n_chunks;
@@ -1350,19 +1414,21 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, int bh, int sq, int skv,
                    float scale, int causal, int kv_chunk, float* part, cudaStream_t st) {
   if (!aligned16({q, k, v, g, dq})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const size_t smem = 1024 + 6 * BQ * D * sizeof(T);
-    cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D>, smem);
+    constexpr int KT = dq_key_tile<D>();
+    const size_t smem = 1024 + (BQ + 2 * KT) * (D + DV) * sizeof(T);
+    cudaError_t e = prepare(flash_bwd_dq_wgmma_kernel<D, DV>, smem);
     if (e != cudaSuccess) return e;
-    flash_bwd_dq_wgmma_kernel<D><<<dim3(sq / BQ, bh), WG, smem, st>>>(
+    flash_bwd_dq_wgmma_kernel<D, DV><<<dim3(sq / BQ, bh), WG, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dq, sq, skv, scale,
         causal);
   } else {
+    static_assert(D == DV, "the fp32 kernels take equal head widths");
     int chunk, n_chunks;
     if (!split(kv_chunk, skv / BK, part, &chunk, &n_chunks)) return cudaErrorInvalidValue;
     cudaError_t e = prepare(flash_bwd_dq_fp32_kernel<D>, Fp32Bwd<D>::SMEM);
@@ -1381,21 +1447,23 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* g,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                     const float* lse, const float* delta, void* dk, void* dv, int bh, int sq,
                     int skv, float scale, int causal, int q_chunk, float* part,
                     cudaStream_t st) {
   if (!aligned16({q, k, v, g, dk, dv})) return cudaErrorMisalignedAddress;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int QT = D == 128 ? 32 : 64;
-    const size_t smem = 1024 + 2 * BK * D * sizeof(T) + 4 * QT * D * sizeof(T) + 4 * QT * 4;
-    cudaError_t e = prepare(flash_bwd_dkv_wgmma_kernel<D, QT>, smem);
+    constexpr int QT = D >= 128 ? 32 : 64;
+    const size_t smem =
+        1024 + BK * (D + DV) * sizeof(T) + 2 * QT * (D + DV) * sizeof(T) + 4 * QT * 4;
+    cudaError_t e = prepare(flash_bwd_dkv_wgmma_kernel<D, DV, QT>, smem);
     if (e != cudaSuccess) return e;
-    flash_bwd_dkv_wgmma_kernel<D, QT><<<dim3(skv / BK, bh), WG, smem, st>>>(
+    flash_bwd_dkv_wgmma_kernel<D, DV, QT><<<dim3(skv / BK, bh), WG, smem, st>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)g, lse, delta, (T*)dk, (T*)dv, sq,
         skv, scale, causal);
   } else {
+    static_assert(D == DV, "the fp32 kernels take equal head widths");
     if (!aligned16({lse, delta})) return cudaErrorMisalignedAddress;
     int chunk, n_chunks;
     if (!split(q_chunk, sq / BQ, part, &chunk, &n_chunks)) return cudaErrorInvalidValue;
@@ -1418,28 +1486,30 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* g,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 128. Anything else returns
-// cudaErrorInvalidValue without launching. fp32 takes the CUDA-core kernels;
-// bf16 takes the wgmma kernels. Either returns cudaErrorMisalignedAddress for
-// a tensor that is not 16-byte aligned.
-#define FLASH_DISPATCH(CALL)                                              \
-  if (dtype == 0 && d == 64) return (int)CALL(float, 64);                 \
-  if (dtype == 0 && d == 128) return (int)CALL(float, 128);               \
-  if (dtype == 1 && d == 64) return (int)CALL(__nv_bfloat16, 64);         \
-  if (dtype == 1 && d == 128) return (int)CALL(__nv_bfloat16, 128);       \
+// dtype: 0 = float32, 1 = bfloat16; (d, dv), the widths of the q and k heads
+// and of the v and o heads: (64, 64) or (128, 128), and in bf16 (192, 128).
+// Anything else returns cudaErrorInvalidValue without launching. fp32 takes
+// the CUDA-core kernels; bf16 takes the wgmma kernels. Either returns
+// cudaErrorMisalignedAddress for a tensor that is not 16-byte aligned.
+#define FLASH_DISPATCH(CALL)                                                   \
+  if (dtype == 0 && d == 64 && dv == 64) return (int)CALL(float, 64, 64);      \
+  if (dtype == 0 && d == 128 && dv == 128) return (int)CALL(float, 128, 128);  \
+  if (dtype == 1 && d == 64 && dv == 64) return (int)CALL(__nv_bfloat16, 64, 64);          \
+  if (dtype == 1 && d == 128 && dv == 128) return (int)CALL(__nv_bfloat16, 128, 128);      \
+  if (dtype == 1 && d == 192 && dv == 128) return (int)CALL(__nv_bfloat16, 192, 128);      \
   return (int)cudaErrorInvalidValue;
 
 // kv_chunk (fp32 only): keys a CTA of the forward takes, a multiple of 64,
 // with part float32 scratch [n_chunks * bh * sq * (D + 2)] for the chunks'
 // partial sums (n_chunks = ceil(skv / kv_chunk)); 0 takes every kv tile of
 // a q tile in one CTA.
-extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const void* v,
+extern "C" int flash_fwd(int dtype, int d, int dv, const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int sq, int skv, float scale, int causal,
                          int kv_chunk, void* part, void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
-#define CALL(T, D)                                                                      \
-  fwd<T, D>(q, k, v, o, (float*)lse, bh, sq, skv, scale, causal, kv_chunk, (float*)part, \
-            (cudaStream_t)stream)
+#define CALL(T, D, DV)                                                                      \
+  fwd<T, D, DV>(q, k, v, o, (float*)lse, bh, sq, skv, scale, causal, kv_chunk, (float*)part, \
+                (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }
@@ -1449,26 +1519,26 @@ extern "C" int flash_fwd(int dtype, int d, const void* q, const void* k, const v
 // sums, [n_chunks * bh * sq * D] for dq (n_chunks = ceil(skv / kv_chunk)) and
 // [2 * n_chunks * bh * skv * D] for dk/dv (n_chunks = ceil(sq / q_chunk));
 // 0 streams every tile through one CTA. bf16 ignores both.
-extern "C" int flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
-                            const void* g, const void* lse, const void* delta, void* dq, int bh,
-                            int sq, int skv, float scale, int causal, int kv_chunk, void* part,
-                            void* stream) {
+extern "C" int flash_bwd_dq(int dtype, int d, int dv, const void* q, const void* k,
+                            const void* v, const void* g, const void* lse, const void* delta,
+                            void* dq, int bh, int sq, int skv, float scale, int causal,
+                            int kv_chunk, void* part, void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
-#define CALL(T, D)                                                                      \
-  bwd_dq<T, D>(q, k, v, g, (const float*)lse, (const float*)delta, dq, bh, sq, skv, scale, \
-               causal, kv_chunk, (float*)part, (cudaStream_t)stream)
+#define CALL(T, D, DV)                                                                      \
+  bwd_dq<T, D, DV>(q, k, v, g, (const float*)lse, (const float*)delta, dq, bh, sq, skv, scale, \
+                   causal, kv_chunk, (float*)part, (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }
 
-extern "C" int flash_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
-                             const void* g, const void* lse, const void* delta, void* dk,
-                             void* dv, int bh, int sq, int skv, float scale, int causal,
-                             int q_chunk, void* part, void* stream) {
+extern "C" int flash_bwd_dkv(int dtype, int d, int dv, const void* q, const void* k,
+                             const void* v, const void* g, const void* lse, const void* delta,
+                             void* dk, void* dvo, int bh, int sq, int skv, float scale,
+                             int causal, int q_chunk, void* part, void* stream) {
   if (!shapes_ok(bh, sq, skv)) return (int)cudaErrorInvalidValue;
-#define CALL(T, D)                                                                     \
-  bwd_dkv<T, D>(q, k, v, g, (const float*)lse, (const float*)delta, dk, dv, bh, sq, skv, \
-                scale, causal, q_chunk, (float*)part, (cudaStream_t)stream)
+#define CALL(T, D, DV)                                                                      \
+  bwd_dkv<T, D, DV>(q, k, v, g, (const float*)lse, (const float*)delta, dk, dvo, bh, sq, skv, \
+                    scale, causal, q_chunk, (float*)part, (cudaStream_t)stream)
   FLASH_DISPATCH(CALL)
 #undef CALL
 }

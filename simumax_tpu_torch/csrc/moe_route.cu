@@ -44,6 +44,17 @@
 // It writes topw [T, k], topi [T, k] (int64) and probs [T, e] (fp32), which
 // the backward reads.
 //
+// moe_route_sigmoid_fwd_kernel: the same route in DeepSeek-V3's sigmoid mode
+// (topk_method noaux_tc, one group), on the same warp a token and R logits a
+// lane: s_i = 1 / (1 + expf(-x_i)), each step one IEEE operation; the choice
+// c_i = s_i + bias_i (a per-expert correction bias that only selects); k
+// rounds of the warp argmax over c (keys are c's bits in an order-preserving
+// unsigned form, above 0 for every finite c, so a taken entry and the padding,
+// key 0, lie below any); v_j = s at the j-th index, read back from the
+// warp's row of shared memory; S = the k values summed in the order j = 0 ..
+// k - 1 from +0; w_j = (v_j / (S + 1e-20f)) * scale. It writes topw, topi
+// and the scores s [T, e] (fp32), which its backward reads.
+//
 // moe_route_bwd_kernel: the gradient of the same function from d_topw [T,
 // k], probs and topi, in the plain backward's order: g_j = d_topw_j as
 // fp32 (the cast's gradient); v_j = probs at topi_j; S and D = S + 1e-9
@@ -52,7 +63,11 @@
 // scatter into a zero row); c = the sum over j of dv_j * v_j; dx_i =
 // probs_i * (dp_i - c) (the softmax's: the terms of its sum over e that
 // are not top-k are +0); cast to the logits' type. Every sum runs over j =
-// 0 .. k - 1 from +0. A token's L lanes (a warp past 32 experts, lane l
+// 0 .. k - 1 from +0. In the sigmoid mode the same kernel takes the
+// scores s for probs and the gradient of w_j = (v_j / D) * scale, D = S +
+// 1e-20: g_j = d_topw_j * scale, dD and dv_j as above, dp = dv_j at topi_j,
+// dx_i = dp_i * (s_i * (1 - s_i)); no gradient reaches the bias. A token's
+// L lanes (a warp past 32 experts, lane l
 // holding the groups of 4 experts w * 32 + l, w < 4, so a warp's 16-byte
 // load of group w reads 512 contiguous bytes; up to 32 experts one a lane
 // and 8, 16 or 32 lanes a token, four or two tokens a warp at 8 or 16)
@@ -96,6 +111,15 @@
 // written out of bounds (the plain version's searchsorted gives no
 // meaningful answer for one either).
 //
+// Held experts (moe_index_held: an expert layer that holds experts
+// [first, first + held) of e, as one chip of expert parallelism does): the
+// same sort over all e keys, then an index of the held experts alone, which
+// the dispatch and the combine take as they are: seg [held + 1] the held
+// experts' run starts (seg[held] where the next expert's run starts, n past
+// the last), flat [n] an assignment's held expert, key - first; an
+// assignment to an expert not held here gets flat 0 and inv n + cap, a
+// slot past every capacity buffer, so it is never kept.
+//
 // What bounds them on this card: launches at the MoE row's shape (T
 // 2048, e 8, k 2), where the route reads 32 KB and writes 128 KB and the
 // index moves 96 KB, microseconds at HBM's rate. At wide routers (T 4096,
@@ -130,6 +154,7 @@ constexpr int INDEX_WARPS = INDEX_THREADS / 32;
 constexpr int INDEX_BATCH = 8;       // keys a thread loads at once while counting
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float RENORM_EPS = 1e-9f;  // the renormalisation's + 1e-9, in fp32
+constexpr float SIGMOID_EPS = 1e-20f;  // the sigmoid mode's + 1e-20 (DeepSeek-V3's MoEGate)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -356,6 +381,57 @@ moe_route_fwd_kernel(const T* __restrict__ logits, T* __restrict__ topw,
   if (lane < k) topw[t * k + lane] = from_f<T>(__fdiv_rn(mine_v, d));
 }
 
+// an order-preserving unsigned key of any float but NaN: the larger float
+// the larger key, every key above 0
+__device__ __forceinline__ unsigned float_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS)
+moe_route_sigmoid_fwd_kernel(const T* __restrict__ logits, const float* __restrict__ bias,
+                             T* __restrict__ topw, long long* __restrict__ topi,
+                             float* __restrict__ scores, long long tokens, int e, int k,
+                             float scale) {
+  constexpr int ROW = R * 32 + 4;
+  __shared__ __align__(16) float staged[WARPS][ROW];  // each token's s_i
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * WARPS + warp;
+  if (t >= tokens) return;  // a whole warp: one token
+  const int i0 = lane * R, n = e - i0;  // this lane's logits: i0 .. i0 + R - 1
+  float p[R];
+  load_run<T, R>(logits + t * e + i0, n, ((reinterpret_cast<uintptr_t>(logits) |
+                                           (e * sizeof(T))) & 15) == 0, p);
+  LaneKeys<R> keys;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    p[r] = r < n ? __fdiv_rn(1.f, __fadd_rn(1.f, expf(-p[r]))) : 0.f;
+    keys.key[r] = r < n ? float_key(__fadd_rn(p[r], __ldg(bias + i0 + r))) : 0u;
+  }
+  keys.init();
+  store_run<R>(staged[warp] + i0, R, true, p);
+  store_run<R>(scores + t * e + i0, n, ((reinterpret_cast<uintptr_t>(scores) | (e * 4)) & 15) == 0,
+               p);
+  __syncwarp();
+  long long* irow = topi + t * k;
+  float sum_v = 0.f, mine_v = 0.f;  // lane j < k: the j-th value
+  for (int j = 0; j < k; ++j) {
+    const unsigned top = __reduce_max_sync(FULL, keys.best);
+    const int holder = __ffs(__ballot_sync(FULL, keys.best == top)) - 1;
+    const int idx = __shfl_sync(FULL, i0 + keys.best_r, holder);
+    const float v = staged[warp][idx];
+    sum_v = __fadd_rn(sum_v, v);
+    if (lane == j) mine_v = v;
+    if (lane == holder) {
+      irow[j] = (long long)idx;
+      keys.take();
+    }
+  }
+  const float d = __fadd_rn(sum_v, SIGMOID_EPS);
+  if (lane < k) topw[t * k + lane] = from_f<T>(__fmul_rn(__fdiv_rn(mine_v, d), scale));
+}
+
 // ---------------------------------------------------------------------------
 // route backward: L lanes a token, W groups of G experts a lane
 // ---------------------------------------------------------------------------
@@ -403,11 +479,11 @@ __device__ __forceinline__ void store_group(T* dst, int n, bool vec, const float
 // k additions in order in every lane; each lane divides once for dD's term
 // and once for dv_j. dp: the row cleared, dv_j written at topi_j, each lane
 // reads its groups back.
-template <typename T, int G, int W, int L, int KMAX>
+template <typename T, int G, int W, int L, int KMAX, bool SIGMOID>
 __global__ void __launch_bounds__(THREADS)
 moe_route_bwd_kernel(const T* __restrict__ d_topw, const float* __restrict__ probs,
                      const long long* __restrict__ topi, T* __restrict__ d_logits,
-                     long long tokens, int e, int k) {
+                     long long tokens, int e, int k, float scale) {
   constexpr int R = G * W;
   __shared__ __align__(16) float rows[THREADS * R];  // a token's L * R: probs, then dp
   const long long t = ((long long)blockIdx.x * THREADS + threadIdx.x) / L;
@@ -419,6 +495,7 @@ moe_route_bwd_kernel(const T* __restrict__ d_topw, const float* __restrict__ pro
   if (live && lj < k) {
     ij = (int)__ldg(topi + t * k + lj);
     g = to_f(d_topw[t * k + lj]);
+    if constexpr (SIGMOID) g = __fmul_rn(g, scale);
   }
   const float* prow = probs + t * e;
   const bool vec = ((reinterpret_cast<uintptr_t>(probs) | (e * 4)) & 15) == 0;
@@ -447,11 +524,11 @@ moe_route_bwd_kernel(const T* __restrict__ d_topw, const float* __restrict__ pro
   __syncwarp();
   const bool chosen = ij >= 0 && ij < e;
   const float v = chosen ? row[ij] : 0.f;
-  const float d = __fadd_rn(choice_sum<L, KMAX>(v, k), RENORM_EPS);
+  const float d = __fadd_rn(choice_sum<L, KMAX>(v, k), SIGMOID ? SIGMOID_EPS : RENORM_EPS);
   const float dd = __fmul_rn(d, d);
   const float d_d = choice_sum<L, KMAX>(__fdiv_rn(__fmul_rn(-g, v), dd), k);
   const float dv = __fadd_rn(__fdiv_rn(g, d), d_d);
-  const float c = choice_sum<L, KMAX>(__fmul_rn(dv, v), k);
+  const float c = SIGMOID ? 0.f : choice_sum<L, KMAX>(__fmul_rn(dv, v), k);
   __syncwarp();  // every v_j read before the row is cleared
 #pragma unroll
   for (int w = 0; w < W; ++w) {
@@ -482,7 +559,11 @@ moe_route_bwd_kernel(const T* __restrict__ d_topw, const float* __restrict__ pro
       dp[0] = row[i];
     }
 #pragma unroll
-    for (int q = 0; q < G; ++q) o[q] = __fmul_rn(p[G * w + q], __fsub_rn(dp[q], c));
+    for (int q = 0; q < G; ++q) {
+      const float s = p[G * w + q];
+      o[q] = SIGMOID ? __fmul_rn(dp[q], __fmul_rn(s, __fsub_rn(1.f, s)))
+                     : __fmul_rn(s, __fsub_rn(dp[q], c));
+    }
     store_group<T, G>(orow + i, e - i, vec_out, o);
   }
 }
@@ -526,11 +607,12 @@ __device__ __forceinline__ void count_range(const long long* __restrict__ keys, 
   }
 }
 
+template <bool HELD>
 __global__ void __launch_bounds__(INDEX_THREADS)
 moe_index_kernel(const long long* __restrict__ keys, const long long* __restrict__ values,
                  long long* __restrict__ order, long long* __restrict__ inv,
                  long long* __restrict__ seg, int* __restrict__ runs, int n, int e, int cap,
-                 long long chunk) {
+                 long long chunk, int first, int held, long long* __restrict__ flat) {
   // each key's count in each warp of a tile (at most 32): a key's row of
   // 32 bytes, read and cleared as two 16-byte words
   __shared__ __align__(16) uint8_t warp_count[MAX_E][INDEX_WARPS];
@@ -580,9 +662,19 @@ moe_index_kernel(const long long* __restrict__ keys, const long long* __restrict
     const int excl = warp_total[warp] + incl - c;
     start[tid] = excl;
     total[tid] = c;
-    if (blockIdx.x == 0) seg[tid] = excl;
+    if constexpr (HELD) {
+      if (blockIdx.x == 0 && tid >= first && tid <= first + held) seg[tid - first] = excl;
+    } else {
+      if (blockIdx.x == 0) seg[tid] = excl;
+    }
   }
-  if (blockIdx.x == 0 && tid == 0) seg[e] = n;
+  if (blockIdx.x == 0 && tid == 0) {
+    if constexpr (HELD) {
+      if (first + held == e) seg[held] = n;
+    } else {
+      seg[e] = n;
+    }
+  }
   __syncthreads();
   if (runs) {  // this block's share of the cells past each key's count
     const long long cells = (long long)e * cap;
@@ -603,8 +695,14 @@ moe_index_kernel(const long long* __restrict__ keys, const long long* __restrict
                     __popc(peers & below);
       const int at = start[key] + s;
       order[at] = i;
-      inv[i] = at;
-      if (runs && s < cap) runs[(long long)key * cap + s] = (int)values[i];
+      if constexpr (HELD) {
+        const bool here = key >= first && key < first + held;
+        inv[i] = here ? (long long)at : (long long)n + cap;
+        flat[i] = here ? key - first : 0;
+      } else {
+        inv[i] = at;
+        if (runs && s < cap) runs[(long long)key * cap + s] = (int)values[i];
+      }
     }
     if (base + INDEX_THREADS < hi) {  // another tile: count this one's keys in
       __syncthreads();
@@ -637,40 +735,47 @@ cudaError_t route_fwd(const void* logits, void* topw, void* topi, void* probs, l
   return cudaGetLastError();
 }
 
-template <typename T, int G, int W, int L>
+template <typename T, bool SIGMOID, int G, int W, int L>
 cudaError_t route_bwd_lanes(const void* d_topw, const void* probs, const void* topi,
-                            void* d_logits, long long tokens, int e, int k, cudaStream_t st) {
+                            void* d_logits, long long tokens, int e, int k, float scale,
+                            cudaStream_t st) {
   const unsigned int blocks = (unsigned int)((tokens * L + THREADS - 1) / THREADS);
   if (k <= 8)
-    moe_route_bwd_kernel<T, G, W, L, 8><<<blocks, THREADS, 0, st>>>(
+    moe_route_bwd_kernel<T, G, W, L, 8, SIGMOID><<<blocks, THREADS, 0, st>>>(
         (const T*)d_topw, (const float*)probs, (const long long*)topi, (T*)d_logits, tokens, e,
-        k);
+        k, scale);
   else
-    moe_route_bwd_kernel<T, G, W, L, MAX_K><<<blocks, THREADS, 0, st>>>(
+    moe_route_bwd_kernel<T, G, W, L, MAX_K, SIGMOID><<<blocks, THREADS, 0, st>>>(
         (const T*)d_topw, (const float*)probs, (const long long*)topi, (T*)d_logits, tokens, e,
-        k);
+        k, scale);
   return cudaGetLastError();
 }
 
 // the backward's layout for e experts: up to 32, one expert a lane and the
 // fewest lanes of 8, 16 or 32 that hold them, several tokens a warp; past
 // 32, a warp a token and W = 1 to 4 groups of 4 experts a lane
-template <typename T>
+template <typename T, bool SIGMOID = false>
 cudaError_t route_bwd(const void* d_topw, const void* probs, const void* topi, void* d_logits,
-                      long long tokens, int e, int k, cudaStream_t st) {
-  if (e <= 8)
-    return route_bwd_lanes<T, 1, 1, 8>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  if (e <= 16)
-    return route_bwd_lanes<T, 1, 1, 16>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  if (e <= 32)
-    return route_bwd_lanes<T, 1, 1, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  if (e <= 128)
-    return route_bwd_lanes<T, 4, 1, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  if (e <= 256)
-    return route_bwd_lanes<T, 4, 2, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  if (e <= 384)
-    return route_bwd_lanes<T, 4, 3, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
-  return route_bwd_lanes<T, 4, 4, 32>(d_topw, probs, topi, d_logits, tokens, e, k, st);
+                      long long tokens, int e, int k, cudaStream_t st, float scale = 1.f) {
+#define ARGS d_topw, probs, topi, d_logits, tokens, e, k, scale, st
+  if (e <= 8) return route_bwd_lanes<T, SIGMOID, 1, 1, 8>(ARGS);
+  if (e <= 16) return route_bwd_lanes<T, SIGMOID, 1, 1, 16>(ARGS);
+  if (e <= 32) return route_bwd_lanes<T, SIGMOID, 1, 1, 32>(ARGS);
+  if (e <= 128) return route_bwd_lanes<T, SIGMOID, 4, 1, 32>(ARGS);
+  if (e <= 256) return route_bwd_lanes<T, SIGMOID, 4, 2, 32>(ARGS);
+  if (e <= 384) return route_bwd_lanes<T, SIGMOID, 4, 3, 32>(ARGS);
+  return route_bwd_lanes<T, SIGMOID, 4, 4, 32>(ARGS);
+#undef ARGS
+}
+
+template <typename T, int R>
+cudaError_t route_sigmoid_fwd(const void* logits, const void* bias, void* topw, void* topi,
+                              void* scores, long long tokens, int e, int k, float scale,
+                              cudaStream_t st) {
+  moe_route_sigmoid_fwd_kernel<T, R><<<blocks_for(tokens), THREADS, 0, st>>>(
+      (const T*)logits, (const float*)bias, (T*)topw, (long long*)topi, (float*)scores, tokens,
+      e, k, scale);
+  return cudaGetLastError();
 }
 
 // the instance for e experts: R = 1, 2, 4, 8 or 16 logits a lane
@@ -709,6 +814,35 @@ extern "C" int moe_route_bwd(int dtype, const void* d_topw, const void* probs, c
   return (int)cudaErrorInvalidValue;
 }
 
+// the sigmoid mode: bias [e] float32, scores [tokens, e] float32 in place of
+// probs; the weights scaled by `scale` (routed_scaling_factor)
+extern "C" int moe_route_sigmoid_fwd(int dtype, const void* logits, const void* bias,
+                                     void* topw, void* topi, void* scores, long long tokens,
+                                     int e, int k, float scale, void* stream) {
+  if (!route_ok(tokens, e, k) || bias == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)ROUTE_DISPATCH(route_sigmoid_fwd, float, logits, bias, topw, topi, scores,
+                               tokens, e, k, scale, st);
+  if (dtype == 1)
+    return (int)ROUTE_DISPATCH(route_sigmoid_fwd, __nv_bfloat16, logits, bias, topw, topi,
+                               scores, tokens, e, k, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int moe_route_sigmoid_bwd(int dtype, const void* d_topw, const void* scores,
+                                     const void* topi, void* d_logits, long long tokens, int e,
+                                     int k, float scale, void* stream) {
+  if (!route_ok(tokens, e, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return (int)route_bwd<float, true>(d_topw, scores, topi, d_logits, tokens, e, k, st, scale);
+  if (dtype == 1)
+    return (int)route_bwd<__nv_bfloat16, true>(d_topw, scores, topi, d_logits, tokens, e, k, st,
+                                               scale);
+  return (int)cudaErrorInvalidValue;
+}
+
 // keys, order and inv [n] int64, seg [e + 1] int64; values [n] int64 and
 // runs [e, cap] int32 both given or both null. 0 < n < 2^31, 0 < e <= 512.
 extern "C" int moe_index(const void* keys, const void* values, void* order, void* inv, void* seg,
@@ -723,9 +857,30 @@ extern "C" int moe_index(const void* keys, const void* values, void* order, void
     sms = 1;
   const long long tiles = (n + INDEX_THREADS - 1) / INDEX_THREADS;
   const long long chunk = (tiles + sms - 1) / sms * INDEX_THREADS;
-  moe_index_kernel<<<(unsigned)((n + chunk - 1) / chunk), INDEX_THREADS, 0,
-                     (cudaStream_t)stream>>>(
+  moe_index_kernel<false><<<(unsigned)((n + chunk - 1) / chunk), INDEX_THREADS, 0,
+                            (cudaStream_t)stream>>>(
       (const long long*)keys, (const long long*)values, (long long*)order, (long long*)inv,
-      (long long*)seg, (int*)runs, (int)n, e, cap, chunk);
+      (long long*)seg, (int*)runs, (int)n, e, cap, chunk, 0, 0, nullptr);
+  return cudaGetLastError();
+}
+
+// the index of held experts [first, first + held) of e: keys, order, inv and
+// flat [n] int64, seg [held + 1] int64; 0 <= first, 0 < held, first + held
+// <= e, cap > 0
+extern "C" int moe_index_held(const void* keys, void* order, void* inv, void* seg, void* flat,
+                              long long n, int e, int first, int held, int cap, void* stream) {
+  if (n <= 0 || n > 2147483647LL || e <= 0 || e > MAX_E || first < 0 || held <= 0 ||
+      first + held > e || cap <= 0 || n + cap > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || sms < 1)
+    sms = 1;
+  const long long tiles = (n + INDEX_THREADS - 1) / INDEX_THREADS;
+  const long long chunk = (tiles + sms - 1) / sms * INDEX_THREADS;
+  moe_index_kernel<true><<<(unsigned)((n + chunk - 1) / chunk), INDEX_THREADS, 0,
+                           (cudaStream_t)stream>>>(
+      (const long long*)keys, nullptr, (long long*)order, (long long*)inv, (long long*)seg,
+      nullptr, (int)n, e, cap, chunk, first, held, (long long*)flat);
   return cudaGetLastError();
 }

@@ -247,9 +247,9 @@ def flash_rows(lib) -> dict:
                                -(-s // dq_chunk) * bh * s * d if dq_chunk else 0,
                                -(-s // dkv_chunk) * 2 * bh * s * d if dkv_chunk else 0, 1),
                            device="cuda")
-        checked("flash_fwd", new_lib.flash_fwd(0, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                               o.data_ptr(), lse.data_ptr(), bh, s, s, scale,
-                                               causal, 0, 0, stream))
+        checked("flash_fwd", new_lib.flash_fwd(0, d, d, q.data_ptr(), k.data_ptr(),
+                                               v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh,
+                                               s, s, scale, causal, 0, 0, stream))
         delta = (o * g).sum(-1)
         outs = {w: {"fwd": (torch.empty_like(q), torch.empty_like(lse)),
                     "dq": (torch.empty_like(q),),
@@ -260,12 +260,14 @@ def flash_rows(lib) -> dict:
         def call(which, kernel):
             out = [t.data_ptr() for t in outs[which][kernel]]
             lib_, split = (new_lib, True) if which == "n" else (lib, False)
+            # the current entry points take the v heads' width after d's
+            widths = [d, d] if split else [d]
             if kernel == "fwd":  # the same split on both sides
-                return lib_.flash_fwd(0, d, *ptrs, *out, bh, s, s, scale, causal, fwd_chunk,
-                                      part.data_ptr(), stream)
+                return lib_.flash_fwd(0, *widths, *ptrs, *out, bh, s, s, scale, causal,
+                                      fwd_chunk, part.data_ptr(), stream)
             tail = [dq_chunk if kernel == "dq" else dkv_chunk, part.data_ptr()] if split else []
             entry = lib_.flash_bwd_dq if kernel == "dq" else lib_.flash_bwd_dkv
-            return entry(0, d, *bwd_in, *out, bh, s, s, scale, causal, *tail, stream)
+            return entry(0, *widths, *bwd_in, *out, bh, s, s, scale, causal, *tail, stream)
 
         chunks = {"fwd": fwd_chunk, "dq": dq_chunk, "dkv": dkv_chunk}
         for kernel in ("fwd", "dq", "dkv"):

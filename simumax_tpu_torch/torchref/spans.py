@@ -12,7 +12,13 @@ launched it):
 * :data:`GEMM_PARTS`, nested inside a ``gemm`` range and never in place of
   it: ``int8_mm`` around each int8 product (``kernels.int8_gemm``),
   ``q8`` around each quantization (amax with its quantize) and each
-  dequantization, ``expert_gemm`` around each MoE expert product.
+  dequantization, ``expert_gemm`` around each MoE expert product,
+  ``mla_proj`` around latent attention's projections (``q_proj``,
+  ``kv_a_proj_with_mqa``, ``kv_b_proj``) and ``shared_expert`` around the
+  shared experts' two products.
+* :data:`DISPATCH_PARTS`, nested inside a ``moe_dispatch`` range: ``route``
+  around a sigmoid-routed layer's float32 router product, its route
+  kernel and its index of held experts.
 * :data:`PHASES` of ``make_fused_adam``'s step: ``step`` around the whole
   call, ``forward`` around the loss and ``backward`` around
   ``torch.autograd.grad``; the optimizer phase is the ``optimizer`` family.
@@ -32,9 +38,10 @@ import contextlib
 import torch
 
 OP_FAMILIES = ("gemm", "attention", "norm", "cross_entropy", "optimizer", "moe_dispatch")
-GEMM_PARTS = ("int8_mm", "q8", "expert_gemm")
+GEMM_PARTS = ("int8_mm", "q8", "expert_gemm", "mla_proj", "shared_expert")
+DISPATCH_PARTS = ("route",)
 PHASES = ("step", "forward", "backward")
-SPANS = OP_FAMILIES + GEMM_PARTS + PHASES
+SPANS = OP_FAMILIES + GEMM_PARTS + DISPATCH_PARTS + PHASES
 
 _OFF = contextlib.nullcontext()
 

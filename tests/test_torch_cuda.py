@@ -2102,3 +2102,146 @@ def test_the_a2a_dispatch_runs_the_kernels_and_no_index_put(card, probs):
     assert ops["index_put"] <= psum_ops["index_put"] and ops["index_put_"] <= psum_ops[
         "index_put_"], (ops, psum_ops)
     assert math.isfinite(loss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,causal", [
+    (1, 1024, 1024, 2, True),    # 16 kv tiles, the causal skip
+    (2, 320, 320, 3, True),      # s = 64 mod 128
+    (1, 512, 512, 2, False),     # non-causal
+    (1, 128, 320, 2, True),      # more keys than queries
+    (2, 320, 128, 2, True),      # more queries than keys
+    (1, 8192, 8192, 2, True),    # the Moonlight cell's sequence, two of its heads
+])
+def test_bf16_flash_kernels_at_192_128_match_plain_versions(card, b, sq, skv, h, causal):
+    """The latent-attention pair: q and k heads of 192, v heads of 128, the
+    forward, dq and dk/dv launched once each, against the plain versions at
+    that pair (o, do and dv 128 wide) within two bf16 ulps, rtol 2^-6: P
+    and dS round to bf16 on both sides from fp32 scores summed in other
+    orders over 192 terms, and a value on a rounding edge that rounds apart
+    carries one bf16 ulp of its term into the sum (read on the card: 1.06
+    of the one-ulp limit at one element in 10^6, the kernels as far from
+    exact fp32 attention as the plain versions)."""
+    gen = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(b, sq, h, 192, generator=gen, device=card).bfloat16()
+    k = torch.randn(b, skv, h, 192, generator=gen, device=card).bfloat16()
+    v = torch.randn(b, skv, h, 128, generator=gen, device=card).bfloat16()
+    do = torch.randn(b, sq, h, 128, generator=gen, device=card).bfloat16()
+    K.reset_launch_counts()
+    o, lse = K.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = K.flash_fwd_plain(q, k, v, causal)
+    delta = K.flash_delta(o_ref, do)
+    dq = K.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dq_ref = K.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = K.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "flash_fwd": 1,
+                                 "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    assert _within(lse, lse_ref, 1e-4)
+    assert o.shape == (b, sq, h, 128) and dv.shape == v.shape and dk.shape == k.shape
+    for got, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _within(got, ref, 2 ** -6)
+
+
+@pytest.mark.cuda
+def test_flash_at_192_128_refuses_fp32_and_other_pairs(card):
+    """The fp32 kernels take equal heads only, and no other unequal pair is
+    instantiated: each raises, and ``attention`` with ``use_flash=True``
+    raises rather than taking math attention or a padded v."""
+    q = torch.randn(1, 128, 2, 192, device=card)
+    k, v = torch.randn_like(q), torch.randn(1, 128, 2, 128, device=card)
+    with pytest.raises(ValueError, match="fp32 kernels"):
+        K.flash_fwd(q, k, v)
+    with pytest.raises(ValueError, match="fp32 kernels"):
+        K.attention(q, k, v, use_flash=True)
+    qb = torch.randn(1, 128, 2, 128, device=card).bfloat16()
+    with pytest.raises(ValueError, match="does not take"):
+        K.flash_fwd(qb, qb, torch.randn(1, 128, 2, 64, device=card).bfloat16())
+
+
+def _sigmoid_route_inputs(card, tokens, e, k, dtype, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(tokens, e, generator=gen, device=card).to(dtype)
+    bias = 0.05 * torch.randn(e, generator=gen, device=card)
+    g = torch.randn(tokens, k, generator=gen, device=card).to(dtype)
+    return x, bias, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,e,k", [(8192, 64, 6), (2048, 8, 2), (77, 33, 3), (5, 512, 32),
+                                        (4096, 256, 8)])
+def test_sigmoid_route_kernels_are_bit_identical_to_their_plain_versions(card, tokens, e, k,
+                                                                        dtype):
+    """The sigmoid route's forward (topw, topi, scores) and backward, each
+    launched once, bit for bit their plain versions on the card."""
+    x, bias, g = _sigmoid_route_inputs(card, tokens, e, k, dtype, 21)
+    K.reset_launch_counts()
+    got = K.moe_route_sigmoid_fwd(x, bias, k, 2.446)
+    d = K.moe_route_sigmoid_bwd(g, got[2], got[1], 2.446)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_route_sigmoid_fwd": 1,
+                                 "moe_route_sigmoid_bwd": 1}
+    ref = K.moe_route_sigmoid_fwd_plain(x, bias, k, 2.446)
+    d_ref = K.moe_route_sigmoid_bwd_plain(g, ref[2], ref[1], 2.446)
+    for name, a, b in zip(("topw", "topi", "scores", "d_logits"), (*got, d), (*ref, d_ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", [(0, 8), (8, 8), (56, 8), (0, 64), (3, 5)])
+@pytest.mark.parametrize("n,e,k", [(8192 * 6, 64, 6), (600, 64, 3), (5000, 16, 2)])
+def test_moe_index_kernel_of_held_experts_equals_its_plain_version(card, n, e, k, held):
+    """The index of experts [first, first + count): order, inv, seg and the
+    held experts' ids equal the plain version's, one launch; the capacity
+    buffer it dispatches into is the full index's rows of those experts."""
+    first, count = held
+    if first + count > e:
+        pytest.skip("more experts held than the layer has")
+    gen = torch.Generator(device=card).manual_seed(19)
+    keys = torch.randint(0, e, (n,), generator=gen, device=card)
+    cap = int(2.0 * n / e)
+    K.reset_launch_counts()
+    idx = K.moe_index(keys, e, cap, k, held)
+    assert K.launch_counts() == {**dict.fromkeys(K.LAUNCHES, 0), "moe_index_held": 1}
+    ref = K.moe_index_plain(keys, e, cap, k, held)
+    for name, a, b in zip(("flat_e", "order", "inv", "seg"), idx[:4], ref[:4]):
+        assert torch.equal(a, b), name
+    y = torch.randn(n // k, 64, generator=gen, device=card).bfloat16()
+    full = K.moe_index(keys, e, cap, k)
+    assert torch.equal(K.moe_permute(y, None, idx),
+                       K.moe_permute(y, None, full)[first:first + count])
+
+
+@pytest.mark.cuda
+def test_mla_moe_step_on_the_card_matches_the_cpu(card):
+    """One fp32 Adam step of the latent-attention MoE model (flash at
+    equal heads of 64, which the fp32 kernels take, the sigmoid route, 4 of
+    16 experts held) on the card against the same step on the CPU (the
+    flash kernels' plain versions), as the MoE reference's test holds it:
+    the loss to rel 1e-5, every updated parameter to 1e-4 (|cpu| +
+    rms(cpu)), 2 lr where the first moment is near 0."""
+    from simumax_tpu_torch.torchref import mla_moe_model as M
+
+    cfg = M.MlaMoeConfig(vocab_size=512, hidden_size=256, num_attention_heads=2,
+                         qk_nope_head_dim=32, qk_rope_head_dim=32, v_head_dim=64,
+                         kv_lora_rank=64, num_hidden_layers=3, intermediate_size=256,
+                         moe_intermediate_size=64, n_routed_experts=16, experts_held=(4, 4),
+                         correction_bias_std=0.05, capacity_factor=1.0, dtype=torch.float32)
+    params = M.init_params(cfg, seed=0, device="cpu")
+    ids = torch.randint(0, 512, (2, 64), generator=torch.Generator().manual_seed(0))
+    lr, results = 1e-2, {}
+    for device in ("cuda", "cpu"):
+        init_opt, step = M.make_train_step(cfg, lr=lr)
+        p = _tree_to(params, device)
+        new, opt, loss = step(p, init_opt(p), (ids.to(device), ids.to(device)))
+        results[device] = (float(loss), [x.detach().cpu() for x in M.param_leaves(new)],
+                           [x.cpu() for x in M.param_leaves(opt["mu"])])
+    (loss_gpu, new_gpu, _), (loss_cpu, new_cpu, mu_cpu) = results["cuda"], results["cpu"]
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    for got, ref, mu in zip(new_gpu, new_cpu, mu_cpu):
+        limit = 1e-4 * (ref.abs() + ref.square().mean().sqrt())
+        limit = limit.where(mu.abs() >= 1e-3 * mu.abs().max(), limit.new_tensor(2 * lr))
+        assert bool(((got - ref).abs() <= limit).all())

@@ -1,10 +1,12 @@
 """The port's profiler spans (``simumax_tpu_torch/torchref/spans.py``) in
 CPU profiles of small training steps: ``int8_mm`` and ``q8`` inside
 ``gemm`` in the int8 products (single-device and on local shards),
-``expert_gemm`` around the MoE experts' products, one ``step`` a step
-holding its ``forward``, ``backward`` and ``optimizer``; the benchmark's
-family reading unmoved by the new spans; and no ``record_function``
-entered while no profiler runs."""
+``expert_gemm`` around the MoE experts' products, ``mla_proj`` and
+``shared_expert`` inside ``gemm`` and ``route`` inside ``moe_dispatch`` in
+the latent-attention MoE model, one ``step`` a step holding its
+``forward``, ``backward`` and ``optimizer``; the benchmark's family reading
+unmoved by the new spans; and no ``record_function`` entered while no
+profiler runs."""
 
 import json
 
@@ -12,8 +14,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from portbench import mla_spans  # noqa: E402
 from portbench import spans as pb_spans  # noqa: E402
 from portbench import trace  # noqa: E402
+from simumax_tpu_torch.torchref import mla_moe_model as MLA  # noqa: E402
 from simumax_tpu_torch.torchref import model as M  # noqa: E402
 from simumax_tpu_torch.torchref import moe_model as MoE  # noqa: E402
 from simumax_tpu_torch.torchref import quantized as Q  # noqa: E402
@@ -41,6 +45,16 @@ def _moe():
                         dtype=torch.float32)
     params = MoE.init_params(cfg, seed=0, device="cpu")
     init_opt, step = MoE.make_train_step(cfg)
+    return cfg, params, init_opt(params), step
+
+
+def _mla():
+    cfg = MLA.MlaMoeConfig(vocab_size=256, hidden_size=64, num_attention_heads=2,
+                           kv_lora_rank=32, num_hidden_layers=3, intermediate_size=128,
+                           moe_intermediate_size=32, n_routed_experts=16, experts_held=(4, 4),
+                           correction_bias_std=0.05, dtype=torch.float32, use_flash_attn=True)
+    params = MLA.init_params(cfg, seed=0, device="cpu")
+    init_opt, step = MLA.make_train_step(cfg)
     return cfg, params, init_opt(params), step
 
 
@@ -182,8 +196,8 @@ def test_each_expert_product_runs_in_an_expert_gemm_span_inside_gemm(tmp_path):
     assert set(regions) == {"expert_gemm", "attention"}
 
 
-@pytest.mark.parametrize("make", [lambda: _dense(False), lambda: _dense(True), _moe],
-                         ids=["bf16", "int8", "moe"])
+@pytest.mark.parametrize("make", [lambda: _dense(False), lambda: _dense(True), _moe, _mla],
+                         ids=["bf16", "int8", "moe", "mla_moe"])
 def test_one_step_span_a_step_holds_its_phases(make, tmp_path):
     events = _step_events(make, tmp_path / "t.json", steps=2)
     step = _ranges(events, "step")
@@ -199,8 +213,8 @@ def test_one_step_span_a_step_holds_its_phases(make, tmp_path):
         assert [r for r in _ranges(events, "cross_entropy") if _within(r, fwd[0])]
 
 
-@pytest.mark.parametrize("make", [lambda: _dense(False), lambda: _dense(True), _moe],
-                         ids=["bf16", "int8", "moe"])
+@pytest.mark.parametrize("make", [lambda: _dense(False), lambda: _dense(True), _moe, _mla],
+                         ids=["bf16", "int8", "moe", "mla_moe"])
 def test_the_benchmark_reads_the_same_families_with_the_new_spans(make, tmp_path):
     """``portbench/trace.py`` skips the ranges it does not know: each host
     op lands in the same family with the new spans as without them."""
@@ -226,7 +240,7 @@ def test_no_record_function_without_a_profiler(monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "record_function", counted)
     ids = _ids()
-    for make in (lambda: _dense(True), _moe):
+    for make in (lambda: _dense(True), _moe, _mla):
         _cfg, params, opt, step = make()
         step(params, opt, (ids, ids))
     with spans.span("step"), spans.op_family("gemm"):
@@ -239,6 +253,38 @@ def test_no_record_function_without_a_profiler(monkeypatch):
         with spans.span("step"), spans.op_family("gemm"):
             pass
     assert entered == ["step", "gemm"]
+
+
+def test_the_latent_attention_moe_step_has_its_spans_inside_their_families(tmp_path):
+    """``mla_proj`` around the three latent projections of each layer and
+    ``shared_expert`` around the shared experts' two products of each
+    expert layer, inside ``gemm``; ``route`` around each expert layer's
+    router product, route and index, inside ``moe_dispatch``; the
+    benchmark's reading of them (``portbench/mla_spans.py``) takes the
+    forward products and, by sequence number, their backwards."""
+    events = _step_events(_mla, tmp_path / "t.json")
+    mla_proj, shared, route = (_ranges(events, n) for n in ("mla_proj", "shared_expert", "route"))
+    assert len(mla_proj) == 2 * 3  # (q_proj with kv_a_proj_with_mqa, kv_b_proj) a layer
+    assert len(shared) == 2 * 2 and len(route) == 2  # two expert layers
+    assert all(_inside(r, _ranges(events, "gemm")) for r in mla_proj + shared)
+    assert all(_inside(r, _ranges(events, "moe_dispatch")) for r in route)
+    mm = [e for e in _ops(events, "aten::mm") if "Sequence number" in e["args"]]
+    in_mla = [e for e in mm if _inside(e, mla_proj)]
+    in_shared = [e for e in mm if _inside(e, shared)]
+    in_route = [e for e in mm if _inside(e, route)]
+    assert (len(in_mla), len(in_shared), len(in_route)) == (3 * 3, 2 * 2, 2)
+    ops = _ops(events, "aten::mm")
+    regions = pb_spans.host_regions(events, [(e["tid"], e["ts"] + e["dur"] / 2) for e in ops],
+                                    mla_spans.REGIONS)
+    # each forward product and the two of its backward (dgrad and wgrad)
+    assert regions.count("mla_proj") == 3 * 9
+    assert regions.count("shared_expert") == 3 * 4
+    assert regions.count("route") == 3 * 2
+    # portbench/spans.py, which knows none of them, puts the same ops in
+    # the enclosing families
+    base = pb_spans.host_regions(events, [(e["tid"], e["ts"] + e["dur"] / 2) for e in ops])
+    for new, old in zip(regions, base):
+        assert old == mla_spans.PARTS.get(new, new)
 
 
 def test_span_names_are_checked():
